@@ -1,0 +1,601 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass:
+
+1. Build the hand-written kernels of ``upflow_pytorch_tpu_torch/csrc/``
+   (nvcc, sm_90a) and print the build time and ptxas' register counts.
+2. Hold every kernel against its plain PyTorch version on the card, at the
+   shapes of the main path (B=4, 384x1280: every decode level, and the
+   occlusion warp), and time kernel, plain version and, where one exists,
+   the PyTorch library call that computes the same function.
+3. Serve three requests through ``build_model`` / ``forward`` with the
+   checkpoint ``assets/synthetic_trained.npz``: count the kernel launches
+   of each forward, then hold the kernel path against the plain path on
+   the card and time both.
+
+The line before the last is the card's name and power limit; the line
+before that holds the kernels' numbers as JSON.  The last line,
+``{"ok": true, "device": ...}``, is printed only when every check passed;
+any failure exits non-zero without it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+NPZ = ROOT / "assets" / "synthetic_trained.npz"
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 outside the
+# tensor cores.  bound_ms is the larger of bytes / HBM and ops / FP32.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+# the slice: the eval recipe without SGU, fp32
+SLICE_KNOBS = dict(if_norm_before_cost_volume=True,
+                   norm_moments_across_channels=False,
+                   norm_moments_across_images=False,
+                   if_sgu_upsample=False, if_use_cor_pytorch=False)
+NORM_KW = dict(normalize=True, center=True, moments_across_channels=False,
+               moments_across_images=False)
+MAIN_B, MAIN_H, MAIN_W = 4, 384, 1280
+PYRAMID_CHS = (196, 128, 96, 64, 32)  # decode levels 0..4, coarsest first
+# (batch, height, width, seed); the second is KITTI's native size, whose
+# pyramid shapes are ragged
+REQUESTS = [(4, 384, 1280, 1), (1, 375, 1242, 2), (4, 384, 1280, 3)]
+# kernel launches of one forward: level 0 correlates both directions,
+# levels 1-4 warp and correlate both directions, the occlusion check warps
+# both flows
+LAUNCHES_PER_FORWARD = {"correlation": 2, "feature_warp": 8,
+                        "corr_norm": 8, "warp": 2}
+RELAXED_THRESHOLD = 0.9999
+DEV = "cuda"
+# the port's kernels by the profiler's kernel names
+KERNEL_OF = (("corr_kernel<false>", "correlation"),
+             ("corr_kernel<true>", "corr_norm"),
+             ("feature_warp_kernel", "feature_warp"),
+             ("warp_kernel", "warp"))
+KERNEL_KEY = {name: key for key, name in KERNEL_OF}
+
+failures = []
+
+
+def check(ok: bool, what: str) -> None:
+    print(("  ok   " if ok else "  FAIL ") + what, flush=True)
+    if not ok:
+        failures.append(what)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def pyramid_hw(h: int, w: int):
+    """(h, w) of decode levels 0..4: six stride-2 convs (pad 1, k 3) give
+    ceil(x / 2) each; the decoder runs on the coarsest five."""
+    sizes = []
+    for _ in range(6):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        sizes.append((h, w))
+    return sizes[::-1][:5]
+
+
+def time_ms(fn, reps: int = 21, inner: int = 10) -> float:
+    """Median over ``reps`` CUDA-event windows of ``inner`` back-to-back
+    calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def device_ms(fn, key=None, calls: int = 21):
+    """Device time per call of ``fn``, from torch.profiler over ``calls``
+    calls: of the kernels whose names hold ``key``, or of every kernel
+    with no key (None if the profiler saw none).  Unlike ``time_ms`` it
+    leaves out the host's time to launch a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and (key is None or key in e.name)]
+    return sum(us) / calls / 1e3 if us else None
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def make_flow(rng, b, h, w, amp):
+    """Smooth, large, near-integer flow (B, 2, H, W): a coarse random field
+    of amplitude ``amp`` px upsampled, rounded, plus 0.05 px of noise, so
+    sample coordinates sit next to integers, where the >= 1.0 mask is
+    chaotic, and the edges point out of the frame."""
+    coarse = torch.from_numpy(
+        (rng.rand(b, 2, 4, 6).astype(np.float32) - 0.5) * 2 * amp)
+    smooth = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                           align_corners=True).round()
+    noise = torch.from_numpy(
+        ((rng.rand(b, 2, h, w) - 0.5) * 0.05).astype(np.float32))
+    return (smooth + noise).to(DEV).contiguous()
+
+
+def grid_of(flow: torch.Tensor) -> torch.Tensor:
+    """grid_sample's normalised grid for a (B, 2, H, W) flow (the library
+    yardstick's input, built outside its timing)."""
+    _, _, h, w = flow.shape
+    xs = torch.arange(w, device=flow.device, dtype=torch.float32)
+    ys = torch.arange(h, device=flow.device, dtype=torch.float32)
+    gx = 2.0 * (xs[None, None] + flow[:, 0]) / max(w - 1, 1) - 1.0
+    gy = 2.0 * (ys[None, :, None] + flow[:, 1]) / max(h - 1, 1) - 1.0
+    return torch.stack([gx, gy], dim=-1).contiguous()
+
+
+def grid_sample(x, grid):
+    return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=True)
+
+
+def phase_kernels(k):
+    """Each kernel against its plain version at the main path's shapes.
+    Returns per-kernel lists of per-shape measurements."""
+    rng = np.random.RandomState(0)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    levels = pyramid_hw(MAIN_H, MAIN_W)
+    rows = {name: [] for name in LAUNCHES_PER_FORWARD}
+
+    def record(name, shape, err, fn, plain, nbytes, ops, library=None,
+               per_forward=2):
+        t_bound, by = bound_ms(nbytes, ops)
+        rows[name].append(dict(
+            shape=shape, max_abs_err=err, per_forward=per_forward,
+            ms=time_ms(fn),
+            device_ms=device_ms(fn, KERNEL_KEY[name]),
+            plain_ms=time_ms(plain),
+            library_ms=None if library is None else time_ms(library),
+            library_device_ms=(None if library is None
+                               else device_ms(library)),
+            bound_ms=t_bound, bound_by=by))
+
+    # kernel 1: plain correlation at decode level 0
+    c = PYRAMID_CHS[0]
+    h, w = levels[0]
+    f1 = randn(MAIN_B, c, h, w)
+    f2 = randn(MAIN_B, c, h, w)
+    got = k.corr.correlation(f1, f2)
+    ref = k.corr.correlation_plain(f1, f2)
+    err = (got - ref).abs().max().item()
+    check(err <= 1e-5 * ref.abs().max().item(),
+          "correlation %s: max abs err %.3e (bound 1e-5 x max|out| = %.3e)"
+          % (tuple(f1.shape), err, 1e-5 * ref.abs().max().item()))
+    px = MAIN_B * h * w
+    record("correlation", list(f1.shape), err,
+           lambda: k.corr.correlation(f1, f2),
+           lambda: k.corr.correlation_plain(f1, f2),
+           4 * (2 * px * c + 81 * px), px * (162 * c + 81))
+
+    # kernels 2 and 3 at decode levels 1-4
+    for level in range(1, 5):
+        c = PYRAMID_CHS[level]
+        h, w = levels[level]
+        amp = max(2.0, min(40.0, w / 4))
+        x = randn(MAIN_B, c, h, w) * 2 + 0.5
+        flow = make_flow(rng, MAIN_B, h, w, amp)
+        out, mask = k.fw.feature_warp(x, flow, 1.0, with_mask=True)
+        ref, ref_mask = k.fw.feature_warp_plain(x, flow, 1.0, with_mask=True)
+        err = (out - ref).abs().max().item()
+        flips = int((mask != ref_mask).sum().item())
+        check(err <= 1e-6 and flips == 0,
+              "feature_warp level %d %s, flow +-%g px: max abs err %.3e, "
+              "%d of %d mask bits differ (valid share %.4f)"
+              % (level, tuple(x.shape), amp, err, flips, mask.numel(),
+                 mask.mean().item()))
+        check(0.0 < mask.mean().item() < 1.0,
+              "feature_warp level %d: the mask has both values" % level)
+        grid = grid_of(flow)
+        px = MAIN_B * h * w
+        record("feature_warp", list(x.shape), err,
+               lambda: k.fw.feature_warp(x, flow, 1.0),
+               lambda: k.fw.feature_warp_plain(x, flow, 1.0),
+               4 * (2 * px * c + 2 * px), px * (30 + 8 * c),
+               library=lambda: grid_sample(x, grid))
+
+        f_tgt = randn(MAIN_B, c, h, w) * 3 - 1
+        warped = ref
+        m1, v1 = k.cn.moments(f_tgt, False)
+        m2, v2 = k.cn.moments(warped, False)
+        aff = k.cn.affine_pair(m1, v1, m2, v2, NORM_KW)
+        got = k.cn.corr_norm(f_tgt, warped, aff, 0.1)
+        ref = k.cn.corr_norm_plain(f_tgt, warped, aff, 0.1)
+        err = (got - ref).abs().max().item()
+        check(err <= 1e-5 * ref.abs().max().item(),
+              "corr_norm level %d %s: max abs err %.3e (bound %.3e)"
+              % (level, tuple(f_tgt.shape), err,
+                 1e-5 * ref.abs().max().item()))
+        record("corr_norm", list(f_tgt.shape), err,
+               lambda: k.cn.corr_norm(f_tgt, warped, aff, 0.1),
+               lambda: k.cn.corr_norm_plain(f_tgt, warped, aff, 0.1),
+               4 * (2 * px * c + MAIN_B * 4 * c + 81 * px),
+               px * (162 * c + 4 * c + 162))
+
+    # kernel 4: the occlusion check's flow warp at full resolution
+    flow_src = make_flow(rng, MAIN_B, MAIN_H, MAIN_W, 40.0)
+    flow = make_flow(rng, MAIN_B, MAIN_H, MAIN_W, 40.0)
+    got = k.warp.warp(flow_src, flow)
+    ref = k.warp.warp_plain(flow_src, flow)
+    err = (got - ref).abs().max().item()
+    check(err <= 1e-6,
+          "warp %s, flow +-40 px: max abs err %.3e"
+          % (tuple(flow_src.shape), err))
+    grid = grid_of(flow)
+    lib_err = (grid_sample(flow_src, grid) - got).abs().max().item()
+    print("  info warp vs grid_sample (yardstick only): max abs diff %.3e"
+          % lib_err)
+    px = MAIN_B * MAIN_H * MAIN_W
+    record("warp", list(flow_src.shape), err,
+           lambda: k.warp.warp(flow_src, flow),
+           lambda: k.warp.warp_plain(flow_src, flow),
+           4 * (2 * px * 2 + 2 * px), px * (30 + 7 * 2),
+           library=lambda: grid_sample(flow_src, grid))
+    return rows
+
+
+def textured_pair(b, h, w, seed, shift=(3, -5)):
+    """NHWC frames in [0, 1]: smooth random texture plus fine noise; frame
+    2 reads frame 1 at an offset of ``shift`` = (dy, dx) pixels, so the
+    true flow is (u, v) = (-dx, -dy)."""
+    rng = np.random.RandomState(seed)
+    pad = 8
+    hh, ww = h + 2 * pad, w + 2 * pad
+    yy, xx = np.mgrid[0:hh, 0:ww].astype(np.float32)
+    canvas = np.zeros((b, hh, ww, 3), np.float32)
+    for _ in range(6):
+        fy, fx = rng.uniform(0.01, 0.2, size=2)
+        phase = rng.uniform(0, 2 * np.pi, size=(b, 1, 1, 3))
+        amp = rng.uniform(0.2, 1.0, size=(b, 1, 1, 3))
+        canvas += amp * np.sin(fy * yy[None, :, :, None]
+                               + fx * xx[None, :, :, None] + phase)
+    canvas += 0.3 * rng.randn(b, hh, ww, 3).astype(np.float32)
+    canvas = (canvas - canvas.min()) / (canvas.max() - canvas.min())
+    dy, dx = shift
+    im1 = canvas[:, pad:pad + h, pad:pad + w]
+    im2 = canvas[:, pad + dy:pad + dy + h, pad + dx:pad + dx + w]
+    return (np.ascontiguousarray(im1, np.float32),
+            np.ascontiguousarray(im2, np.float32))
+
+
+@contextlib.contextmanager
+def plain_path(k):
+    """Routes the model's calls to the plain versions (CUDA tensors
+    included) for the comparison run; the kernels stay untouched."""
+    saved = [(k.upflow, "correlation", k.upflow.correlation),
+             (k.cn, "corr_norm", k.cn.corr_norm),
+             (k.fw, "feature_warp", k.fw.feature_warp),
+             (k.warp, "warp", k.warp.warp)]
+    k.upflow.correlation = k.corr.correlation_plain
+    k.cn.corr_norm = k.cn.corr_norm_plain
+    k.fw.feature_warp = k.fw.feature_warp_plain
+    k.warp.warp = k.warp.warp_plain
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def flow_diffs(a, b):
+    d = torch.cat([(a[key] - b[key]).abs().flatten()
+                   for key in ("flow_f_out", "flow_b_out")])
+    return d.mean().item(), torch.quantile(d.double(), 0.999).item()
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_serve(k):
+    """Three requests through the entry points; returns the launch counts
+    of the main path's run and the per-request times."""
+    conf = k.UPFlowConfig().updated(SLICE_KNOBS)
+    t0 = time.perf_counter()
+    model = k.upflow.build_model(conf, weights=str(NPZ))
+    print("  model on %s in %.1f s: %d parameters, %d snapshot arrays "
+          "skipped (SGU)" % (next(model.parameters()).device,
+                             time.perf_counter() - t0,
+                             sum(p.numel() for p in model.parameters()),
+                             len(model.skipped_keys)))
+    pairs = [textured_pair(b, h, w, seed) for b, h, w, seed in REQUESTS]
+
+    # the main path: every count 0 just before, read just after
+    for fn in k.dispatch.values():
+        fn.launches = 0
+    for fn in k.plain.values():
+        fn.cuda_calls = 0
+    outs = []
+    for (b, h, w, seed), (im1, im2) in zip(REQUESTS, pairs):
+        before = {n: fn.launches for n, fn in k.dispatch.items()}
+        out = k.upflow.forward(model, im1, im2)
+        torch.cuda.synchronize()
+        outs.append(out)
+        delta = {n: fn.launches - before[n] for n, fn in k.dispatch.items()}
+        check(delta == LAUNCHES_PER_FORWARD,
+              "request %dx%dx%d: launches %s" % (b, h, w, delta))
+        for key, ch in (("flow_f_out", 2), ("flow_b_out", 2),
+                        ("occ_fw", 1), ("occ_bw", 1)):
+            t = out[key]
+            check(tuple(t.shape) == (b, h, w, ch) and t.is_cuda
+                  and bool(torch.isfinite(t).all()),
+                  "request %dx%dx%d: %s %s finite on %s"
+                  % (b, h, w, key, tuple(t.shape), t.device))
+        check(bool(((out["occ_fw"] == 0) | (out["occ_fw"] == 1)).all()),
+              "request %dx%dx%d: occlusion mask in {0, 1}" % (b, h, w))
+        check(len(out["flows"]) == 5, "request %dx%dx%d: 5 levels"
+              % (b, h, w))
+        print("  info request %dx%dx%d: mean flow (u, v) = (%.3f, %.3f); "
+              "the frames are shifted by (5, -3) px"
+              % ((b, h, w) + tuple(out["flow_f_out"].mean(dim=(0, 1, 2))
+                                   .tolist())))
+    launches = {n: fn.launches for n, fn in k.dispatch.items()}
+    plain_calls = {n: fn.cuda_calls for n, fn in k.plain.items()}
+    check(all(v > 0 for v in launches.values()),
+          "main path launched every kernel: %s" % launches)
+    check(all(v == 0 for v in plain_calls.values()),
+          "no plain version ran on CUDA tensors in the main path: %s"
+          % plain_calls)
+
+    # kernel path against plain path on the card, relaxed threshold
+    timing = []
+    k.warp_ops.MASK_THRESHOLD = RELAXED_THRESHOLD
+    try:
+        for (b, h, w, seed), (im1, im2) in zip(REQUESTS, pairs):
+            fast = k.upflow.forward(model, im1, im2)
+            before = {n: fn.launches for n, fn in k.dispatch.items()}
+            with plain_path(k):
+                plain = k.upflow.forward(model, im1, im2)
+            torch.cuda.synchronize()
+            check(all(fn.launches == before[n]
+                      for n, fn in k.dispatch.items()),
+                  "request %dx%dx%d: the plain path launched no kernel"
+                  % (b, h, w))
+            mean, p999 = flow_diffs(fast, plain)
+            check(mean < 1e-4 and p999 < 1e-3,
+                  "request %dx%dx%d at threshold %g: kernel vs plain path "
+                  "flow |diff| mean %.3e px (< 1e-4), p99.9 %.3e px "
+                  "(< 1e-3)" % (b, h, w, RELAXED_THRESHOLD, mean, p999))
+            for key in ("occ_fw", "occ_bw"):
+                frac = (fast[key] != plain[key]).float().mean().item()
+                check(frac < 1e-3, "request %dx%dx%d: %s disagrees on "
+                      "%.2e of pixels (< 1e-3)" % (b, h, w, key, frac))
+            levels = max(max((ff - pf).abs().max().item(),
+                             (fb - pb).abs().max().item())
+                         for (ff, fb), (pf, pb) in zip(fast["flows"],
+                                                       plain["flows"]))
+            print("  info request %dx%dx%d: per-level flow max |diff| "
+                  "%.3e px" % (b, h, w, levels))
+            fast_ms = wall_ms(lambda: k.upflow.forward(model, im1, im2))
+            with plain_path(k):
+                plain_ms = wall_ms(lambda: k.upflow.forward(model, im1, im2))
+            timing.append(dict(request=[b, h, w], kernel_ms=fast_ms,
+                               plain_ms=plain_ms))
+            print("  info request %dx%dx%d: forward %.2f ms (kernels), "
+                  "%.2f ms (plain versions)" % (b, h, w, fast_ms, plain_ms))
+    finally:
+        k.warp_ops.MASK_THRESHOLD = 1.0
+    return launches, timing, model, pairs[0]
+
+# cuDNN's kernel names, FFT-based convolutions included
+CONV_WORDS = ("conv", "gemm", "xmma", "cudnn", "winograd", "implicit", "fft",
+              "region_transform")
+
+
+def phase_profile(k, model, pair):
+    """One forward of the first request under torch.profiler: device time
+    by kernel, by kind, and the device's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    im1, im2 = pair
+    k.upflow.forward(model, im1, im2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        k.upflow.forward(model, im1, im2)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+    busy_us = sum(by_name.values())
+    if busy_us == 0:
+        print("  info the profiler recorded no device time")
+        return
+    kinds = {"port kernels": 0.0, "convolutions": 0.0, "memcpy": 0.0,
+             "other": 0.0}
+    port = {name: 0.0 for _, name in KERNEL_OF}
+    for kname, us in by_name.items():
+        mine = next((n for key, n in KERNEL_OF if key in kname), None)
+        if mine is not None:
+            port[mine] += us
+            kinds["port kernels"] += us
+        elif "memcpy" in kname.lower():
+            kinds["memcpy"] += us
+        elif any(w in kname.lower() for w in CONV_WORDS):
+            kinds["convolutions"] += us
+        else:
+            kinds["other"] += us
+    print("  info forward %dx%dx%d: wall %.0f us, device busy %.0f us "
+          "(%.1f%%)" % (im1.shape[:3] + (wall_us, busy_us,
+                                         100 * busy_us / wall_us)))
+    for kind, us in kinds.items():
+        print("  info   %-13s %9.0f us  %5.1f%% of device time"
+              % (kind, us, 100 * us / busy_us))
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print("  info   %9.0f us  %s" % (us, kname[:110]))
+    print("  info port kernels' device us in this forward: %s"
+          % {n: round(us, 1) for n, us in port.items()})
+
+
+class Port:
+    """The port's modules, imported once the card is known to be there."""
+
+    def __init__(self):
+        sys.path.insert(0, str(ROOT))
+        from upflow_pytorch_tpu_torch import _build
+        from upflow_pytorch_tpu_torch.config import UPFlowConfig
+        from upflow_pytorch_tpu_torch.models import upflow
+        from upflow_pytorch_tpu_torch.ops import warp as warp_ops
+        from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as cn
+        from upflow_pytorch_tpu_torch.ops.kernels import correlation as corr
+        from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as fw
+        from upflow_pytorch_tpu_torch.ops.kernels import warp
+
+        self.build, self.UPFlowConfig = _build, UPFlowConfig
+        self.upflow = upflow
+        self.warp_ops, self.cn, self.corr, self.fw, self.warp = (
+            warp_ops, cn, corr, fw, warp)
+        self.dispatch = {"correlation": corr.correlation,
+                         "feature_warp": fw.feature_warp,
+                         "corr_norm": cn.corr_norm, "warp": warp.warp}
+        self.plain = {"correlation": corr.correlation_plain,
+                      "feature_warp": fw.feature_warp_plain,
+                      "corr_norm": cn.corr_norm_plain,
+                      "warp": warp.warp_plain}
+
+
+SOURCES = {
+    "correlation": ("upflow_pytorch_tpu_torch/csrc/correlation.cu",
+                    "upflow_pytorch_tpu/ops/pallas/correlation.py:90"),
+    "feature_warp": ("upflow_pytorch_tpu_torch/csrc/feature_warp.cu",
+                     "upflow_pytorch_tpu/ops/pallas/feature_warp.py:208"),
+    "corr_norm": ("upflow_pytorch_tpu_torch/csrc/corr_norm.cu",
+                  "upflow_pytorch_tpu/ops/pallas/corr_norm.py:122"),
+    "warp": ("upflow_pytorch_tpu_torch/csrc/warp.cu",
+             "upflow_pytorch_tpu/ops/pallas/warp.py:368"),
+}
+
+
+def kernels_line(rows, launches):
+    """One entry per kernel; times are per forward at B=4, 384x1280: the
+    sum over the kernel's calls in one forward (two directions per level).
+    ``ms`` is CUDA-event time per call, ``device_ms`` the profiler's
+    device time of the same calls."""
+    out = []
+    for name, shapes in rows.items():
+        def total(key):
+            if any(r[key] is None for r in shapes):
+                return None
+            return sum(r[key] * r["per_forward"] for r in shapes)
+        lib = total("library_ms")
+        by = ("bytes" if all(r["bound_by"] == "bytes" for r in shapes)
+              else "operations")
+        out.append(dict(
+            name=name, route="cuda", source=SOURCES[name][0],
+            replaces=SOURCES[name][1], launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in shapes),
+            ms=total("ms"),
+            plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by=by, library_ms=lib, device_ms=total("device_ms"),
+            library_device_ms=total("library_device_ms"), per_call=shapes))
+    return {"kernels": out}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs the "
+              "GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "upflow_pytorch_tpu_torch").is_dir() or not NPZ.exists():
+        print("chip_smoke: run from a checkout of the repository (the "
+              "package and assets/ are missing)", file=sys.stderr)
+        return 2
+    k = Port()
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print("device: %s (torch %s, CUDA %s)" % (name, torch.__version__,
+                                               torch.version.cuda))
+    print("nvidia-smi: %s" % smi)
+
+    print("phase 1: build", flush=True)
+    t0 = time.perf_counter()
+    lib = k.build.build()
+    print("  built %s in %.1f s" % (lib.name, time.perf_counter() - t0))
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'|Used \d+ registers"
+                      r".*|\d+ bytes spill.*", line)
+        if m:
+            print("  ptxas " + m.group(0))
+
+    print("phase 2: kernels against their plain versions", flush=True)
+    rows = phase_kernels(k)
+    print("phase 3: serve requests", flush=True)
+    launches, timing, model, pair = phase_serve(k)
+    print("phase 4: profile one forward", flush=True)
+    phase_profile(k, model, pair)
+
+    print(json.dumps({"forward_ms": timing}))
+    print(json.dumps(kernels_line(rows, launches)))
+    print(smi)
+    if failures:
+        print("chip_smoke: %d check(s) failed:\n  %s"
+              % (len(failures), "\n  ".join(failures)), file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,142 @@
+"""Kernel 3: the normalised correlation + LeakyReLU (``csrc/corr_norm.cu``).
+
+Replaces ``upflow_pytorch_tpu/ops/pallas/corr_norm.py::
+corr_norm_window_pallas``.  Memory-bound on the H100; the source note in
+the ``.cu`` file says how the design meets that.
+
+Per-channel normalisation collapses to an affine ``(f - m) * rstd`` whose
+(B, 4, C) scalars [m1, rstd1, m2, rstd2] torch reduces from the
+un-normalised maps (``moments`` / ``affine_pair``); the kernel applies it
+while staging, zeroes out-of-image taps after it, correlates and applies
+the LeakyReLU, so no normalised map reaches device memory.
+
+``warp_norm_corr`` is the decoder's per-level segment at levels >= 1:
+masked feature warp (kernel 2) -> torch moments -> this kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from upflow_pytorch_tpu_torch import _build
+from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as kfw
+from upflow_pytorch_tpu_torch.ops.kernels._common import (
+    FLOAT, INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
+    stream_of)
+from upflow_pytorch_tpu_torch.ops.kernels.correlation import (
+    KERNEL_DISP, correlation_plain)
+
+
+def moments(f: torch.Tensor, across_channels: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, C, H, W) -> mean and UNBIASED variance, each (B, C)."""
+    b, c, h, w = f.shape
+    f = f.float()
+    dims = (1, 2, 3) if across_channels else (2, 3)
+    n = h * w * c if across_channels else h * w
+    mean = f.sum(dim=dims, keepdim=True) / n
+    var = ((f - mean) ** 2).sum(dim=dims) / max(n - 1, 1)
+    mean = mean.reshape(b, -1)
+    if across_channels:
+        return mean.expand(b, c), var.reshape(b, 1).expand(b, c)
+    return mean, var
+
+
+def affine_pair(m1, v1, m2, v2, norm_kw: dict) -> torch.Tensor:
+    """(B, C) moments -> (B, 4, C) [m1, rstd1, m2, rstd2] per the
+    normalize_features knobs, including the cross-image var-OF-vars quirk
+    (for two images, the unbiased variance of {v1, v2})."""
+    if norm_kw["moments_across_images"]:
+        m_all = (m1 + m2) * 0.5
+        v_bar = (v1 + v2) * 0.5
+        v_all = (v1 - v_bar) ** 2 + (v2 - v_bar) ** 2  # /(n-1), n=2
+        m1 = m2 = m_all
+        v1 = v2 = v_all
+    ones = torch.ones_like(m1)
+    r1 = torch.rsqrt(v1 + 1e-16) if norm_kw["normalize"] else ones
+    r2 = torch.rsqrt(v2 + 1e-16) if norm_kw["normalize"] else ones
+    if not norm_kw["center"]:
+        m1 = m2 = torch.zeros_like(m1)
+    return torch.stack([m1, r1, m2, r2], dim=1).contiguous()
+
+
+def corr_norm_plain(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
+                    leaky_slope: Optional[float]) -> torch.Tensor:
+    """Plain PyTorch version: affine both maps, zero-padded correlation of
+    the normalised maps, LeakyReLU."""
+    count_cuda_call(corr_norm_plain, f1, f2, aff)
+    f1n = (f1.float() - aff[:, 0, :, None, None]) * aff[:, 1, :, None, None]
+    f2n = (f2.float() - aff[:, 2, :, None, None]) * aff[:, 3, :, None, None]
+    out = correlation_plain(f1n, f2n, KERNEL_DISP)
+    if leaky_slope is not None:
+        out = F.leaky_relu(out, negative_slope=leaky_slope)
+    return out
+
+
+corr_norm_plain.cuda_calls = 0
+
+
+def corr_norm_cuda(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
+                   leaky_slope: Optional[float]) -> torch.Tensor:
+    """Launches ``upflow_corr_norm`` on the current stream."""
+    op = "corr_norm"
+    check_cuda_input(op, "f1", f1, (None, None, None, None))
+    b, c, h, w = f1.shape
+    if c == 0:
+        raise ValueError("%s: no channels" % op)
+    check_cuda_input(op, "f2", f2, (b, c, h, w), f1.device)
+    check_cuda_input(op, "aff", aff, (b, 4, c), f1.device)
+    k = 2 * KERNEL_DISP + 1
+    out = torch.empty((b, k * k, h, w), dtype=torch.float32, device=f1.device)
+    # LeakyReLU with slope 1 is the identity
+    slope = 1.0 if leaky_slope is None else float(leaky_slope)
+    fn = _build.kernel_fn("upflow_corr_norm",
+                          [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
+    with torch.cuda.device(f1.device):
+        corr_norm.launches += 1
+        code = fn(f1.data_ptr(), f2.data_ptr(), aff.data_ptr(),
+                  out.data_ptr(), b, c, h, w, slope, stream_of(f1))
+    _build.check_launch(op, code)
+    return out
+
+
+def corr_norm(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
+              leaky_slope: Optional[float]) -> torch.Tensor:
+    """Normalised correlation: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if f1.is_cuda:
+        return corr_norm_cuda(f1, f2, aff, leaky_slope)
+    check_cpu_input("corr_norm", f1)
+    return corr_norm_plain(f1, f2, aff, leaky_slope)
+
+
+corr_norm.launches = 0
+
+
+def warp_norm_corr(f_tgt: torch.Tensor, f_src: torch.Tensor,
+                   flow: torch.Tensor, norm_kw: Optional[dict],
+                   leaky_slope: Optional[float], mask_thr: float
+                   ) -> torch.Tensor:
+    """``leaky(corr(norm(f_tgt), norm(masked_warp(f_src, flow))))``.
+
+    NCHW maps (B, C, H, W), flow (B, 2, H, W); output (B, 81, H, W).
+    ``norm_kw``: the normalize_features knobs, or None for no
+    normalisation.
+    """
+    warped = kfw.feature_warp(f_src.float().contiguous(),
+                              flow.float().contiguous(), mask_thr)
+    f_tgt = f_tgt.float().contiguous()
+    if norm_kw is not None:
+        ac = norm_kw["moments_across_channels"]
+        m1, v1 = moments(f_tgt, ac)
+        m2, v2 = moments(warped, ac)
+        aff = affine_pair(m1, v1, m2, v2, norm_kw)
+    else:
+        b, c = f_tgt.shape[:2]
+        zeros = f_tgt.new_zeros((b, c))
+        ones = f_tgt.new_ones((b, c))
+        aff = torch.stack([zeros, ones, zeros, ones], dim=1)
+    return corr_norm(f_tgt, warped, aff, leaky_slope)

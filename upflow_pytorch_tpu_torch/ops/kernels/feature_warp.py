@@ -1,0 +1,75 @@
+"""Kernel 2: the masked bilinear feature warp (``csrc/feature_warp.cu``).
+
+Replaces ``upflow_pytorch_tpu/ops/pallas/feature_warp.py::
+feature_warp_window_pallas``: ``WarpingLayer_no_div``, the zero-padded
+bilinear warp of a (B, C, H, W) feature map by a (B, 2, H, W) flow, times
+``mask = (warped all-ones >= thr)``.  Memory-bound on the H100; the
+source note in the ``.cu`` file says how the design meets that.
+
+The kernel reproduces ``ops/warp.py``'s arithmetic op for op, so kernel
+and plain version agree bit for bit, mask bits included.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+
+from upflow_pytorch_tpu_torch import _build
+from upflow_pytorch_tpu_torch.ops import warp as _w
+from upflow_pytorch_tpu_torch.ops.kernels._common import (
+    FLOAT, INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
+    stream_of)
+
+Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def feature_warp_plain(x: torch.Tensor, flow: torch.Tensor, thr: float,
+                       with_mask: bool = False) -> Result:
+    """Plain PyTorch version: returns ``warp(x) * mask`` and, with
+    ``with_mask``, the (B, H, W) mask."""
+    count_cuda_call(feature_warp_plain, x, flow)
+    _, _, ih, iw = x.shape
+    px, py = _w.abs_coords_torch_grid(flow)
+    out = _w.bilinear_sample(x, px, py)
+    mask = (_w._analytic_wsum(ih, iw, px, py) >= thr).float()
+    out = out * mask[:, None]
+    return (out, mask) if with_mask else out
+
+
+feature_warp_plain.cuda_calls = 0
+
+
+def feature_warp_cuda(x: torch.Tensor, flow: torch.Tensor, thr: float,
+                      with_mask: bool = False) -> Result:
+    """Launches ``upflow_feature_warp`` on the current stream."""
+    op = "feature_warp"
+    check_cuda_input(op, "x", x, (None, None, None, None))
+    b, c, h, w = x.shape
+    check_cuda_input(op, "flow", flow, (b, 2, h, w), x.device)
+    out = torch.empty_like(x)
+    mask = (torch.empty((b, h, w), dtype=torch.float32, device=x.device)
+            if with_mask else None)
+    fn = _build.kernel_fn("upflow_feature_warp",
+                          [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
+    with torch.cuda.device(x.device):
+        feature_warp.launches += 1
+        code = fn(x.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                  mask.data_ptr() if with_mask else None, b, c, h, w,
+                  float(thr), stream_of(x))
+    _build.check_launch(op, code)
+    return (out, mask) if with_mask else out
+
+
+def feature_warp(x: torch.Tensor, flow: torch.Tensor, thr: float,
+                 with_mask: bool = False) -> Result:
+    """Masked warp: the kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if x.is_cuda:
+        return feature_warp_cuda(x, flow, thr, with_mask)
+    check_cpu_input("feature_warp", x)
+    return feature_warp_plain(x, flow, thr, with_mask)
+
+
+feature_warp.launches = 0

@@ -1,0 +1,61 @@
+"""Kernel 4: the zero-padded bilinear image warp (``csrc/warp.cu``).
+
+Replaces ``upflow_pytorch_tpu/ops/pallas/warp.py::_window_warp_chw`` (via
+``flow_warp_fast``): ``tools.torch_warp``, the warp of C <= 4 planes by a
+flow with zeros outside the image and no mask — the occlusion check's
+flow warps.  Memory-bound on the H100; the source note in the ``.cu``
+file says how the design meets that.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from upflow_pytorch_tpu_torch import _build
+from upflow_pytorch_tpu_torch.ops import warp as _w
+from upflow_pytorch_tpu_torch.ops.kernels._common import (
+    INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call, stream_of)
+
+MAX_CHANNELS = 4  # the kernel's channel limit (csrc/warp.cu)
+
+
+def warp_plain(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the unmasked warp."""
+    count_cuda_call(warp_plain, x, flow)
+    px, py = _w.abs_coords_torch_grid(flow)
+    return _w.bilinear_sample(x, px, py)
+
+
+warp_plain.cuda_calls = 0
+
+
+def warp_cuda(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Launches ``upflow_warp`` on the current stream."""
+    op = "warp"
+    check_cuda_input(op, "x", x, (None, None, None, None))
+    b, c, h, w = x.shape
+    if c > MAX_CHANNELS:
+        raise ValueError("%s: at most %d channels, got %d"
+                         % (op, MAX_CHANNELS, c))
+    check_cuda_input(op, "flow", flow, (b, 2, h, w), x.device)
+    out = torch.empty_like(x)
+    fn = _build.kernel_fn("upflow_warp",
+                          [PTR, PTR, PTR, INT, INT, INT, INT, PTR])
+    with torch.cuda.device(x.device):
+        warp.launches += 1
+        code = fn(x.data_ptr(), flow.data_ptr(), out.data_ptr(), b, c, h, w,
+                  stream_of(x))
+    _build.check_launch(op, code)
+    return out
+
+
+def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Unmasked warp: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if x.is_cuda:
+        return warp_cuda(x, flow)
+    check_cpu_input("warp", x)
+    return warp_plain(x, flow)
+
+
+warp.launches = 0

@@ -1,0 +1,90 @@
+"""Bilinear resize with ``align_corners=True`` semantics, NCHW.
+
+The reference resizes with ``F.interpolate(..., align_corners=True)`` at
+every pyramid level (``upsample2d_as`` / ``upsample2d_flow_as`` /
+``upsample_flow``).  Here the separable interpolation is two fp32
+products with the (out, in) interpolation matrices that the JAX package
+uses, so both packages give the same numbers.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=256)
+def _interp_matrix_np(out_size: int, in_size: int) -> np.ndarray:
+    """(out_size, in_size) align_corners=True bilinear interpolation matrix."""
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    if in_size == 1:
+        m[:, 0] = 1.0
+        return m
+    if out_size == 1:
+        # align_corners=True with a single output sample reads index 0
+        m[0, 0] = 1.0
+        return m
+    scale = (in_size - 1) / (out_size - 1)
+    src = np.arange(out_size, dtype=np.float64) * scale
+    i0 = np.floor(src).astype(np.int64)
+    i0 = np.clip(i0, 0, in_size - 1)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    w1 = (src - i0).astype(np.float32)
+    w0 = 1.0 - w1
+    rows = np.arange(out_size)
+    np.add.at(m, (rows, i0), w0)
+    np.add.at(m, (rows, i1), w1)
+    return m
+
+
+@functools.lru_cache(maxsize=256)
+def _interp_matrix(out_size: int, in_size: int,
+                   device: torch.device) -> torch.Tensor:
+    """The matrix on ``device``, kept after its first use: a copy from host
+    memory on every call would make the host wait for the device each
+    time.  Callers only read it."""
+    return torch.from_numpy(_interp_matrix_np(out_size, in_size)).to(device)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor,
+                                  out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Resize NCHW ``x`` to ``out_hw`` (align_corners=True bilinear)."""
+    _, _, h, w = x.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if (oh, ow) == (h, w):
+        return x
+    xf = x.float()
+    if oh != h:
+        xf = torch.einsum("oh,bchw->bcow", _interp_matrix(oh, h, x.device), xf)
+    if ow != w:
+        xf = torch.einsum("ow,bchw->bcho", _interp_matrix(ow, w, x.device), xf)
+    return xf.to(x.dtype)
+
+
+def upsample2d_as(x: torch.Tensor, target_hw) -> torch.Tensor:
+    """``upsample2d_as``: resize to the target's (H, W)."""
+    return resize_bilinear_align_corners(x, target_hw)
+
+
+def upsample2d_flow_as(flow: torch.Tensor, target_hw,
+                       if_rate: bool = False) -> torch.Tensor:
+    """``upsample2d_flow_as`` on a (B, 2, H, W) flow.  With ``if_rate`` the
+    resized u is scaled by ``out_w / in_w`` and v by ``out_h / in_h``."""
+    _, c, h, w = flow.shape
+    if c != 2:
+        raise ValueError("flow must have 2 channels (u, v), got %d" % c)
+    res = resize_bilinear_align_corners(flow, target_hw)
+    if if_rate:
+        oh, ow = int(target_hw[0]), int(target_hw[1])
+        # the scales go to the kernels as arguments, not as a tensor
+        # copied from the host
+        res = torch.stack([res[:, 0] * (ow / w), res[:, 1] * (oh / h)], dim=1)
+    return res
+
+
+def upsample_flow(flow: torch.Tensor, target_hw) -> torch.Tensor:
+    """``upsample_flow``: always rate-scaled."""
+    return upsample2d_flow_as(flow, target_hw, if_rate=True)
