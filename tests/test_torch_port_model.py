@@ -132,7 +132,6 @@ def test_forward_runs_plain_versions_only_on_the_cpu(outputs):
 
 
 @pytest.mark.parametrize("knobs,match", [
-    (dict(if_sgu_upsample=True), "if_sgu_upsample"),
     (dict(compute_dtype="bfloat16"), "compute_dtype"),
 ])
 def test_unported_knobs_raise(knobs, match):

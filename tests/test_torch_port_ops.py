@@ -27,6 +27,8 @@ from upflow_pytorch_tpu_torch.ops import resize as presize
 from upflow_pytorch_tpu_torch.ops import warp as pwarp
 from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as pcn
 from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as pfw
+from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as psb
+from upflow_pytorch_tpu_torch.ops.kernels import sgu_final as psf
 from upflow_pytorch_tpu_torch.ops.kernels import warp as pkw
 
 NORM_KNOBS = [
@@ -231,7 +233,7 @@ def test_moments_match_normalize_features():
 
 
 @pytest.mark.parametrize("op", ["correlation", "corr_norm", "feature_warp",
-                                "warp"])
+                                "warp", "sgu_blend", "sgu_final"])
 def test_dispatch_refuses_tensors_off_the_cpu(op):
     """A tensor that is on neither the CPU nor a CUDA device gets no plain
     version and no kernel: the dispatch raises."""
@@ -242,6 +244,9 @@ def test_dispatch_refuses_tensors_off_the_cpu(op):
             x, x, torch.empty((1, 4, 2), device="meta"), 0.1),
         "feature_warp": lambda: pfw.feature_warp(x, x, 1.0),
         "warp": lambda: pkw.warp(x, x),
+        "sgu_blend": lambda: psb.sgu_blend(x, x, x[:, :1]),
+        "sgu_final": lambda: psf.sgu_final(
+            x, torch.empty((1, 3, 4, 5), device="meta"), (16, 20)),
     }
     with pytest.raises(ValueError, match="no kernel for device"):
         calls[op]()
@@ -250,15 +255,16 @@ def test_dispatch_refuses_tensors_off_the_cpu(op):
 def test_plain_versions_count_no_cuda_calls_on_cpu():
     rng = np.random.RandomState(5)
     x = torch.from_numpy(rng.rand(1, 3, 6, 7).astype(np.float32))
-    before = [f.cuda_calls for f in (pcorr.correlation_plain,
-                                     pfw.feature_warp_plain, pkw.warp_plain,
-                                     pcn.corr_norm_plain)]
+    plain = (pcorr.correlation_plain, pfw.feature_warp_plain, pkw.warp_plain,
+             pcn.corr_norm_plain, psb.sgu_blend_plain, psf.sgu_final_plain)
+    before = [f.cuda_calls for f in plain]
+    flow = x[:, :2].contiguous()
     pcorr.correlation(x, x)
-    pkw.warp(x[:, :2], x[:, :2].contiguous())
-    pfw.feature_warp(x, x[:, :2].contiguous(), 1.0)
-    after = [f.cuda_calls for f in (pcorr.correlation_plain,
-                                    pfw.feature_warp_plain, pkw.warp_plain,
-                                    pcn.corr_norm_plain)]
-    assert before == after
+    pkw.warp(flow, flow)
+    pfw.feature_warp(x, flow, 1.0)
+    psb.sgu_blend(flow, flow, x[:, 2:].contiguous())
+    psf.sgu_final(flow, x, (24, 28))
+    assert [f.cuda_calls for f in plain] == before
     assert (pcorr.correlation.launches, pfw.feature_warp.launches,
-            pkw.warp.launches, pcn.corr_norm.launches) == (0, 0, 0, 0)
+            pkw.warp.launches, pcn.corr_norm.launches,
+            psb.sgu_blend.launches, psf.sgu_final.launches) == (0,) * 6

@@ -3,7 +3,8 @@
 ``params_from_jax`` turns a flax ``.npz`` snapshot into the port's state
 dict; it must give the same keys and values as the JAX package's own
 export (``params_to_torch_state_dict``) and load strictly into the port's
-model built without SGU.
+model, built with SGU (all 80 arrays) or without it (the 20 SGU arrays
+skipped).
 """
 
 from pathlib import Path
@@ -66,6 +67,26 @@ def test_params_load_strictly_into_model_without_sgu(flat):
     for key, value in got.items():
         assert torch.equal(value, sd[key]), key
     assert sum(p.numel() for p in model.parameters()) == 3354146
+
+
+def test_params_load_strictly_into_model_with_sgu(flat):
+    conf = UPFlowConfig().updated(dict(SLICE_KNOBS, if_sgu_upsample=True))
+    model = build_model(conf, device="cpu", weights=NPZ)
+    assert model.skipped_keys == []
+    sd = params_from_jax(flat)
+    got = model.state_dict()
+    assert len(got) == len(sd) == 80
+    for key, value in got.items():
+        assert torch.equal(value, sd[key]), key
+    sgu = sum(p.numel() for p in model.sgi_model.parameters())
+    assert sgu == 140403
+    assert sum(p.numel() for p in model.parameters()) == 3354146 + sgu
+    assert sorted(k for k in got if k.startswith("sgi_model.")) == sorted(
+        ["sgi_model.dense_estimator_mask.%s.0.%s" % (m, leaf)
+         for m in ("conv1", "conv2", "conv3", "conv4", "conv5", "conv_last")
+         for leaf in ("weight", "bias")]
+        + ["sgi_model.upsample_output_conv.%d.0.%s" % (i, leaf)
+           for i in range(4) for leaf in ("weight", "bias")])
 
 
 def test_params_from_jax_raises_on_missing_model_key(flat):

@@ -10,6 +10,9 @@ a reference state dict loads 1:1:
   features are concatenated BEFORE the running input (``cat([conv(x), x])``)
 - ``ContextNetwork``      ``convs.0`` .. ``convs.6``, dilations
   1, 2, 4, 8, 16, 1, 1
+- ``SGUModel``            ``dense_estimator_mask`` (``SGUDenseEstimator``)
+  and ``upsample_output_conv.0`` .. ``.3`` (``SGUOutputConv``); the
+  network holds it as ``sgi_model``
 
 Every conv pads ``((k-1)*d)//2`` and is initialised Kaiming-normal
 (fan_in, std = sqrt(2 / fan_in)) with zero bias, drawn from the
@@ -107,3 +110,30 @@ class ContextNetwork(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.convs(x)
+
+
+class SGUDenseEstimator(FlowEstimatorDense):
+    """``FlowEstimatorDense_temp``: ch_in 64 (the 1x1 features of one
+    frame, then the other's warped), f_channels (32, 32, 32, 16, 8), a
+    3-channel head (inter-flow and mask logit)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__(64, (32, 32, 32, 16, 8), 3, generator)
+
+
+class SGUOutputConv(nn.Sequential):
+    """``upsample_output_conv``: raw RGB -> 1/4-resolution 32 channels."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__(*(ConvBlock(cin, cout, stride=s, generator=generator)
+                           for cin, cout, s in ((3, 16, 1), (16, 16, 2),
+                                                (16, 32, 1), (32, 32, 2))))
+
+
+class SGUModel(nn.Module):
+    """The self-guided upsampling weights (the reference's ``sgu_model``)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dense_estimator_mask = SGUDenseEstimator(generator)
+        self.upsample_output_conv = SGUOutputConv(generator)

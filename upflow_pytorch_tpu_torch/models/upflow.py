@@ -1,14 +1,25 @@
 """The UPFlow network (bidirectional inference forward), PyTorch/CUDA.
 
-Port of ``upflow_pytorch_tpu.models.upflow`` without the SGU branch:
+Port of ``upflow_pytorch_tpu.models.upflow`` at fp32:
 
 - 6-level feature pyramid for both frames, coarsest-first; decoding runs
   on levels 0..output_level (=4), i.e. 1/64 .. 1/4 resolution;
 - per level (SHARED estimator/context weights, per-level 1x1 skip convs):
-  rate-scaled x2 flow upsample -> cost volume -> dense flow estimator ->
-  dilated context network; the residual accumulates over both heads;
-- final flow upsampled to full resolution with rate scaling;
+  rate-scaled x2 flow upsample -> at levels >= 1 with
+  ``if_sgu_upsample``, self-guided upsampling (SGU) of both flows -> cost
+  volume -> dense flow estimator -> dilated context network; the
+  residual accumulates over both heads;
+- final flow to full resolution: the rate-scaled upsample, or with
+  ``if_sgu_upsample`` the final SGU stage on 1/4-resolution features of
+  the raw images;
 - ``forward`` adds the forward-backward occlusion check.
+
+SGU per direction (``_sgu_pair``): masked feature-warp kernel of the
+other frame's 1x1 features -> SGU dense estimator (inter-flow and mask
+logit) -> at the decode levels the blend kernel (``ops/warp.py::
+sgu_blend``), at the end the final-stage kernel
+(``ops/kernels/sgu_final.py``), which upsamples, warps and blends in one
+pass.
 
 The cost volume per level and direction:
 
@@ -36,11 +47,13 @@ from upflow_pytorch_tpu_torch.checkpoint.convert import params_from_jax
 from upflow_pytorch_tpu_torch.checkpoint.npz_io import load_npz_flat
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
 from upflow_pytorch_tpu_torch.models.blocks import (
-    ContextNetwork, ConvBlock, FeatureExtractor, FlowEstimatorDense)
+    ContextNetwork, ConvBlock, FeatureExtractor, FlowEstimatorDense,
+    SGUModel)
 from upflow_pytorch_tpu_torch.models.occlusion import occ_check
 from upflow_pytorch_tpu_torch.ops import warp as _warp
 from upflow_pytorch_tpu_torch.ops.correlation import correlation
 from upflow_pytorch_tpu_torch.ops.kernels.corr_norm import warp_norm_corr
+from upflow_pytorch_tpu_torch.ops.kernels.sgu_final import sgu_final
 from upflow_pytorch_tpu_torch.ops.normalize import normalize_features
 from upflow_pytorch_tpu_torch.ops.resize import upsample2d_flow_as
 
@@ -48,19 +61,15 @@ Flows = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 class UPFlowNet(nn.Module):
-    """Bidirectional PWC-style pyramid flow network (no SGU)."""
+    """Bidirectional PWC-style pyramid flow network with optional SGU."""
 
     def __init__(self, conf: UPFlowConfig = UPFlowConfig(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if conf.if_sgu_upsample:
-            raise NotImplementedError(
-                "if_sgu_upsample=True is not ported yet (ROADMAP.md, "
-                "'Modules still to port', slice 2)")
         if conf.compute_dtype != "float32":
             raise NotImplementedError(
                 "compute_dtype=%r is not ported yet (ROADMAP.md, 'Modules "
-                "still to port', slice 2)" % conf.compute_dtype)
+                "still to port', slice 3)" % conf.compute_dtype)
         if conf.search_range != 4:
             raise ValueError("the correlation kernels are built for "
                              "search_range 4, got %d" % conf.search_range)
@@ -75,6 +84,31 @@ class UPFlowNet(nn.Module):
         level_chs = conf.num_chs[::-1][:conf.output_level + 1]
         self.conv_1x1 = nn.ModuleList(
             ConvBlock(c, 32, kernel_size=1, generator=g) for c in level_chs)
+        if conf.if_sgu_upsample:
+            self.sgi_model = SGUModel(g)
+
+    def _sgu_pair(self, flow_1, flow_2, feature_1, feature_2,
+                  output_hw=None):
+        """Both directions of ``sgu_model.forward``: each flow refined by
+        the SGU estimator on ``feature_*`` (the 1x1 features of the two
+        frames).  With ``output_hw`` (the final stage) the result is at
+        that size."""
+        hw = feature_1.shape[2:]
+        if flow_1.shape[2:] != hw:
+            flow_1 = upsample2d_flow_as(flow_1, hw, if_rate=True)
+            flow_2 = upsample2d_flow_as(flow_2, hw, if_rate=True)
+        outs = []
+        for fl, fa, fb in ((flow_1, feature_1, feature_2),
+                           (flow_2, feature_2, feature_1)):
+            fb_warp = _warp.flow_warp_masked(fb, fl)
+            _, x_out = self.sgi_model.dense_estimator_mask(
+                torch.cat([fa, fb_warp], dim=1))
+            if output_hw is not None:
+                outs.append(sgu_final(fl, x_out, output_hw))
+            else:
+                outs.append(_warp.sgu_blend(fl, x_out[:, :2],
+                                            torch.sigmoid(x_out[:, 2:3])))
+        return outs[0], outs[1]
 
     def _norm_kw(self) -> Optional[dict]:
         c = self.conf
@@ -118,6 +152,9 @@ class UPFlowNet(nn.Module):
         hw = feature_1.shape[2:]
         flow_1_up = upsample2d_flow_as(flow_1, hw, if_rate=True)
         flow_2_up = upsample2d_flow_as(flow_2, hw, if_rate=True)
+        if level > 0 and self.conf.if_sgu_upsample:
+            flow_1_up, flow_2_up = self._sgu_pair(
+                flow_1_up, flow_2_up, feature_1_1x1, feature_2_1x1)
         corr_1, corr_2 = self._cost_volumes(level, flow_1_up, flow_2_up,
                                             feature_1, feature_2)
         out = []
@@ -149,8 +186,16 @@ class UPFlowNet(nn.Module):
             flow_f = flow_f_up + res_f
             flow_b = flow_b_up + res_b
             flows.append((flow_f, flow_b))
-        flow_f_out = upsample2d_flow_as(flow_f, (height, width), if_rate=True)
-        flow_b_out = upsample2d_flow_as(flow_b, (height, width), if_rate=True)
+        if self.conf.if_sgu_upsample:
+            up_conv = self.sgi_model.upsample_output_conv
+            flow_f_out, flow_b_out = self._sgu_pair(
+                flow_f, flow_b, up_conv(im1), up_conv(im2),
+                output_hw=(height, width))
+        else:
+            flow_f_out = upsample2d_flow_as(flow_f, (height, width),
+                                            if_rate=True)
+            flow_b_out = upsample2d_flow_as(flow_b, (height, width),
+                                            if_rate=True)
         return flow_f_out, flow_b_out, flows[::-1]
 
 
@@ -171,7 +216,8 @@ def build_model(conf: UPFlowConfig = UPFlowConfig(), device=None,
     with ``seed``, or, with ``weights``, a JAX ``.npz`` snapshot (such as
     ``assets/synthetic_trained.npz``) loaded strictly through
     ``params_from_jax``; snapshot entries the model lacks (the SGU
-    weights) are listed in ``model.skipped_keys``."""
+    weights, when it is built without SGU) are listed in
+    ``model.skipped_keys``."""
     device = _resolve_device(device)
     model = UPFlowNet(conf, torch.Generator().manual_seed(seed))
     model.skipped_keys = []

@@ -1,0 +1,85 @@
+"""Kernel 8: the final SGU stage (``csrc/sgu_final.cu``).
+
+Replaces ``upflow_pytorch_tpu/ops/pallas/sgu_final.py::sgu_final_pallas``
+and the tiers around it (``models/upflow.py::_sgu_final_op_impl``): for
+one direction, the rate-scaled align-corners upsample of the
+quarter-resolution flow and inter-flow, the upsample of the sigmoided
+mask, and the blend ``warp(flow, inter_flow) * (1 - m) + flow * m`` at full
+resolution, with no full-resolution intermediate in device memory.  One
+kernel serves every inter-flow magnitude.  Memory-bound on the H100; the
+source note in the ``.cu`` file says how the design meets that.
+
+The plain version resizes with matrix products; the kernel lerps, and
+rounds each two-tap lerp as a product that accumulates over the source
+index with fused multiply-adds does (torch's CPU product and cuBLAS on
+the H100 both do), so the two agree bit for bit there.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from upflow_pytorch_tpu_torch import _build
+from upflow_pytorch_tpu_torch.ops.kernels._common import (
+    FLOAT, INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
+    stream_of)
+from upflow_pytorch_tpu_torch.ops.kernels.sgu_blend import sgu_blend_plain
+from upflow_pytorch_tpu_torch.ops.resize import (
+    interp_taps, upsample2d_as, upsample2d_flow_as)
+
+Size = Tuple[int, int]
+
+
+def sgu_final_plain(flow_q: torch.Tensor, x_out: torch.Tensor,
+                    out_hw: Size) -> torch.Tensor:
+    """Plain PyTorch version (``_sgu_final_xla``): ``flow_q`` (B, 2, Hq,
+    Wq), ``x_out`` (B, 3, Hq, Wq) -> (B, 2, H, W)."""
+    count_cuda_call(sgu_final_plain, flow_q, x_out)
+    flow = upsample2d_flow_as(flow_q, out_hw, if_rate=True)
+    inter_flow = upsample2d_flow_as(x_out[:, :2], out_hw, if_rate=True)
+    mask = upsample2d_as(torch.sigmoid(x_out[:, 2:3]), out_hw)
+    return sgu_blend_plain(flow, inter_flow, mask)
+
+
+sgu_final_plain.cuda_calls = 0
+
+
+def sgu_final_cuda(flow_q: torch.Tensor, x_out: torch.Tensor,
+                   out_hw: Size) -> torch.Tensor:
+    """Launches ``upflow_sgu_final`` on the current stream.  The sigmoid
+    of the mask logit runs in torch at quarter resolution."""
+    op = "sgu_final"
+    check_cuda_input(op, "flow_q", flow_q, (None, 2, None, None))
+    b, _, hq, wq = flow_q.shape
+    check_cuda_input(op, "x_out", x_out, (b, 3, hq, wq), flow_q.device)
+    h, w = int(out_hw[0]), int(out_hw[1])
+    mask_q = torch.sigmoid(x_out[:, 2:3]).contiguous()
+    row_idx, row_wt = interp_taps(h, hq, flow_q.device)
+    col_idx, col_wt = interp_taps(w, wq, flow_q.device)
+    out = torch.empty((b, 2, h, w), dtype=torch.float32, device=flow_q.device)
+    fn = _build.kernel_fn("upflow_sgu_final",
+                          [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT,
+                           INT, INT, INT, FLOAT, FLOAT, PTR])
+    with torch.cuda.device(flow_q.device):
+        sgu_final.launches += 1
+        code = fn(flow_q.data_ptr(), x_out.data_ptr(), mask_q.data_ptr(),
+                  row_idx.data_ptr(), row_wt.data_ptr(), col_idx.data_ptr(),
+                  col_wt.data_ptr(), out.data_ptr(), b, hq, wq, h, w,
+                  w / wq, h / hq, stream_of(flow_q))
+    _build.check_launch(op, code)
+    return out
+
+
+def sgu_final(flow_q: torch.Tensor, x_out: torch.Tensor,
+              out_hw: Size) -> torch.Tensor:
+    """Final SGU stage: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if flow_q.is_cuda:
+        return sgu_final_cuda(flow_q, x_out, out_hw)
+    check_cpu_input("sgu_final", flow_q)
+    return sgu_final_plain(flow_q, x_out, out_hw)
+
+
+sgu_final.launches = 0

@@ -49,6 +49,27 @@ def _interp_matrix(out_size: int, in_size: int,
     return torch.from_numpy(_interp_matrix_np(out_size, in_size)).to(device)
 
 
+@functools.lru_cache(maxsize=64)
+def interp_taps(out_size: int, in_size: int, device: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The nonzero entries of each row of ``_interp_matrix_np(out_size,
+    in_size)``, for kernels that lerp instead of multiplying by the matrix:
+    (out_size, 2) int32 source indices and (out_size, 2) fp32 weights, on
+    ``device`` and kept there.  A row with one nonzero entry repeats its
+    index with weight 0."""
+    m = _interp_matrix_np(out_size, in_size)
+    nonzero = m != 0
+    rows = np.arange(out_size)
+    first = nonzero.argmax(axis=1)
+    last = in_size - 1 - nonzero[:, ::-1].argmax(axis=1)
+    idx = np.stack([first, last], axis=1).astype(np.int32)
+    wt = np.stack([m[rows, first],
+                   np.where(last != first, m[rows, last], 0.0)],
+                  axis=1).astype(np.float32)
+    return (torch.from_numpy(idx).to(device),
+            torch.from_numpy(wt).to(device))
+
+
 def resize_bilinear_align_corners(x: torch.Tensor,
                                   out_hw: Tuple[int, int]) -> torch.Tensor:
     """Resize NCHW ``x`` to ``out_hw`` (align_corners=True bilinear)."""

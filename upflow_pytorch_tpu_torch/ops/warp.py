@@ -4,7 +4,7 @@ Two warp semantics of the reference:
 
 1. ``flow_warp`` — ``tools.torch_warp``: bilinear sample at ``(x+u, y+v)``
    with zeros outside the image, no validity mask.  Used by the occlusion
-   check.
+   check, and by ``sgu_blend``, the SGU's blend of a flow with its warp.
 2. ``flow_warp_with_mask`` / ``flow_warp_masked`` — ``WarpingLayer_no_div``:
    the same sample times ``mask = (warped all-ones >= threshold)``.
 
@@ -15,8 +15,9 @@ warped-ones sum (``_analytic_wsum``).  The ``>= 1.0`` mask is chaotic in
 the last fp32 ulp of the flow, so every step here is a single IEEE
 operation in a fixed order: no fused multiply-add and no reciprocal
 multiply in place of a division.  The CUDA kernels
-(``ops/kernels/feature_warp.py``, ``ops/kernels/warp.py``) do the same
-operations in the same order with ``__f*_rn`` intrinsics.
+(``ops/kernels/feature_warp.py``, ``warp.py``, ``sgu_blend.py`` and
+``sgu_final.py``) do the same operations in the same order with
+``__f*_rn`` intrinsics.
 
 Tensors: images ``(B, C, H, W)``, flows ``(B, 2, H, W)`` with channels
 ``(u, v)``, coordinate planes ``(B, H, W)``.
@@ -164,3 +165,14 @@ def flow_warp_masked(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
     return kfw.feature_warp(x.float().contiguous(), flow.float().contiguous(),
                             mask_threshold()).to(x.dtype)
+
+
+def sgu_blend(flow_init: torch.Tensor, inter_flow: torch.Tensor,
+              inter_mask: torch.Tensor) -> torch.Tensor:
+    """SGU blend ``flow_warp(flow_init, inter_flow) * (1 - m) + flow_init *
+    m`` (``sgu_model.forward``): flows (B, 2, H, W), mask (B, 1, H, W)."""
+    from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as kb
+
+    return kb.sgu_blend(flow_init.float().contiguous(),
+                        inter_flow.float().contiguous(),
+                        inter_mask.float().contiguous()).to(flow_init.dtype)
