@@ -13,12 +13,16 @@ Phases, each of which must pass:
    where one exists, the PyTorch library call that computes the same
    function.  The SGU kernels are held at inter-flows of every TPU tier's
    magnitude and beyond, the image warp also at the magnitudes of the
-   TPU's windowed planar warp.
+   TPU's windowed planar warp.  The bf16 path's kernels are held at bf16:
+   ``conv3x3_seg`` at every distinct conv shape of a bf16 forward (and two
+   ragged shapes of 375x1242), the correlations and the feature warp at
+   bf16 inputs.
 3. Serve requests through ``build_model`` / ``forward`` with the
-   checkpoint ``assets/synthetic_trained.npz``, on two paths: the eval
-   recipe without SGU (slice 1) and with SGU (the served configuration).
-   For each path: count the kernel launches of each forward, then hold the
-   kernel path against the plain path on the card and time both.
+   checkpoint ``assets/synthetic_trained.npz``, on three paths: the eval
+   recipe without SGU (slice 1), with SGU (the served configuration), and
+   with SGU at bf16.  For each path: count the kernel launches of each
+   forward, then hold the kernel path against the plain path on the card
+   and time both.
 4. Profile one forward of each path at B=4, 384x1280 and split its device
    time by kind.
 
@@ -46,10 +50,12 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 NPZ = ROOT / "assets" / "synthetic_trained.npz"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 outside the
-# tensor cores.  bound_ms is the larger of bytes / HBM and ops / FP32.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
+# tensor cores and dense bf16 on the tensor cores.  bound_ms is the larger
+# of bytes / HBM and ops / the peak of the ops' type.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # the eval recipe, fp32: slice 1 ran it without SGU, the served
 # configuration runs it with SGU
@@ -58,6 +64,7 @@ EVAL_KNOBS = dict(if_norm_before_cost_volume=True,
                   norm_moments_across_images=False,
                   if_sgu_upsample=False, if_use_cor_pytorch=False)
 SGU_KNOBS = dict(EVAL_KNOBS, if_sgu_upsample=True)
+BF16_KNOBS = dict(SGU_KNOBS, compute_dtype="bfloat16")
 NORM_KW = dict(normalize=True, center=True, moments_across_channels=False,
                moments_across_images=False)
 MAIN_B, MAIN_H, MAIN_W = 4, 384, 1280
@@ -66,30 +73,59 @@ PYRAMID_CHS = (196, 128, 96, 64, 32)  # decode levels 0..4, coarsest first
 # pyramid shapes are ragged (quarter resolution 94x311)
 REQUESTS = [(4, 384, 1280, 1), (1, 375, 1242, 2), (4, 384, 1280, 3)]
 SGU_REQUESTS = [(4, 384, 1280, 4), (1, 375, 1242, 5), (4, 384, 1280, 6)]
+BF16_REQUESTS = [(4, 384, 1280, 7), (1, 375, 1242, 8), (4, 384, 1280, 9)]
 # kernel launches of one forward.  Without SGU: level 0 correlates both
 # directions, levels 1-4 warp and correlate both directions, the occlusion
 # check warps both flows.  SGU adds per direction a feature warp and a
 # blend at levels 1-4, and a feature warp and the final stage at the end.
+# bf16 adds conv3x3_seg wherever a 3x3 stride-1 conv reads >= 64 channels
+# on a map of >= 8 rows and >= 2048 pixels (ops/conv.py): at B=4 384x1280
+# and at 375x1242 the estimator (5 convs and its head) and the context
+# network (convs 0-5) at decode levels 3 and 4, 2 x 2 x 12 = 48; the SGU
+# estimator (5 convs and its head) at levels 3 and 4 and the final stage,
+# 2 x 3 x 6 = 36; the pyramid's level2_conv1 (64 channels at 1/8) on both
+# frames, 2.  86 in all.
 LAUNCHES_PER_FORWARD = {"correlation": 2, "feature_warp": 8,
                         "corr_norm": 8, "warp": 2, "sgu_blend": 0,
-                        "sgu_final": 0}
+                        "sgu_final": 0, "conv3x3_seg": 0}
 SGU_LAUNCHES_PER_FORWARD = dict(LAUNCHES_PER_FORWARD, feature_warp=18,
                                 sgu_blend=8, sgu_final=2)
+BF16_LAUNCHES_PER_FORWARD = dict(SGU_LAUNCHES_PER_FORWARD, conv3x3_seg=86)
+# per path: knobs, requests, launches per forward, snapshot arrays skipped
+PATHS = {"no-sgu": (EVAL_KNOBS, REQUESTS, LAUNCHES_PER_FORWARD, 20),
+         "sgu": (SGU_KNOBS, SGU_REQUESTS, SGU_LAUNCHES_PER_FORWARD, 0),
+         "sgu-bf16": (BF16_KNOBS, BF16_REQUESTS, BF16_LAUNCHES_PER_FORWARD,
+                      0)}
 # kernel path against plain path at the relaxed threshold: mean and 99.9th
-# percentile of |diff flow| in px (the SGU bars are the 3e-4 eval-knob
-# bars of tests/test_torch_parity.py)
-AGREEMENT = {False: (1e-4, 1e-3), True: (3e-4, 3e-3)}
+# percentile of |diff flow| in px, and the share of occlusion pixels that
+# may differ.  The SGU bars are the 3e-4 eval-knob bars of
+# tests/test_torch_parity.py.  At bf16 two correct forwards differ by
+# where they round: on the H100 the plain path and the library route (the
+# plain path with every conv on the plain-conv route, the JAX package's
+# XLA route, no kernel anywhere) differed by up to 2.0e-2 px mean, 0.59
+# px p99.9 and 1.0e-2 of occlusion pixels over the three bf16 requests;
+# the bf16 bars are twice that, and each run prints that floor again.
+AGREEMENT = {"no-sgu": (1e-4, 1e-3, 1e-3), "sgu": (3e-4, 3e-3, 1e-3),
+             "sgu-bf16": (4e-2, 1.2, 2e-2)}
 RELAXED_THRESHOLD = 0.9999
 DEV = "cuda"
 # the port's kernels by the profiler's kernel names
-KERNEL_OF = (("corr_kernel<false>", "correlation"),
-             ("corr_kernel<true>", "corr_norm"),
+KERNEL_OF = (("corr_kernel<false", "correlation"),
+             ("corr_kernel<true", "corr_norm"),
              ("feature_warp_kernel", "feature_warp"),
              ("sgu_blend_kernel", "sgu_blend"),
              ("sgu_final_kernel", "sgu_final"),
+             ("conv3x3_seg_kernel", "conv3x3_seg"),
              ("warp_kernel", "warp"))
+# the kernels' other rows: row 5 of the TPU kernels (_window_warp_resident)
+# is served by the image warp kernel, and the bf16 rows are the bf16
+# instantiations of kernels 1-3
+SERVED_BY = {"warp_window": "warp", "correlation_bf16": "correlation",
+             "feature_warp_bf16": "feature_warp",
+             "corr_norm_bf16": "corr_norm"}
 KERNEL_KEY = {name: key for key, name in KERNEL_OF}
-KERNEL_KEY["warp_window"] = KERNEL_KEY["warp"]
+KERNEL_KEY.update({row: KERNEL_KEY[kernel]
+                   for row, kernel in SERVED_BY.items()})
 
 failures = []
 
@@ -157,9 +193,9 @@ def device_ms(fn, key=None, calls: int = 21):
     return sum(us) / calls / 1e3 if us else None
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -193,6 +229,50 @@ def grid_sample(x, grid):
                          align_corners=True)
 
 
+def conv_shapes():
+    """Every conv3x3_seg call of one bf16 SGU forward at B=4, 384x1280, and
+    two ragged ones of 375x1242 (B=1): (what, b, h, w, cin, cout,
+    dilation, relu, calls per forward, buffer).  ``buffer`` is
+    (channels, start) of the dense buffer whose range [start, start + cin)
+    is the conv's input and [start - cout, start) its output slot, or None
+    for a standalone tensor."""
+    out = []
+
+    def stack(tag, b, h, w, feat, fs, head, per_forward, extra):
+        start = sum(fs)  # the input fills [start, feat)
+        for i, f in enumerate(fs):
+            out.append(("%s conv%d" % (tag, i + 1), b, h, w, feat - start, f,
+                        1, True, per_forward, (feat + extra, start)))
+            start -= f
+        out.append(("%s head" % tag, b, h, w, feat, head, 1, False,
+                    per_forward, (feat + extra, 0)))
+
+    levels = pyramid_hw(MAIN_H, MAIN_W)
+    for level in (3, 4):
+        h, w = levels[level]
+        tag = "L%d" % level
+        stack("estimator " + tag, MAIN_B, h, w, 563, (128, 128, 96, 64, 32),
+              2, 2, 2)
+        cin = 565
+        for i, (f, d) in enumerate(zip((128, 128, 128, 96, 64, 32),
+                                       (1, 2, 4, 8, 16, 1))):
+            out.append(("context %s conv%d" % (tag, i), MAIN_B, h, w, cin, f,
+                        d, True, 2, (565, 0) if i == 0 else None))
+            cin = f
+        # the SGU estimator runs at level 3, and at 96 x 320 for level 4
+        # and for the final stage
+        stack("sgu " + tag, MAIN_B, h, w, 184, (32, 32, 32, 16, 8), 3,
+              2 if level == 3 else 4, 0)
+    h, w = levels[3]
+    out.append(("pyramid level2_conv1", MAIN_B, h, w, 64, 64, 1, True, 2,
+                None))
+    h, w = pyramid_hw(375, 1242)[4]
+    out.append(("ragged estimator conv1", 1, h, w, 115, 128, 1, True, 0,
+                (565, 448)))
+    out.append(("ragged context conv4", 1, h, w, 96, 64, 16, True, 0, None))
+    return out
+
+
 def phase_kernels(k):
     """Each kernel against its plain version at the main path's shapes.
     Returns per-kernel lists of per-shape measurements."""
@@ -203,19 +283,20 @@ def phase_kernels(k):
         return torch.randn(shape, generator=gen, device=DEV)
 
     levels = pyramid_hw(MAIN_H, MAIN_W)
-    rows = {name: [] for name in list(LAUNCHES_PER_FORWARD) + ["warp_window"]}
+    rows = {name: [] for name in list(LAUNCHES_PER_FORWARD) + list(SERVED_BY)}
 
     def record(name, shape, err, fn, plain, nbytes, ops, library=None,
-               per_forward=2):
-        t_bound, by = bound_ms(nbytes, ops)
+               per_forward=2, ops_per_s=FP32_OPS_PER_S, reps=21, inner=10):
+        t_bound, by = bound_ms(nbytes, ops, ops_per_s)
         rows[name].append(dict(
             shape=shape, max_abs_err=err, per_forward=per_forward,
-            ms=time_ms(fn),
-            device_ms=device_ms(fn, KERNEL_KEY[name]),
-            plain_ms=time_ms(plain),
-            library_ms=None if library is None else time_ms(library),
+            ms=time_ms(fn, reps, inner),
+            device_ms=device_ms(fn, KERNEL_KEY[name], reps),
+            plain_ms=time_ms(plain, reps, inner),
+            library_ms=(None if library is None
+                        else time_ms(library, reps, inner)),
             library_device_ms=(None if library is None
-                               else device_ms(library)),
+                               else device_ms(library, calls=reps)),
             bound_ms=t_bound, bound_by=by))
 
     # kernel 1: plain correlation at decode level 0
@@ -234,6 +315,18 @@ def phase_kernels(k):
            lambda: k.corr.correlation(f1, f2),
            lambda: k.corr.correlation_plain(f1, f2),
            4 * (2 * px * c + 81 * px), px * (162 * c + 81))
+    # the same at bf16 maps (level 0 of the bf16 forward)
+    f1b, f2b = f1.bfloat16(), f2.bfloat16()
+    got = k.corr.correlation(f1b, f2b)
+    ref = k.corr.correlation_plain(f1b, f2b)
+    err = (got - ref).abs().max().item()
+    check(err <= 1e-5 * ref.abs().max().item(),
+          "correlation bf16 %s: max abs err %.3e (bound 1e-5 x max|out| = "
+          "%.3e)" % (tuple(f1.shape), err, 1e-5 * ref.abs().max().item()))
+    record("correlation_bf16", list(f1.shape), err,
+           lambda: k.corr.correlation(f1b, f2b),
+           lambda: k.corr.correlation_plain(f1b, f2b),
+           2 * 2 * px * c + 4 * 81 * px, px * (162 * c + 81))
 
     # kernels 2 and 3 at decode levels 1-4
     for level in range(1, 5):
@@ -277,6 +370,42 @@ def phase_kernels(k):
                lambda: k.cn.corr_norm(f_tgt, warped, aff, 0.1),
                lambda: k.cn.corr_norm_plain(f_tgt, warped, aff, 0.1),
                4 * (2 * px * c + MAIN_B * 4 * c + 81 * px),
+               px * (162 * c + 4 * c + 162))
+
+        # kernels 2 and 3 at bf16 maps: the warp rounds its fp32 result to
+        # bf16 once, bit-equal to its plain version
+        xb = x.bfloat16()
+        out_b, mask_b = k.fw.feature_warp(xb, flow, 1.0, with_mask=True)
+        ref_b, ref_mask_b = k.fw.feature_warp_plain(xb, flow, 1.0,
+                                                    with_mask=True)
+        differ = int((out_b != ref_b).sum().item())
+        flips = int((mask_b != ref_mask_b).sum().item())
+        check(out_b.dtype == torch.bfloat16 and differ == 0 and flips == 0,
+              "feature_warp bf16 level %d %s: %d of %d values and %d mask "
+              "bits differ" % (level, tuple(x.shape), differ, out_b.numel(),
+                               flips))
+        grid_b = grid.bfloat16()
+        record("feature_warp_bf16", list(x.shape),
+               (out_b.float() - ref_b.float()).abs().max().item(),
+               lambda: k.fw.feature_warp(xb, flow, 1.0),
+               lambda: k.fw.feature_warp_plain(xb, flow, 1.0),
+               2 * 2 * px * c + 4 * 2 * px, px * (30 + 8 * c),
+               library=lambda: grid_sample(xb, grid_b))
+        f_tgt_b = f_tgt.bfloat16()
+        m1, v1 = k.cn.moments(f_tgt_b, False)
+        m2, v2 = k.cn.moments(ref_b, False)
+        aff_b = k.cn.affine_pair(m1, v1, m2, v2, NORM_KW)
+        got = k.cn.corr_norm(f_tgt_b, ref_b, aff_b, 0.1)
+        ref = k.cn.corr_norm_plain(f_tgt_b, ref_b, aff_b, 0.1)
+        err = (got - ref).abs().max().item()
+        check(err <= 1e-5 * ref.abs().max().item(),
+              "corr_norm bf16 level %d %s: max abs err %.3e (bound %.3e)"
+              % (level, tuple(f_tgt.shape), err,
+                 1e-5 * ref.abs().max().item()))
+        record("corr_norm_bf16", list(f_tgt.shape), err,
+               lambda: k.cn.corr_norm(f_tgt_b, ref_b, aff_b, 0.1),
+               lambda: k.cn.corr_norm_plain(f_tgt_b, ref_b, aff_b, 0.1),
+               2 * 2 * px * c + 4 * (MAIN_B * 4 * c + 81 * px),
                px * (162 * c + 4 * c + 162))
 
     # kernel 4: the occlusion check's flow warp at full resolution
@@ -389,6 +518,53 @@ def phase_kernels(k):
                                                 (MAIN_H, MAIN_W)),
                    4 * (5 * MAIN_B * hq * wq + 2 * px),
                    px * (29 + 30 + 2 * (50 + 7 + 4)))
+
+    # kernel 6: conv3x3_seg at every conv shape of the bf16 forward, reading
+    # and writing channel ranges of a dense buffer where the model does.
+    # Bar: within 1 bf16 ulp of the plain value, or, where |plain| < 1e-3
+    # of max|plain| (sums that cancel), within 1e-5 of max|plain|.
+    total = 0
+    for what, b, h, w, cin, cout, d, relu, per_forward, buf in conv_shapes():
+        total += per_forward
+        if buf is None:
+            x = randn(b, cin, h, w).bfloat16()
+            out = torch.empty((b, cout, h, w), dtype=torch.bfloat16,
+                              device=DEV)
+        else:
+            full = randn(b, buf[0], h, w).bfloat16()
+            x = full[:, buf[1]:buf[1] + cin]
+            out = (full[:, buf[1] - cout:buf[1]] if buf[1] >= cout else
+                   torch.empty((b, cout, h, w), dtype=torch.bfloat16,
+                               device=DEV))
+        weight = randn(cout, cin, 3, 3) * (2.0 / (9 * cin)) ** 0.5
+        bias = randn(cout) * 0.1
+        got = k.seg.conv3x3_seg(x, weight, bias, d, relu, out=out).float()
+        ref = k.seg.conv3x3_seg_plain(x, weight, bias, d, relu).float()
+        scale = ref.abs().max().item()
+        diff = (got - ref).abs()
+        mag = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
+        ulps = diff / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        ok = (ulps <= 1.0) | ((ref.abs() < 1e-3 * scale)
+                              & (diff <= 1e-5 * scale))
+        big = ref.abs() >= 1e-3 * scale
+        check(bool(ok.all()) and bool(torch.isfinite(got).all()),
+              "conv3x3_seg %s (%d, %d->%d, %dx%d, d=%d): %.2e of values "
+              "differ from the plain version, max %.2f bf16 ulp where "
+              "|plain| >= 1e-3 max, %d outside the bar"
+              % (what, b, cin, cout, h, w, d,
+                 (diff > 0).float().mean().item(),
+                 ulps[big].max().item(), int((~ok).sum().item())))
+        wb, bb = weight.bfloat16(), bias.bfloat16()
+        px = b * h * w
+        record("conv3x3_seg", [b, cin, h, w, cout, d], diff.max().item(),
+               lambda: k.seg.conv3x3_seg(x, weight, bias, d, relu, out=out),
+               lambda: k.seg.conv3x3_seg_plain(x, weight, bias, d, relu),
+               2 * px * (cin + cout) + 2 * 9 * cin * cout + 4 * cout,
+               2 * 9 * px * cin * cout, per_forward=per_forward,
+               library=lambda: F.conv2d(x, wb, bb, padding=d, dilation=d),
+               ops_per_s=BF16_OPS_PER_S, reps=11, inner=5)
+    check(total == BF16_LAUNCHES_PER_FORWARD["conv3x3_seg"],
+          "conv3x3_seg shapes cover %d calls of a bf16 forward" % total)
     return rows
 
 
@@ -425,7 +601,8 @@ def plain_path(k):
              (k.fw, "feature_warp", k.fw.feature_warp_plain),
              (k.warp, "warp", k.warp.warp_plain),
              (k.sb, "sgu_blend", k.sb.sgu_blend_plain),
-             (k.upflow, "sgu_final", k.sf.sgu_final_plain)]
+             (k.upflow, "sgu_final", k.sf.sgu_final_plain),
+             (k.conv_ops, "conv3x3_seg", k.seg.conv3x3_seg_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -434,6 +611,18 @@ def plain_path(k):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def library_route(k):
+    """Every bf16 conv on the plain-conv route (cuDNN), as the JAX package
+    computes them off the TPU; for the bf16 path's agreement floor."""
+    saved = k.conv_ops.uses_kernel
+    k.conv_ops.uses_kernel = lambda *args: False
+    try:
+        yield
+    finally:
+        k.conv_ops.uses_kernel = saved
 
 
 def flow_diffs(a, b):
@@ -471,14 +660,13 @@ def sgu_extrema(heads, hw):
     return out
 
 
-def phase_serve(k, sgu: bool):
-    """Three requests through the entry points on one path (the eval
-    recipe with or without SGU); returns the launch counts of the path's
-    run, the per-request times, the model and the first request."""
-    knobs, requests, per_forward = (
-        (SGU_KNOBS, SGU_REQUESTS, SGU_LAUNCHES_PER_FORWARD) if sgu
-        else (EVAL_KNOBS, REQUESTS, LAUNCHES_PER_FORWARD))
-    tag = "sgu" if sgu else "no-sgu"
+def phase_serve(k, tag: str, ref_model=None):
+    """Three requests through the entry points on one path of ``PATHS``;
+    returns the launch counts of the path's run, the per-request times,
+    the model and the first request.  With ``ref_model`` each request's
+    flow difference from that model's forward is printed."""
+    knobs, requests, per_forward, skipped = PATHS[tag]
+    sgu = knobs["if_sgu_upsample"]
     conf = k.UPFlowConfig().updated(knobs)
     t0 = time.perf_counter()
     model = k.upflow.build_model(conf, weights=str(NPZ))
@@ -487,7 +675,7 @@ def phase_serve(k, sgu: bool):
                            time.perf_counter() - t0,
                            sum(p.numel() for p in model.parameters()),
                            len(model.skipped_keys)))
-    check(len(model.skipped_keys) == (0 if sgu else 20),
+    check(len(model.skipped_keys) == skipped,
           "%s model: %d snapshot arrays skipped" % (tag,
                                                    len(model.skipped_keys)))
     pairs = [textured_pair(b, h, w, seed) for b, h, w, seed in requests]
@@ -527,7 +715,7 @@ def phase_serve(k, sgu: bool):
           % (tag, plain_calls))
 
     # kernel path against plain path on the card, relaxed threshold
-    bar_mean, bar_p999 = AGREEMENT[sgu]
+    bar_mean, bar_p999, bar_occ = AGREEMENT[tag]
     timing = []
     k.warp_ops.MASK_THRESHOLD = RELAXED_THRESHOLD
     try:
@@ -549,6 +737,14 @@ def phase_serve(k, sgu: bool):
             check(all(fn.launches == before[n]
                       for n, fn in k.dispatch.items()),
                   "%s: the plain path launched no kernel" % what)
+            if knobs.get("compute_dtype") == "bfloat16":
+                with plain_path(k), library_route(k):
+                    lib = k.upflow.forward(model, im1, im2)
+                occ = max((plain[key] != lib[key]).float().mean().item()
+                          for key in ("occ_fw", "occ_bw"))
+                print("  info %s: floor, plain path vs library route: flow "
+                      "|diff| mean %.3e px, p99.9 %.3e px, occlusion %.2e"
+                      % ((what,) + flow_diffs(plain, lib) + (occ,)))
             mean, p999 = flow_diffs(fast, plain)
             check(mean < bar_mean and p999 < bar_p999,
                   "%s at threshold %g: kernel vs plain path flow |diff| "
@@ -557,14 +753,20 @@ def phase_serve(k, sgu: bool):
                      bar_p999))
             for key in ("occ_fw", "occ_bw"):
                 frac = (fast[key] != plain[key]).float().mean().item()
-                check(frac < 1e-3, "%s: %s disagrees on %.2e of pixels "
-                      "(< 1e-3)" % (what, key, frac))
+                check(frac < bar_occ, "%s: %s disagrees on %.2e of pixels "
+                      "(< %g)" % (what, key, frac, bar_occ))
             levels = max(max((ff - pf).abs().max().item(),
                              (fb - pb).abs().max().item())
                          for (ff, fb), (pf, pb) in zip(fast["flows"],
                                                        plain["flows"]))
             print("  info %s: per-level flow max |diff| %.3e px"
                   % (what, levels))
+            if ref_model is not None:
+                mean, p999 = flow_diffs(
+                    fast, k.upflow.forward(ref_model, im1, im2))
+                print("  info %s: against the fp32 SGU kernel path, flow "
+                      "|diff| mean %.3e px, p99.9 %.3e px" % (what, mean,
+                                                              p999))
             fast_ms = wall_ms(lambda: k.upflow.forward(model, im1, im2))
             with plain_path(k):
                 plain_ms = wall_ms(lambda: k.upflow.forward(model, im1, im2))
@@ -642,7 +844,9 @@ class Port:
         from upflow_pytorch_tpu_torch import _build
         from upflow_pytorch_tpu_torch.config import UPFlowConfig
         from upflow_pytorch_tpu_torch.models import upflow
+        from upflow_pytorch_tpu_torch.ops import conv as conv_ops
         from upflow_pytorch_tpu_torch.ops import warp as warp_ops
+        from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as seg
         from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as cn
         from upflow_pytorch_tpu_torch.ops.kernels import correlation as corr
         from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as fw
@@ -654,17 +858,19 @@ class Port:
         self.upflow = upflow
         self.warp_ops, self.cn, self.corr, self.fw, self.warp = (
             warp_ops, cn, corr, fw, warp)
-        self.sb, self.sf = sb, sf
+        self.sb, self.sf, self.conv_ops, self.seg = sb, sf, conv_ops, seg
         self.dispatch = {"correlation": corr.correlation,
                          "feature_warp": fw.feature_warp,
                          "corr_norm": cn.corr_norm, "warp": warp.warp,
-                         "sgu_blend": sb.sgu_blend, "sgu_final": sf.sgu_final}
+                         "sgu_blend": sb.sgu_blend, "sgu_final": sf.sgu_final,
+                         "conv3x3_seg": seg.conv3x3_seg}
         self.plain = {"correlation": corr.correlation_plain,
                       "feature_warp": fw.feature_warp_plain,
                       "corr_norm": cn.corr_norm_plain,
                       "warp": warp.warp_plain,
                       "sgu_blend": sb.sgu_blend_plain,
-                      "sgu_final": sf.sgu_final_plain}
+                      "sgu_final": sf.sgu_final_plain,
+                      "conv3x3_seg": seg.conv3x3_seg_plain}
 
 
 SOURCES = {
@@ -682,18 +888,23 @@ SOURCES = {
                   "upflow_pytorch_tpu/ops/pallas/blend.py:114"),
     "sgu_final": ("upflow_pytorch_tpu_torch/csrc/sgu_final.cu",
                   "upflow_pytorch_tpu/ops/pallas/sgu_final.py:155"),
+    "conv3x3_seg": ("upflow_pytorch_tpu_torch/csrc/conv3x3_seg.cu",
+                    "upflow_pytorch_tpu/ops/pallas/conv.py:382"),
 }
-# row 5 of the TPU kernels, _window_warp_resident, is served by the image
-# warp kernel; on the SGU path its work runs inside sgu_blend and sgu_final
-SERVED_BY = {"warp_window": "warp"}
+SOURCES.update({row: SOURCES[kernel] for row, kernel in SERVED_BY.items()
+                if row != "warp_window"})
+# the rows that the bf16 path runs: their launches are counted there
+BF16_ROWS = ("conv3x3_seg", "correlation_bf16", "feature_warp_bf16",
+             "corr_norm_bf16")
 
 
 def kernels_line(rows, launches):
-    """One entry per kernel; times are per forward at B=4, 384x1280 on the
-    SGU path: the sum over the kernel's calls in one forward (two
-    directions per level); ``warp_window`` (row 5) is per call.  ``ms`` is
-    CUDA-event time per call, ``device_ms`` the profiler's device time of
-    the same calls.  ``launches`` counts the SGU path's run."""
+    """One entry per kernel and row; times are per forward at B=4,
+    384x1280 on the SGU path (the bf16 rows on the bf16 SGU path): the sum
+    over the kernel's calls in one forward (two directions per level);
+    ``warp_window`` (row 5) is per call.  ``ms`` is CUDA-event time per
+    call, ``device_ms`` the profiler's device time of the same calls.
+    ``launches`` counts the run of that path (``path``)."""
     out = []
     for name, shapes in rows.items():
         def total(key):
@@ -703,10 +914,11 @@ def kernels_line(rows, launches):
         lib = total("library_ms")
         by = ("bytes" if all(r["bound_by"] == "bytes" for r in shapes)
               else "operations")
+        path = "sgu-bf16" if name in BF16_ROWS else "sgu"
         out.append(dict(
             name=name, route="cuda", source=SOURCES[name][0],
-            replaces=SOURCES[name][1],
-            launches=launches[SERVED_BY.get(name, name)],
+            replaces=SOURCES[name][1], path=path,
+            launches=launches[path][SERVED_BY.get(name, name)],
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
@@ -752,12 +964,14 @@ def main() -> int:
     print("phase 2: kernels against their plain versions", flush=True)
     rows = phase_kernels(k)
     print("phase 3: serve requests", flush=True)
-    _, timing, model, pair = phase_serve(k, sgu=False)
-    launches, sgu_timing, sgu_model, sgu_pair = phase_serve(k, sgu=True)
+    launches, timing, models, pairs = {}, [], {}, {}
+    for tag in PATHS:
+        launches[tag], t, models[tag], pairs[tag] = phase_serve(
+            k, tag, models["sgu"] if tag == "sgu-bf16" else None)
+        timing += t
     print("phase 4: profile one forward of each path", flush=True)
-    phase_profile(k, model, pair, "no-sgu")
-    phase_profile(k, sgu_model, sgu_pair, "sgu")
-    timing += sgu_timing
+    for tag in PATHS:
+        phase_profile(k, models[tag], pairs[tag], tag)
 
     print(json.dumps({"forward_ms": timing}))
     print(json.dumps(kernels_line(rows, launches)))

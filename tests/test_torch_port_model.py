@@ -131,13 +131,22 @@ def test_forward_runs_plain_versions_only_on_the_cpu(outputs):
         pcn.corr_norm_plain, pkw.warp_plain))
 
 
-@pytest.mark.parametrize("knobs,match", [
-    (dict(compute_dtype="bfloat16"), "compute_dtype"),
-])
-def test_unported_knobs_raise(knobs, match):
-    with pytest.raises(NotImplementedError, match=match) as e:
-        pupflow.UPFlowNet(UPFlowConfig().updated(knobs))
-    assert "ROADMAP.md" in str(e.value)
+@pytest.mark.parametrize("dtype,error", [
+    ("float16", ValueError), ("float64", ValueError),
+    ("bfloat16", None)])
+def test_unported_knobs_raise(dtype, error):
+    """``compute_dtype`` takes "float32" or "bfloat16"; anything else
+    raises, naming both.  bf16 builds, with fp32 parameters."""
+    if error is not None:
+        with pytest.raises(error, match="compute_dtype") as e:
+            pupflow.UPFlowNet(UPFlowConfig().updated(
+                dict(compute_dtype=dtype)))
+        assert "'float32'" in str(e.value) and "'bfloat16'" in str(e.value)
+        return
+    model = pupflow.UPFlowNet(UPFlowConfig().updated(
+        dict(compute_dtype=dtype)))
+    assert model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 def test_build_model_without_device_needs_cuda(monkeypatch):

@@ -25,6 +25,7 @@ from upflow_pytorch_tpu_torch.ops import correlation as pcorr
 from upflow_pytorch_tpu_torch.ops import normalize as pnorm
 from upflow_pytorch_tpu_torch.ops import resize as presize
 from upflow_pytorch_tpu_torch.ops import warp as pwarp
+from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as pseg
 from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as pcn
 from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as pfw
 from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as psb
@@ -233,7 +234,8 @@ def test_moments_match_normalize_features():
 
 
 @pytest.mark.parametrize("op", ["correlation", "corr_norm", "feature_warp",
-                                "warp", "sgu_blend", "sgu_final"])
+                                "warp", "sgu_blend", "sgu_final",
+                                "conv3x3_seg"])
 def test_dispatch_refuses_tensors_off_the_cpu(op):
     """A tensor that is on neither the CPU nor a CUDA device gets no plain
     version and no kernel: the dispatch raises."""
@@ -247,6 +249,8 @@ def test_dispatch_refuses_tensors_off_the_cpu(op):
         "sgu_blend": lambda: psb.sgu_blend(x, x, x[:, :1]),
         "sgu_final": lambda: psf.sgu_final(
             x, torch.empty((1, 3, 4, 5), device="meta"), (16, 20)),
+        "conv3x3_seg": lambda: pseg.conv3x3_seg(
+            x, torch.empty((3, 2, 3, 3)), torch.empty(3)),
     }
     with pytest.raises(ValueError, match="no kernel for device"):
         calls[op]()
@@ -256,7 +260,8 @@ def test_plain_versions_count_no_cuda_calls_on_cpu():
     rng = np.random.RandomState(5)
     x = torch.from_numpy(rng.rand(1, 3, 6, 7).astype(np.float32))
     plain = (pcorr.correlation_plain, pfw.feature_warp_plain, pkw.warp_plain,
-             pcn.corr_norm_plain, psb.sgu_blend_plain, psf.sgu_final_plain)
+             pcn.corr_norm_plain, psb.sgu_blend_plain, psf.sgu_final_plain,
+             pseg.conv3x3_seg_plain)
     before = [f.cuda_calls for f in plain]
     flow = x[:, :2].contiguous()
     pcorr.correlation(x, x)
@@ -264,7 +269,10 @@ def test_plain_versions_count_no_cuda_calls_on_cpu():
     pfw.feature_warp(x, flow, 1.0)
     psb.sgu_blend(flow, flow, x[:, 2:].contiguous())
     psf.sgu_final(flow, x, (24, 28))
+    pseg.conv3x3_seg(x.to(torch.bfloat16), torch.ones(2, 3, 3, 3),
+                     torch.zeros(2))
     assert [f.cuda_calls for f in plain] == before
     assert (pcorr.correlation.launches, pfw.feature_warp.launches,
             pkw.warp.launches, pcn.corr_norm.launches,
-            psb.sgu_blend.launches, psf.sgu_final.launches) == (0,) * 6
+            psb.sgu_blend.launches, psf.sgu_final.launches,
+            pseg.conv3x3_seg.launches) == (0,) * 7

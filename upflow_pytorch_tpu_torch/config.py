@@ -30,6 +30,9 @@ class ConfigBase:
         return "".join("%s|%s_" % (k, v) for k, v in items)
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 @dataclasses.dataclass(frozen=True)
 class UPFlowConfig(ConfigBase):
     """All 22 knobs of ``UPFlow_net.config``, with the reference defaults,
@@ -74,6 +77,12 @@ class UPFlowConfig(ConfigBase):
     remat: bool = False
     search_range: int = 4
     output_level: int = 4
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError("compute_dtype must be one of %s, got %r"
+                             % (" or ".join(map(repr, COMPUTE_DTYPES)),
+                                self.compute_dtype))
 
     @property
     def num_chs(self) -> Tuple[int, ...]:

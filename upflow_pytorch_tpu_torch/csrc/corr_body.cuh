@@ -9,6 +9,10 @@
 // AFTER the affine (as the oracle zero-pads the normalised map), and the
 // epilogue applies LeakyReLU.
 //
+// The maps are fp32 or bf16 (T); a bf16 value is widened to fp32 as it is
+// staged, and everything after that is fp32, so the bf16 path computes
+// what the fp32 path computes on the widened maps.
+//
 // Layout: NCHW in, NCHW (B, 81, H, W) out.  A block owns an 8 x 32 pixel
 // tile.  Its threads are (32, 8, 3): one thread per output pixel and per
 // third of the 81 taps (3 displacement rows, 27 accumulators), which keeps
@@ -18,6 +22,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "warp_common.cuh"
 
 namespace upflow {
 
@@ -32,9 +38,9 @@ constexpr int kHaloW = kTileW + 2 * kDisp;
 constexpr int kHaloH = kTileH + 2 * kDisp;
 constexpr int kCorrThreads = kTileW * kTileH * kGroups;
 
-template <bool NORM>
+template <bool NORM, typename T>
 __global__ void __launch_bounds__(kCorrThreads)
-corr_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
+corr_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
             const float* __restrict__ aff, float* __restrict__ out, int C,
             int H, int W, float slope) {
   __shared__ float s1[kChunk][kTileH][kTileW];
@@ -44,8 +50,8 @@ corr_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
   const int b = blockIdx.z;
   const size_t plane = static_cast<size_t>(H) * W;
-  const float* f1b = f1 + static_cast<size_t>(b) * C * plane;
-  const float* f2b = f2 + static_cast<size_t>(b) * C * plane;
+  const T* f1b = f1 + static_cast<size_t>(b) * C * plane;
+  const T* f2b = f2 + static_cast<size_t>(b) * C * plane;
   // aff rows per batch item: m1, rstd1, m2, rstd2, each of length C
   const float* ab = NORM ? aff + static_cast<size_t>(b) * 4 * C : nullptr;
 
@@ -64,7 +70,7 @@ corr_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
       const int c = c0 + cc, yy = y0 + r, xx = x0 + col;
       float v = 0.0f;
       if (c < C && yy < H && xx < W) {
-        v = f1b[c * plane + yy * W + xx];
+        v = to_f32(f1b[c * plane + yy * W + xx]);
         if (NORM) v = __fmul_rn(__fsub_rn(v, ab[c]), ab[C + c]);
       }
       s1[cc][r][col] = v;
@@ -76,7 +82,7 @@ corr_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
       const int c = c0 + cc, yy = y0 + r - kDisp, xx = x0 + col - kDisp;
       float v = 0.0f;
       if (c < C && yy >= 0 && yy < H && xx >= 0 && xx < W) {
-        v = f2b[c * plane + yy * W + xx];
+        v = to_f32(f2b[c * plane + yy * W + xx]);
         if (NORM) v = __fmul_rn(__fsub_rn(v, ab[2 * C + c]), ab[3 * C + c]);
       }
       s2[cc][r][col] = v;
@@ -108,14 +114,14 @@ corr_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
     }
 }
 
-template <bool NORM>
-int launch_corr(const float* f1, const float* f2, const float* aff,
+template <bool NORM, typename T>
+int launch_corr(const T* f1, const T* f2, const float* aff,
                 float* out, int B, int C, int H, int W, float slope,
                 void* stream) {
   if (B == 0 || H == 0 || W == 0) return 0;
   const dim3 block(kTileW, kTileH, kGroups);
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  corr_kernel<NORM><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  corr_kernel<NORM, T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       f1, f2, aff, out, C, H, W, slope);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,3 +24,13 @@ extern "C" int upflow_corr_norm(const float* f1, const float* f2,
   return upflow::launch_corr<true>(f1, f2, aff, out, B, C, H, W, slope,
                                    stream);
 }
+
+// The same with bf16 maps: the affine and everything after it in fp32.
+extern "C" int upflow_corr_norm_bf16(const __nv_bfloat16* f1,
+                                     const __nv_bfloat16* f2,
+                                     const float* aff, float* out, int B,
+                                     int C, int H, int W, float slope,
+                                     void* stream) {
+  return upflow::launch_corr<true>(f1, f2, aff, out, B, C, H, W, slope,
+                                   stream);
+}

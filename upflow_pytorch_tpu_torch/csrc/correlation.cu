@@ -22,3 +22,12 @@ extern "C" int upflow_correlation(const float* f1, const float* f2,
   return upflow::launch_corr<false>(f1, f2, nullptr, out, B, C, H, W, 0.0f,
                                     stream);
 }
+
+// The same with bf16 maps (fp32 arithmetic, fp32 out).
+extern "C" int upflow_correlation_bf16(const __nv_bfloat16* f1,
+                                       const __nv_bfloat16* f2, float* out,
+                                       int B, int C, int H, int W,
+                                       void* stream) {
+  return upflow::launch_corr<false>(f1, f2, nullptr, out, B, C, H, W, 0.0f,
+                                    stream);
+}

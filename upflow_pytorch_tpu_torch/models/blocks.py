@@ -17,6 +17,15 @@ a reference state dict loads 1:1:
 Every conv pads ``((k-1)*d)//2`` and is initialised Kaiming-normal
 (fan_in, std = sqrt(2 / fan_in)) with zero bias, drawn from the
 ``torch.Generator`` the caller passes.
+
+The compute dtype is the input's: parameters stay fp32, and a bf16 input
+runs every conv at bf16 (``ops/conv.py``: ``conv3x3_seg`` or the
+plain-conv route, as the JAX package's ``ConvBlock`` chooses), with bf16
+outputs.  At bf16 the dense estimators keep their features in one
+preallocated buffer (``FlowEstimatorDense.dense_buffer``): each conv reads
+a channel range of it and writes its output into the slot in front, so no
+concatenation is copied.  The fp32 path concatenates as the reference
+does.
 """
 
 from __future__ import annotations
@@ -27,9 +36,13 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from upflow_pytorch_tpu_torch.ops.conv import conv_bf16
+
 
 class ConvBlock(nn.Sequential):
-    """Conv (+ LeakyReLU(0.1) unless ``relu=False``)."""
+    """Conv (+ LeakyReLU(0.1) unless ``relu=False``).  At bf16 the output
+    goes into ``out`` when it is given (a channel slot of a buffer); at
+    fp32 ``out`` is not taken."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, relu: bool = True,
@@ -45,6 +58,15 @@ class ConvBlock(nn.Sequential):
         if relu:
             layers.append(nn.LeakyReLU(0.1))
         super().__init__(*layers)
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        conv = self[0]
+        return conv_bf16(x, conv.weight, conv.bias, conv.stride[0],
+                         conv.padding[0], conv.dilation[0], self.relu, out)
 
 
 class FeatureExtractor(nn.Module):
@@ -69,14 +91,18 @@ class FeatureExtractor(nn.Module):
 
 class FlowEstimatorDense(nn.Module):
     """DenseNet-style estimator: 5 convs with concat-skips plus a linear
-    head.  Returns ``(features, flow_residual)``."""
+    head.  Returns ``(features, flow_residual)``.
+
+    At fp32 ``x`` is the input (B, ch_in, H, W).  At bf16 ``x`` is a dense
+    buffer from ``dense_buffer``, and the features are its first
+    ``feat_dim`` channels."""
 
     def __init__(self, ch_in: int,
                  f_channels: Sequence[int] = (128, 128, 96, 64, 32),
                  out_channels: int = 2,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        c = ch_in
+        self.ch_in = c = ch_in
         for i, f in enumerate(f_channels):
             setattr(self, "conv%d" % (i + 1),
                     ConvBlock(c, f, generator=generator))
@@ -86,14 +112,43 @@ class FlowEstimatorDense(nn.Module):
         self.conv_last = ConvBlock(c, out_channels, relu=False,
                                    generator=generator)
 
+    def dense_buffer(self, segments: Sequence[torch.Tensor],
+                     extra: int = 0) -> torch.Tensor:
+        """A bf16 (B, feat_dim + extra, H, W) buffer with ``segments``
+        (the input, ch_in channels in all) cast into channels
+        [feat_dim - ch_in, feat_dim); the rest is left for the convs and
+        the caller."""
+        b, _, h, w = segments[0].shape
+        buf = segments[0].new_empty((b, self.feat_dim + extra, h, w),
+                                    dtype=torch.bfloat16)
+        c = self.feat_dim - self.ch_in
+        for s in segments:
+            buf[:, c:c + s.shape[1]] = s
+            c += s.shape[1]
+        return buf
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if x.dtype != torch.bfloat16:
+            for i in range(self.n_convs):
+                x = torch.cat([getattr(self, "conv%d" % (i + 1))(x), x],
+                              dim=1)
+            return x, self.conv_last(x)
+        # cat([conv(x), x]) order: conv i reads [start, feat_dim) and
+        # writes the slot just in front of it
+        start = self.feat_dim - self.ch_in
         for i in range(self.n_convs):
-            x = torch.cat([getattr(self, "conv%d" % (i + 1))(x), x], dim=1)
-        return x, self.conv_last(x)
+            conv = getattr(self, "conv%d" % (i + 1))
+            f = conv[0].out_channels
+            conv(x[:, start:self.feat_dim], out=x[:, start - f:start])
+            start -= f
+        feat = x[:, :self.feat_dim]
+        return feat, self.conv_last(feat)
 
 
 class ContextNetwork(nn.Module):
-    """7 convs with dilations (1, 2, 4, 8, 16, 1, 1); the last is linear."""
+    """7 convs with dilations (1, 2, 4, 8, 16, 1, 1); the last is linear.
+    At bf16 ``x`` may be the estimator's dense buffer, whose features and
+    last two channels (the flow) are the input."""
 
     def __init__(self, ch_in: int,
                  f_channels: Sequence[int] = (128, 128, 128, 96, 64, 32, 2),

@@ -1,6 +1,7 @@
 """The UPFlow network (bidirectional inference forward), PyTorch/CUDA.
 
-Port of ``upflow_pytorch_tpu.models.upflow`` at fp32:
+Port of ``upflow_pytorch_tpu.models.upflow``, at fp32 or bf16
+(``compute_dtype``):
 
 - 6-level feature pyramid for both frames, coarsest-first; decoding runs
   on levels 0..output_level (=4), i.e. 1/64 .. 1/4 resolution;
@@ -29,6 +30,18 @@ The cost volume per level and direction:
 - with ``if_use_cor_pytorch`` every level >= 1 takes the unfused
   composition instead: masked feature-warp kernel -> torch
   normalisation -> correlation kernel -> LeakyReLU.
+
+At bf16 the casts are the JAX package's: the images enter the pyramid and
+``SGUOutputConv`` as bf16, every conv computes and returns bf16 (the
+parameters stay fp32 and are rounded at each use), the cost volume is
+rounded to bf16 after its LeakyReLU, the upsampled flow is rounded where
+it enters the estimator and ``flow_up + res`` where it enters the context
+network, and the estimator's residual, the context network's output and
+the SGU head's output come back as fp32.  Flows, resizes, the SGU blend
+and final stage and the occlusion check stay fp32.  The feature warps keep
+the bf16 maps (rounded once), the correlations read them and compute in
+fp32, and the 3x3 convs of the dense stacks run ``conv3x3_seg`` where the
+JAX package's predicate selects it (``ops/conv.py``).
 
 CUDA tensors always go through the kernels; CPU tensors through their
 plain versions.  Internally NCHW; ``forward`` takes and returns NHWC.
@@ -66,14 +79,12 @@ class UPFlowNet(nn.Module):
     def __init__(self, conf: UPFlowConfig = UPFlowConfig(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if conf.compute_dtype != "float32":
-            raise NotImplementedError(
-                "compute_dtype=%r is not ported yet (ROADMAP.md, 'Modules "
-                "still to port', slice 3)" % conf.compute_dtype)
         if conf.search_range != 4:
             raise ValueError("the correlation kernels are built for "
                              "search_range 4, got %d" % conf.search_range)
         self.conf = conf
+        self.dtype = (torch.bfloat16 if conf.compute_dtype == "bfloat16"
+                      else torch.float32)
         g = generator
         self.feature_pyramid_extractor = FeatureExtractor(conf.num_chs, g)
         self.flow_estimators = FlowEstimatorDense(
@@ -97,12 +108,16 @@ class UPFlowNet(nn.Module):
         if flow_1.shape[2:] != hw:
             flow_1 = upsample2d_flow_as(flow_1, hw, if_rate=True)
             flow_2 = upsample2d_flow_as(flow_2, hw, if_rate=True)
+        estimator = self.sgi_model.dense_estimator_mask
         outs = []
         for fl, fa, fb in ((flow_1, feature_1, feature_2),
                            (flow_2, feature_2, feature_1)):
             fb_warp = _warp.flow_warp_masked(fb, fl)
-            _, x_out = self.sgi_model.dense_estimator_mask(
-                torch.cat([fa, fb_warp], dim=1))
+            if self.dtype == torch.bfloat16:
+                x = estimator.dense_buffer([fa, fb_warp])
+            else:
+                x = torch.cat([fa, fb_warp], dim=1)
+            x_out = estimator(x)[1].float()
             if output_hw is not None:
                 outs.append(sgu_final(fl, x_out, output_hw))
             else:
@@ -157,23 +172,32 @@ class UPFlowNet(nn.Module):
                 flow_1_up, flow_2_up, feature_1_1x1, feature_2_1x1)
         corr_1, corr_2 = self._cost_volumes(level, flow_1_up, flow_2_up,
                                             feature_1, feature_2)
-        out = []
-        for corr, f_1x1, flow_up in ((corr_1, feature_1_1x1, flow_1_up),
-                                     (corr_2, feature_2_1x1, flow_2_up)):
-            feat, res = self.flow_estimators(
-                torch.cat([corr, f_1x1, flow_up], dim=1))
-            fine = self.context_networks(
-                torch.cat([feat, flow_up + res], dim=1))
-            out.append(res + fine)
+        out = [self._heads(corr_1, feature_1_1x1, flow_1_up),
+               self._heads(corr_2, feature_2_1x1, flow_2_up)]
         return flow_1_up, flow_2_up, out[0], out[1]
+
+    def _heads(self, corr, f_1x1, flow_up):
+        """The dense flow estimator and the context network of one
+        direction: the fp32 residual ``res + fine``."""
+        estimator = self.flow_estimators
+        if self.dtype != torch.bfloat16:
+            feat, res = estimator(torch.cat([corr, f_1x1, flow_up], dim=1))
+            return res + self.context_networks(
+                torch.cat([feat, flow_up + res], dim=1))
+        # one buffer: the estimator's features, then flow_up + res for the
+        # context network in the last two channels
+        buf = estimator.dense_buffer([corr, f_1x1, flow_up], extra=2)
+        res = estimator(buf)[1].float()
+        buf[:, estimator.feat_dim:] = flow_up + res
+        return res + self.context_networks(buf).float()
 
     def forward(self, im1: torch.Tensor, im2: torch.Tensor):
         """``forward_2_frame_v3`` on NCHW images (B, 3, H, W).  Returns
         ``(flow_f_out, flow_b_out, flows)``; ``flows`` is the per-level
         ``[(flow_f, flow_b)]`` list FINEST-FIRST."""
         b, _, height, width = im1.shape
-        x1_pyramid = self.feature_pyramid_extractor(im1)
-        x2_pyramid = self.feature_pyramid_extractor(im2)
+        x1_pyramid = self.feature_pyramid_extractor(im1.to(self.dtype))
+        x2_pyramid = self.feature_pyramid_extractor(im2.to(self.dtype))
         h0, w0 = x1_pyramid[0].shape[2:]
         flow_f = im1.new_zeros((b, 2, h0, w0))
         flow_b = im1.new_zeros((b, 2, h0, w0))
@@ -189,7 +213,8 @@ class UPFlowNet(nn.Module):
         if self.conf.if_sgu_upsample:
             up_conv = self.sgi_model.upsample_output_conv
             flow_f_out, flow_b_out = self._sgu_pair(
-                flow_f, flow_b, up_conv(im1), up_conv(im2),
+                flow_f, flow_b, up_conv(im1.to(self.dtype)),
+                up_conv(im2.to(self.dtype)),
                 output_hw=(height, width))
         else:
             flow_f_out = upsample2d_flow_as(flow_f, (height, width),
@@ -245,8 +270,9 @@ def forward(model: UPFlowNet, im1, im2) -> Dict[str, Any]:
     ``im1``, ``im2``: (B, H, W, 3) NHWC, tensors or arrays; they are moved
     to the model's device.  Returns NHWC ``flow_f_out``, ``flow_b_out``
     (B, H, W, 2), ``occ_fw``, ``occ_bw`` (B, H, W, 1) and ``flows``, the
-    per-level ``[(flow_f, flow_b)]`` list finest-first.  Convolutions run
-    in full fp32: cuDNN's TF32 is switched off for the call.
+    per-level ``[(flow_f, flow_b)]`` list finest-first, all fp32 whatever
+    the compute dtype.  fp32 convolutions run in full fp32: cuDNN's TF32
+    is switched off for the call.
     """
     conf = model.conf
     device = next(model.parameters()).device

@@ -12,6 +12,17 @@ the LeakyReLU, so no normalised map reaches device memory.
 
 ``warp_norm_corr`` is the decoder's per-level segment at levels >= 1:
 masked feature warp (kernel 2) -> torch moments -> this kernel.
+
+bf16 maps (the bf16 forward) keep the TPU's fused semantics
+(``ops/pallas/corr_norm.py::_wnc_fast``): the warped source is rounded to
+bf16, the moments are taken in fp32 from the rounded values, and the
+affine, the correlation and the LeakyReLU run in fp32 inside the kernel,
+so the normalised maps are never rounded.  The port takes this path at
+every level >= 1.  It deliberately drops the TPU's width gate
+(``warp_norm_corr_viable``, ``w < 128``), which on a TPU sends the narrow
+levels to the unfused composition, where the normalised maps are rounded
+to bf16 as well; the whole-model comparison with the JAX package covers
+that difference.
 """
 
 from __future__ import annotations
@@ -24,8 +35,8 @@ import torch.nn.functional as F
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as kfw
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    FLOAT, INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
-    stream_of)
+    FLOAT, FP32_BF16, INT, PTR, check_cpu_input, check_cuda_input,
+    count_cuda_call, stream_of)
 from upflow_pytorch_tpu_torch.ops.kernels.correlation import (
     KERNEL_DISP, correlation_plain)
 
@@ -83,17 +94,19 @@ def corr_norm_cuda(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
                    leaky_slope: Optional[float]) -> torch.Tensor:
     """Launches ``upflow_corr_norm`` on the current stream."""
     op = "corr_norm"
-    check_cuda_input(op, "f1", f1, (None, None, None, None))
+    check_cuda_input(op, "f1", f1, (None, None, None, None),
+                     dtypes=FP32_BF16)
     b, c, h, w = f1.shape
     if c == 0:
         raise ValueError("%s: no channels" % op)
-    check_cuda_input(op, "f2", f2, (b, c, h, w), f1.device)
+    check_cuda_input(op, "f2", f2, (b, c, h, w), f1.device, (f1.dtype,))
     check_cuda_input(op, "aff", aff, (b, 4, c), f1.device)
     k = 2 * KERNEL_DISP + 1
     out = torch.empty((b, k * k, h, w), dtype=torch.float32, device=f1.device)
     # LeakyReLU with slope 1 is the identity
     slope = 1.0 if leaky_slope is None else float(leaky_slope)
-    fn = _build.kernel_fn("upflow_corr_norm",
+    fn = _build.kernel_fn("upflow_corr_norm" + (
+        "_bf16" if f1.dtype == torch.bfloat16 else ""),
                           [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
     with torch.cuda.device(f1.device):
         corr_norm.launches += 1
@@ -122,13 +135,14 @@ def warp_norm_corr(f_tgt: torch.Tensor, f_src: torch.Tensor,
                    ) -> torch.Tensor:
     """``leaky(corr(norm(f_tgt), norm(masked_warp(f_src, flow))))``.
 
-    NCHW maps (B, C, H, W), flow (B, 2, H, W); output (B, 81, H, W).
+    NCHW fp32 or bf16 maps (B, C, H, W), flow (B, 2, H, W); output
+    (B, 81, H, W) fp32.  The warped map has ``f_src``'s type.
     ``norm_kw``: the normalize_features knobs, or None for no
     normalisation.
     """
-    warped = kfw.feature_warp(f_src.float().contiguous(),
-                              flow.float().contiguous(), mask_thr)
-    f_tgt = f_tgt.float().contiguous()
+    warped = kfw.feature_warp(f_src.contiguous(), flow.float().contiguous(),
+                              mask_thr)
+    f_tgt = f_tgt.contiguous()
     if norm_kw is not None:
         ac = norm_kw["moments_across_channels"]
         m1, v1 = moments(f_tgt, ac)
@@ -136,7 +150,7 @@ def warp_norm_corr(f_tgt: torch.Tensor, f_src: torch.Tensor,
         aff = affine_pair(m1, v1, m2, v2, norm_kw)
     else:
         b, c = f_tgt.shape[:2]
-        zeros = f_tgt.new_zeros((b, c))
-        ones = f_tgt.new_ones((b, c))
+        zeros = f_tgt.new_zeros((b, c), dtype=torch.float32)
+        ones = f_tgt.new_ones((b, c), dtype=torch.float32)
         aff = torch.stack([zeros, ones, zeros, ones], dim=1)
     return corr_norm(f_tgt, warped, aff, leaky_slope)

@@ -7,7 +7,8 @@ the design meets that.
     out[b, k, y, x] = (1/C) * sum_c f1[b, c, y, x] * f2[b, c, y+dy, x+dx]
 
 with ``k = (dy+D)*(2D+1) + (dx+D)`` and zeros outside ``f2``.  NCHW in,
-(B, (2D+1)^2, H, W) out.  ``correlation`` launches the kernel for CUDA
+(B, (2D+1)^2, H, W) out.  The maps are fp32 or bf16 (widened to fp32 as
+they are read); the output is fp32.  ``correlation`` launches the kernel for CUDA
 tensors and runs ``correlation_plain`` for CPU tensors.
 """
 
@@ -18,7 +19,7 @@ import torch.nn.functional as F
 
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
+    FP32_BF16, INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
     stream_of)
 
 KERNEL_DISP = 4  # the kernel's compiled displacement (corr_body.cuh)
@@ -49,14 +50,16 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
     if max_displacement != KERNEL_DISP:
         raise ValueError("%s: kernel is built for displacement %d, got %d"
                          % (op, KERNEL_DISP, max_displacement))
-    check_cuda_input(op, "f1", f1, (None, None, None, None))
-    check_cuda_input(op, "f2", f2, tuple(f1.shape), f1.device)
+    check_cuda_input(op, "f1", f1, (None, None, None, None),
+                     dtypes=FP32_BF16)
+    check_cuda_input(op, "f2", f2, tuple(f1.shape), f1.device, (f1.dtype,))
     b, c, h, w = f1.shape
     if c == 0:
         raise ValueError("%s: no channels" % op)
     k = 2 * KERNEL_DISP + 1
     out = torch.empty((b, k * k, h, w), dtype=torch.float32, device=f1.device)
-    fn = _build.kernel_fn("upflow_correlation",
+    fn = _build.kernel_fn("upflow_correlation" + (
+        "_bf16" if f1.dtype == torch.bfloat16 else ""),
                           [PTR, PTR, PTR, INT, INT, INT, INT, PTR])
     with torch.cuda.device(f1.device):
         correlation.launches += 1

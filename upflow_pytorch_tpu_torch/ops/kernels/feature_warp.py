@@ -7,7 +7,9 @@ bilinear warp of a (B, C, H, W) feature map by a (B, 2, H, W) flow, times
 source note in the ``.cu`` file says how the design meets that.
 
 The kernel reproduces ``ops/warp.py``'s arithmetic op for op, so kernel
-and plain version agree bit for bit, mask bits included.
+and plain version agree bit for bit, mask bits included.  Maps are fp32
+or bf16 and the output has the map's type: a bf16 map is warped in fp32
+and the result rounded to bf16 once (the TPU kernel's ``out_dtype``).
 """
 
 from __future__ import annotations
@@ -19,22 +21,22 @@ import torch
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    FLOAT, INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
-    stream_of)
+    FLOAT, FP32_BF16, INT, PTR, check_cpu_input, check_cuda_input,
+    count_cuda_call, stream_of)
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def feature_warp_plain(x: torch.Tensor, flow: torch.Tensor, thr: float,
                        with_mask: bool = False) -> Result:
-    """Plain PyTorch version: returns ``warp(x) * mask`` and, with
-    ``with_mask``, the (B, H, W) mask."""
+    """Plain PyTorch version: returns ``warp(x) * mask`` in ``x``'s type
+    and, with ``with_mask``, the (B, H, W) fp32 mask."""
     count_cuda_call(feature_warp_plain, x, flow)
     _, _, ih, iw = x.shape
     px, py = _w.abs_coords_torch_grid(flow)
     out = _w.bilinear_sample(x, px, py)
     mask = (_w._analytic_wsum(ih, iw, px, py) >= thr).float()
-    out = out * mask[:, None]
+    out = (out * mask[:, None]).to(x.dtype)
     return (out, mask) if with_mask else out
 
 
@@ -45,13 +47,15 @@ def feature_warp_cuda(x: torch.Tensor, flow: torch.Tensor, thr: float,
                       with_mask: bool = False) -> Result:
     """Launches ``upflow_feature_warp`` on the current stream."""
     op = "feature_warp"
-    check_cuda_input(op, "x", x, (None, None, None, None))
+    check_cuda_input(op, "x", x, (None, None, None, None),
+                     dtypes=FP32_BF16)
     b, c, h, w = x.shape
     check_cuda_input(op, "flow", flow, (b, 2, h, w), x.device)
     out = torch.empty_like(x)
     mask = (torch.empty((b, h, w), dtype=torch.float32, device=x.device)
             if with_mask else None)
-    fn = _build.kernel_fn("upflow_feature_warp",
+    fn = _build.kernel_fn("upflow_feature_warp" + (
+        "_bf16" if x.dtype == torch.bfloat16 else ""),
                           [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
     with torch.cuda.device(x.device):
         feature_warp.launches += 1

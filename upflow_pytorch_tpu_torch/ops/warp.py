@@ -151,20 +151,20 @@ def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 def flow_warp_with_mask(x: torch.Tensor, flow: torch.Tensor):
     """``WarpingLayer_no_div``: returns ``(warped * mask, mask)``, mask
-    (B, H, W) = 1 where the warped all-ones image >= ``mask_threshold()``."""
+    (B, H, W) = 1 where the warped all-ones image >= ``mask_threshold()``.
+    ``x`` is fp32 or bf16; a bf16 map is warped in fp32 and the result
+    rounded to bf16 once, as the JAX package does."""
     from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as kfw
 
-    out, mask = kfw.feature_warp(x.float().contiguous(),
-                                 flow.float().contiguous(),
-                                 mask_threshold(), with_mask=True)
-    return out.to(x.dtype), mask
+    return kfw.feature_warp(x.contiguous(), flow.float().contiguous(),
+                            mask_threshold(), with_mask=True)
 
 
 def flow_warp_masked(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as kfw
 
-    return kfw.feature_warp(x.float().contiguous(), flow.float().contiguous(),
-                            mask_threshold()).to(x.dtype)
+    return kfw.feature_warp(x.contiguous(), flow.float().contiguous(),
+                            mask_threshold())
 
 
 def sgu_blend(flow_init: torch.Tensor, inter_flow: torch.Tensor,
