@@ -16,13 +16,18 @@ Phases, each of which must pass:
    TPU's windowed planar warp.  The bf16 path's kernels are held at bf16:
    ``conv3x3_seg`` at every distinct conv shape of a bf16 forward (and two
    ragged shapes of 375x1242), the correlations and the feature warp at
-   bf16 inputs.
+   bf16 inputs.  ``conv3x3_seg`` is timed as the model calls it (weights
+   packed once) and packing on every call, and each shape prints its
+   staging route (TMA or cp.async), device ms, cuDNN's device ms, its
+   bound and the host's share of a call (CUDA-event time beyond device
+   time); the image warp prints the same beside ``grid_sample``.
 3. Serve requests through ``build_model`` / ``forward`` with the
    checkpoint ``assets/synthetic_trained.npz``, on three paths: the eval
    recipe without SGU (slice 1), with SGU (the served configuration), and
    with SGU at bf16.  For each path: count the kernel launches of each
-   forward, then hold the kernel path against the plain path on the card
-   and time both.
+   forward (``conv3x3_seg`` by staging route, and its weight packs: none
+   after a model's first forward), then hold the kernel path against the
+   plain path on the card and time both.
 4. Profile one forward of each path at B=4, 384x1280 and split its device
    time by kind.
 
@@ -199,6 +204,10 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fmt(v) -> str:
+    return "n/a" if v is None else "%.4f" % v
+
+
 def make_flow(rng, b, h, w, amp):
     """Smooth, large, near-integer flow (B, 2, H, W): a coarse random field
     of amplitude ``amp`` px upsampled, rounded, plus 0.05 px of noise, so
@@ -286,9 +295,10 @@ def phase_kernels(k):
     rows = {name: [] for name in list(LAUNCHES_PER_FORWARD) + list(SERVED_BY)}
 
     def record(name, shape, err, fn, plain, nbytes, ops, library=None,
-               per_forward=2, ops_per_s=FP32_OPS_PER_S, reps=21, inner=10):
+               per_forward=2, ops_per_s=FP32_OPS_PER_S, reps=21, inner=10,
+               **extra):
         t_bound, by = bound_ms(nbytes, ops, ops_per_s)
-        rows[name].append(dict(
+        row = dict(
             shape=shape, max_abs_err=err, per_forward=per_forward,
             ms=time_ms(fn, reps, inner),
             device_ms=device_ms(fn, KERNEL_KEY[name], reps),
@@ -297,7 +307,13 @@ def phase_kernels(k):
                         else time_ms(library, reps, inner)),
             library_device_ms=(None if library is None
                                else device_ms(library, calls=reps)),
-            bound_ms=t_bound, bound_by=by))
+            bound_ms=t_bound, bound_by=by, **extra)
+        # the host's share of a call: event time of back-to-back calls
+        # beyond the device time of the same calls
+        row["host_ms"] = (None if row["device_ms"] is None
+                          else row["ms"] - row["device_ms"])
+        rows[name].append(row)
+        return row
 
     # kernel 1: plain correlation at decode level 0
     c = PYRAMID_CHS[0]
@@ -422,11 +438,16 @@ def phase_kernels(k):
     print("  info warp vs grid_sample (yardstick only): max abs diff %.3e"
           % lib_err)
     px = MAIN_B * MAIN_H * MAIN_W
-    record("warp", list(flow_src.shape), err,
-           lambda: k.warp.warp(flow_src, flow),
-           lambda: k.warp.warp_plain(flow_src, flow),
-           4 * (2 * px * 2 + 2 * px), px * (30 + 7 * 2),
-           library=lambda: grid_sample(flow_src, grid))
+    row = record("warp", list(flow_src.shape), err,
+                 lambda: k.warp.warp(flow_src, flow),
+                 lambda: k.warp.warp_plain(flow_src, flow),
+                 4 * (2 * px * 2 + 2 * px), px * (30 + 7 * 2),
+                 library=lambda: grid_sample(flow_src, grid))
+    print("  info warp %s: %.4f ms a call by events, %s device ms, host "
+          "%s ms; grid_sample %.4f ms, %s device ms; bound %.4f ms"
+          % (tuple(flow_src.shape), row["ms"], fmt(row["device_ms"]),
+             fmt(row["host_ms"]), row["library_ms"],
+             fmt(row["library_device_ms"]), row["bound_ms"]))
 
     # row 5: the same kernel at the magnitudes of the TPU's windowed planar
     # warp (|u| <= 119, |v| <= 39 px), and beyond its window
@@ -538,7 +559,16 @@ def phase_kernels(k):
                                device=DEV))
         weight = randn(cout, cin, 3, 3) * (2.0 / (9 * cin)) ** 0.5
         bias = randn(cout) * 0.1
+        route = k.seg.staging_route(w, x.stride(0), x.data_ptr())
+        want = "cp.async" if what.startswith("ragged") else "tma"
+        before = dict(k.seg.conv3x3_seg.route_launches)
         got = k.seg.conv3x3_seg(x, weight, bias, d, relu, out=out).float()
+        ran = {r: n - before[r]
+               for r, n in k.seg.conv3x3_seg.route_launches.items()}
+        other = "tma" if want == "cp.async" else "cp.async"
+        check(route == want and ran == {want: 1, other: 0},
+              "conv3x3_seg %s staged by the %s route (launches %s)"
+              % (what, route, ran))
         ref = k.seg.conv3x3_seg_plain(x, weight, bias, d, relu).float()
         scale = ref.abs().max().item()
         diff = (got - ref).abs()
@@ -556,13 +586,27 @@ def phase_kernels(k):
                  ulps[big].max().item(), int((~ok).sum().item())))
         wb, bb = weight.bfloat16(), bias.bfloat16()
         px = b * h * w
-        record("conv3x3_seg", [b, cin, h, w, cout, d], diff.max().item(),
-               lambda: k.seg.conv3x3_seg(x, weight, bias, d, relu, out=out),
-               lambda: k.seg.conv3x3_seg_plain(x, weight, bias, d, relu),
-               2 * px * (cin + cout) + 2 * 9 * cin * cout + 4 * cout,
-               2 * 9 * px * cin * cout, per_forward=per_forward,
-               library=lambda: F.conv2d(x, wb, bb, padding=d, dilation=d),
-               ops_per_s=BF16_OPS_PER_S, reps=11, inner=5)
+        # timed as the model calls it (weights packed once), and packing
+        # on every call
+        packed = k.seg.packed_params(torch.nn.Module(), weight, bias)
+        row = record(
+            "conv3x3_seg", [b, cin, h, w, cout, d], diff.max().item(),
+            lambda: k.seg.conv3x3_seg(x, weight, bias, d, relu, out=out,
+                                      packed=packed),
+            lambda: k.seg.conv3x3_seg_plain(x, weight, bias, d, relu),
+            2 * px * (cin + cout) + 2 * 9 * cin * cout + 4 * cout,
+            2 * 9 * px * cin * cout, per_forward=per_forward,
+            library=lambda: F.conv2d(x, wb, bb, padding=d, dilation=d),
+            ops_per_s=BF16_OPS_PER_S, reps=11, inner=5, route=route,
+            pack_per_call_ms=time_ms(
+                lambda: k.seg.conv3x3_seg(x, weight, bias, d, relu,
+                                          out=out), 11, 5))
+        print("  info conv3x3_seg %s: route %s, device ms %s, cuDNN device "
+              "ms %s, bound %.4f; events %.4f ms prepacked, %.4f packing "
+              "per call, host %s ms"
+              % (what, route, fmt(row["device_ms"]),
+                 fmt(row["library_device_ms"]), row["bound_ms"], row["ms"],
+                 row["pack_per_call_ms"], fmt(row["host_ms"])))
     check(total == BF16_LAUNCHES_PER_FORWARD["conv3x3_seg"],
           "conv3x3_seg shapes cover %d calls of a bf16 forward" % total)
     return rows
@@ -681,17 +725,34 @@ def phase_serve(k, tag: str, ref_model=None):
     pairs = [textured_pair(b, h, w, seed) for b, h, w, seed in requests]
 
     # the path's run: every count 0 just before, read just after
+    routes = k.seg.conv3x3_seg.route_launches
     for fn in k.dispatch.values():
         fn.launches = 0
     for fn in k.plain.values():
         fn.cuda_calls = 0
-    for (b, h, w, seed), (im1, im2) in zip(requests, pairs):
+    routes.update({"tma": 0, "cp.async": 0})
+    for i, ((b, h, w, seed), (im1, im2)) in enumerate(zip(requests, pairs)):
         before = {n: fn.launches for n, fn in k.dispatch.items()}
+        routes_before = dict(routes)
+        packs_before = k.seg.pack_weight.calls
         out = k.upflow.forward(model, im1, im2)
         torch.cuda.synchronize()
         delta = {n: fn.launches - before[n] for n, fn in k.dispatch.items()}
         what = "%s request %dx%dx%d" % (tag, b, h, w)
         check(delta == per_forward, "%s: launches %s" % (what, delta))
+        # conv3x3_seg: TMA staging on the aligned 384x1280 pyramid,
+        # cp.async copies on 375x1242's; weights packed at the model's
+        # first call only
+        convs = per_forward["conv3x3_seg"]
+        aligned = h % 64 == 0 and w % 64 == 0
+        ran = {r: n - routes_before[r] for r, n in routes.items()}
+        packs = k.seg.pack_weight.calls - packs_before
+        check(ran == {"tma": convs if aligned else 0,
+                      "cp.async": 0 if aligned else convs},
+              "%s: conv3x3_seg launches by staging route %s" % (what, ran))
+        check(i == 0 or packs == 0,
+              "%s: %d pack_weight calls (the model's first forward packs "
+              "its kernel-route convs once)" % (what, packs))
         for key, ch in (("flow_f_out", 2), ("flow_b_out", 2),
                         ("occ_fw", 1), ("occ_bw", 1)):
             t = out[key]

@@ -27,11 +27,16 @@ from upflow_pytorch_tpu.ops.correlation import correlation_xla
 from upflow_pytorch_tpu.ops.pallas import corr_norm as jcn
 from upflow_pytorch_tpu.ops.pallas.feature_warp import feature_warp_prep
 
+import chip_smoke
+from upflow_pytorch_tpu_torch.checkpoint.convert import params_from_jax
+from upflow_pytorch_tpu_torch.checkpoint.npz_io import load_npz_flat
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
+from upflow_pytorch_tpu_torch.models import blocks as pblocks
 from upflow_pytorch_tpu_torch.models import upflow as pupflow
 from upflow_pytorch_tpu_torch.ops import conv as pconv_ops
 from upflow_pytorch_tpu_torch.ops import warp as pwarp
 from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as pseg
+from upflow_pytorch_tpu_torch.ops.kernels import _common as kcommon
 from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as pcn
 
 NPZ = str(Path(__file__).resolve().parents[1] / "assets"
@@ -136,27 +141,129 @@ def test_conv3x3_seg_writes_into_a_channel_slot():
     assert torch.equal(buf[:, 24:], before[:, 24:])
 
 
-@pytest.mark.parametrize("cout,nb", [(128, 64), (96, 32), (64, 64),
+@pytest.mark.parametrize("cout,nb", [(128, 128), (96, 96), (64, 64),
                                      (32, 32), (16, 16), (8, 8), (3, 8),
-                                     (2, 8)])
+                                     (2, 8), (196, 128)])
 def test_pack_weight_layout(cout, nb):
-    """The kernel's weight layout: (Cout/NB, Cin/16, 9, NB, 16), zero
-    padding, each value where the kernel reads it."""
+    """The kernel's weight layout, (Cout/NB, Cin/64, 9, NB, 64) with each
+    128-byte row's 16-byte groups swizzled, unpacks to the bf16 weight
+    for every output width of the model (and a 196-channel conv, two
+    tiles); each value where the kernel reads it, padding zero."""
     rng = np.random.RandomState(cout)
-    w = torch.from_numpy(rng.randn(cout, 35, 3, 3).astype(np.float32))
+    w = torch.from_numpy(rng.randn(cout, 70, 3, 3).astype(np.float32))
     assert pseg.block_width(cout) == nb
     p = pseg.pack_weight(w)
     n_blk = -(-cout // nb)
-    assert p.shape == (n_blk, 3, 9, nb, 16) and p.dtype == BF16
-    full = torch.zeros(n_blk * nb, 48, 3, 3, dtype=BF16)
-    full[:cout, :35] = w.to(BF16)
-    for co, ci, ky, kx in ((0, 0, 0, 0), (cout - 1, 34, 2, 1),
+    assert p.shape == (n_blk, 2, 9, nb, 64) and p.dtype == BF16
+    full = torch.zeros(n_blk * nb, 128, 3, 3, dtype=BF16)
+    full[:cout, :70] = w.to(BF16)
+    for co, ci, ky, kx in ((0, 0, 0, 0), (cout - 1, 69, 2, 1),
                            (cout // 2, 17, 1, 2)):
-        assert p[co // nb, ci // 16, ky * 3 + kx, co % nb, ci % 16] == \
+        n, k = co % nb, ci % 64
+        group = (k // 8) ^ (n % 8)
+        assert p[co // nb, ci // 64, ky * 3 + kx, n, group * 8 + k % 8] == \
             full[co, ci, ky, kx]
-    # the same values in all (exact sums in float64), padding zero
-    assert p.double().abs().sum() == full.double().abs().sum()
-    assert int((p != 0).sum()) == int((full != 0).sum())
+    rows = torch.arange(nb)[:, None]
+    unswizzled = p.reshape(n_blk, 2, 9, nb, 8, 8)[
+        :, :, :, rows, pseg.swizzle_index(nb)].reshape(n_blk, 2, 9, nb, 64)
+    unpacked = unswizzled.permute(0, 3, 1, 4, 2).reshape(n_blk * nb, 128, 3,
+                                                         3)
+    assert torch.equal(unpacked, full)
+
+
+def _pack_counts(block):
+    """(pack_weight calls, packed weights) of one ``packed_params`` call on
+    ``block``'s conv."""
+    before = pseg.pack_weight.calls
+    wp, bias = pseg.packed_params(block, block[0].weight, block[0].bias)
+    return pseg.pack_weight.calls - before, wp, bias
+
+
+def test_packed_params_cached_and_fresh():
+    """A block packs once; the cached copy equals a fresh ``pack_weight``
+    and the fp32 bias, and a second call packs nothing."""
+    block = pblocks.ConvBlock(96, 32, generator=torch.Generator()
+                              .manual_seed(0))
+    with torch.no_grad():
+        block[0].bias.uniform_(-1, 1)
+    calls, wp, bias = _pack_counts(block)
+    assert calls == 1
+    assert torch.equal(wp, pseg.pack_weight(block[0].weight))
+    assert bias.dtype == torch.float32 and torch.equal(bias, block[0].bias)
+    calls, wp2, _ = _pack_counts(block)
+    assert calls == 0 and wp2 is wp
+
+
+@pytest.mark.parametrize("update", ["copy_", "load_state_dict",
+                                    "params_from_jax", "bias"])
+def test_packed_params_rebuilt_after_update(update):
+    """The pack cache is rebuilt after every way the parameters change in
+    place: ``copy_``, ``load_state_dict``, ``params_from_jax`` (the
+    checkpoint import) and an update of the bias alone."""
+    gen = torch.Generator().manual_seed(1)
+    if update == "params_from_jax":
+        model = pupflow.build_model(UPFlowConfig().updated(dict(
+            EVAL_KNOBS, compute_dtype="bfloat16")), device="cpu")
+        block = model.flow_estimators.conv1
+    else:
+        block = pblocks.ConvBlock(64, 16, generator=gen)
+    _, old, old_bias = _pack_counts(block)
+    old, old_bias = old.clone(), old_bias.clone()
+    with torch.no_grad():
+        if update == "copy_":
+            block[0].weight.copy_(torch.randn(block[0].weight.shape,
+                                              generator=gen))
+        elif update == "load_state_dict":
+            other = pblocks.ConvBlock(64, 16, generator=gen)
+            block.load_state_dict(other.state_dict())
+        elif update == "bias":
+            block[0].bias.add_(1.0)
+        else:
+            model.load_state_dict(params_from_jax(
+                load_npz_flat(NPZ), model.state_dict().keys()))
+    calls, wp, bias = _pack_counts(block)
+    assert calls == 1
+    assert torch.equal(wp, pseg.pack_weight(block[0].weight))
+    assert torch.equal(bias, block[0].bias.float())
+    assert not (torch.equal(wp, old) and torch.equal(bias, old_bias))
+
+
+@pytest.mark.parametrize("shape", chip_smoke.conv_shapes(),
+                         ids=lambda s: s[0].replace(" ", "_"))
+def test_staging_route_rule(shape):
+    """The wrapper's staging route by TMA's 16-byte rule, for each conv of
+    ``chip_smoke.conv_shapes()`` as the model lays it out (a channel range
+    of its dense buffer, from a 512-byte aligned allocation): TMA at the
+    aligned 384 x 1280 pyramid, cp.async copies at the 94 x 311 rows.  A
+    real CPU tensor of the same layout gives the same answer."""
+    what, b, h, w, cin, cout, d, relu, per_forward, buf = shape
+    channels, start = buf if buf is not None else (cin, 0)
+    route = pseg.staging_route(w, channels * h * w, 512 + 2 * start * h * w)
+    assert route == ("tma" if w % 8 == 0 else "cp.async")
+    assert route == ("cp.async" if what.startswith("ragged") else "tma")
+    full = torch.empty((1, channels, h, 8 if w % 8 == 0 else 7),
+                       dtype=BF16)
+    x = full[:, start:start + cin]
+    assert pseg.staging_route(x.shape[3], x.stride(0), x.data_ptr()) == (
+        "tma" if full.data_ptr() % 16 == 0 and w % 8 == 0 else "cp.async")
+
+
+@pytest.mark.parametrize("view,want", [
+    (lambda t: t[:, 4:20], True),           # a channel range of a buffer
+    (lambda t: t, True),
+    (lambda t: t[:, :, :, 1:], False),      # a column range
+    (lambda t: t.transpose(2, 3), False),
+    (lambda t: t[:, 4:4], True),            # empty
+    (lambda t: t[:, 4:5, :1], True),        # size-1 dims ignore strides
+])
+def test_inner_contiguous(view, want):
+    """The wrappers' batch-strided contiguity check, read from strides
+    alone, agrees with ``t[0].is_contiguous()`` on the views the dense
+    stacks pass and on ones they must refuse."""
+    t = view(torch.zeros(3, 24, 5, 6))
+    assert kcommon.inner_contiguous(t) == want
+    if t.numel():
+        assert t[0].is_contiguous() == want
 
 
 # --- the plain-conv route --------------------------------------------------

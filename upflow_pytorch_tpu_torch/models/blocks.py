@@ -42,7 +42,9 @@ from upflow_pytorch_tpu_torch.ops.conv import conv_bf16
 class ConvBlock(nn.Sequential):
     """Conv (+ LeakyReLU(0.1) unless ``relu=False``).  At bf16 the output
     goes into ``out`` when it is given (a channel slot of a buffer); at
-    fp32 ``out`` is not taken."""
+    fp32 ``out`` is not taken.  On the ``conv3x3_seg`` route the block
+    keeps the kernel's packed weights (``packed_params``), packed at its
+    first call and again only after its parameters change."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, relu: bool = True,
@@ -66,7 +68,8 @@ class ConvBlock(nn.Sequential):
             return super().forward(x)
         conv = self[0]
         return conv_bf16(x, conv.weight, conv.bias, conv.stride[0],
-                         conv.padding[0], conv.dilation[0], self.relu, out)
+                         conv.padding[0], conv.dilation[0], self.relu, out,
+                         owner=self)
 
 
 class FeatureExtractor(nn.Module):

@@ -27,7 +27,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from upflow_pytorch_tpu_torch.ops.kernels.conv3x3_seg import conv3x3_seg
+from upflow_pytorch_tpu_torch.ops.kernels.conv3x3_seg import (
+    conv3x3_seg, packed_params)
 
 KERNEL_MIN_CHANNELS = 64
 KERNEL_MIN_ROWS = 8
@@ -65,11 +66,16 @@ def conv_plain_route(x: torch.Tensor, weight: torch.Tensor,
 
 def conv_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               stride: int, padding: int, dilation: int, relu: bool,
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None,
+              owner=None) -> torch.Tensor:
     """One ``ConvBlock`` at bf16 on the route its shape selects; writes
-    into ``out`` when it is given and returns it."""
+    into ``out`` when it is given and returns it.  On the kernel route
+    with a CUDA input the weights come packed from ``owner``'s cache
+    (``packed_params``) when an owner is given."""
     _, cin, h, w = x.shape
     if uses_kernel(cin, h, w, weight.shape[-1], stride, x.dtype):
-        return conv3x3_seg(x, weight, bias, dilation, relu, out)
+        packed = (packed_params(owner, weight, bias)
+                  if owner is not None and x.is_cuda else None)
+        return conv3x3_seg(x, weight, bias, dilation, relu, out, packed)
     y = conv_plain_route(x, weight, bias, stride, padding, dilation, relu)
     return y if out is None else out.copy_(y)

@@ -1,4 +1,4 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and the launch path shared by the kernel wrappers."""
 
 from __future__ import annotations
 
@@ -6,6 +6,8 @@ import ctypes
 from typing import Optional, Sequence
 
 import torch
+
+from upflow_pytorch_tpu_torch import _build
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -39,11 +41,7 @@ def check_cuda_input(op: str, name: str, t: torch.Tensor,
             or any(s is not None and s != d for s, d in zip(shape, t.shape))):
         raise ValueError("%s: %s has shape %s, expected %s"
                          % (op, name, tuple(t.shape), tuple(shape)))
-    if batch_strided:
-        contiguous = t.shape[0] == 0 or t[0].is_contiguous()
-    else:
-        contiguous = t.is_contiguous()
-    if not contiguous:
+    if not (inner_contiguous(t) if batch_strided else t.is_contiguous()):
         raise ValueError("%s: %s must be contiguous%s" % (
             op, name, " within each batch item" if batch_strided else ""))
 
@@ -54,8 +52,33 @@ def check_cpu_input(op: str, t: torch.Tensor) -> None:
         raise ValueError("%s: no kernel for device %s" % (op, t.device))
 
 
-def stream_of(t: torch.Tensor) -> PTR:
-    return PTR(torch.cuda.current_stream(t.device).cuda_stream)
+def inner_contiguous(t: torch.Tensor) -> bool:
+    """Whether every item along dim 0 is contiguous (the batch stride is
+    free), read from the strides without building a view."""
+    if t.numel() == 0:
+        return True
+    expected = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != expected:
+            return False
+        expected *= size
+    return True
+
+
+def launch(op: str, wrapper, t: torch.Tensor, fn, *args) -> None:
+    """Calls the C entry point ``fn(*args, stream)`` on the current stream
+    of ``t``'s device, counts it in ``wrapper.launches`` and raises if the
+    launch failed.  The current device is switched only when ``t`` lies on
+    another one, and the stream is read as a raw handle, so the common
+    case costs no context manager and no stream object."""
+    index = t.device.index
+    wrapper.launches += 1
+    if index == torch.cuda.current_device():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    _build.check_launch(op, code)
 
 
 def count_cuda_call(fn, *tensors: torch.Tensor) -> None:

@@ -14,13 +14,25 @@ source note in the ``.cu`` file says how the design meets that.
 item contiguous, any batch stride): the dense stacks of
 ``models/blocks.py`` read their input range and write each conv's output
 into its slot of one buffer, which is what the TPU kernel's channel
-segments were for.  The kernel takes its weights packed per block of
-``NB`` output channels (``pack_weight``).
+segments were for.
+
+The kernel stages its input by one of two routes, chosen from the input's
+layout alone (``staging_route``): TMA where its rows, its batch stride and
+its address are multiples of 16 bytes, 4-byte cp.async copies elsewhere
+(KITTI's 375 x 1242 pyramid).  Each route counts its launches in
+``conv3x3_seg.route_launches``.
+
+The weights go in packed (``pack_weight``).  The model packs them once:
+``packed_params`` keeps the packed copy and the fp32 bias on the module
+that owns the conv and packs anew only when a parameter changed (its
+``_version``, bumped by every in-place update such as ``copy_`` or
+``load_state_dict``, or its storage, as after ``.to()``).  A call without
+``packed`` packs for itself.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,41 +40,87 @@ import torch.nn.functional as F
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     INT, LONG, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
-    stream_of)
+    launch)
 
-CHUNK = 16  # input channels per stage of the kernel
+CHUNK = 64  # input channels per K step of the kernel
+BLOCK_WIDTHS = (8, 16, 32, 64, 96, 128)  # the kernel's output tile widths
+TMA_ALIGN = 16  # bytes: TMA's rule for the base address and every stride
+MAX_DILATION = 16  # the kernel's windows reach 16 pixels left and right
+
+Packed = Tuple[torch.Tensor, torch.Tensor]  # (packed weights, fp32 bias)
 
 
 def block_width(cout: int) -> int:
-    """Output channels per block of the kernel (8, 16, 32 or 64): the
-    widest that divides ``cout``, so narrow heads (2, 3, 8 outputs) pay
-    for 8 and not for 64."""
-    for nb in (64, 32, 16):
-        if cout % nb == 0:
-            return nb
-    return 8
+    """Output channels per block of the kernel: the narrowest tile that
+    holds all ``cout`` (so each input byte is staged once per pixel tile,
+    and the 2- and 3-channel heads pay for 8), or 128 tiles beyond 128."""
+    return next((nb for nb in BLOCK_WIDTHS if nb >= cout), BLOCK_WIDTHS[-1])
+
+
+def swizzle_index(nb: int, device=None) -> torch.Tensor:
+    """(nb, 8) int64: the 16-byte group of a 128-byte weight row that holds
+    group j of row n, j ^ (n % 8): the 128-byte swizzle that wgmma reads
+    and TMA writes.  XOR is its own inverse, so the same index unpacks."""
+    n = torch.arange(nb, device=device)[:, None]
+    return torch.arange(8, device=device)[None, :] ^ (n % 8)
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
-    """(Cout, Cin, 3, 3) -> the kernel's bf16 layout (Cout/NB, Cin/16, 9,
-    NB, 16), Cout and Cin zero-padded up to whole blocks."""
+    """(Cout, Cin, 3, 3) -> the kernel's bf16 layout (Cout/NB, Cin/64, 9,
+    NB, 64): per output tile and K step (64-channel chunk, then tap ky*3 +
+    kx, the order the kernel runs them) an NB x 64 K-major tile whose
+    128-byte rows have their 16-byte groups swizzled (``swizzle_index``).
+    Cout and Cin are zero-padded up to whole tiles and chunks."""
+    pack_weight.calls += 1
     cout, cin = weight.shape[:2]
     nb = block_width(cout)
     n_blk = -(-cout // nb)
     n_chunk = -(-cin // CHUNK)
-    w = F.pad(weight.to(torch.bfloat16),
+    w = F.pad(weight.detach().to(torch.bfloat16),
               (0, 0, 0, 0, 0, n_chunk * CHUNK - cin, 0, n_blk * nb - cout))
-    w = w.reshape(n_blk, nb, n_chunk, CHUNK, 3, 3).permute(0, 2, 4, 5, 1, 3)
+    w = w.reshape(n_blk, nb, n_chunk, CHUNK, 9).permute(0, 2, 4, 1, 3)
+    w = w.reshape(n_blk, n_chunk, 9, nb, 8, 8)
+    rows = torch.arange(nb, device=w.device)[:, None]
+    w = w[:, :, :, rows, swizzle_index(nb, w.device)]
     return w.reshape(n_blk, n_chunk, 9, nb, CHUNK).contiguous()
+
+
+pack_weight.calls = 0
+
+
+def packed_params(owner, weight: torch.Tensor, bias: torch.Tensor) -> Packed:
+    """The packed weights and the fp32 bias of the conv that ``owner``
+    holds, cached on ``owner`` and rebuilt when either parameter changed:
+    the key is each one's ``_version`` and ``data_ptr()``."""
+    key = (weight._version, weight.data_ptr(), bias._version,
+           bias.data_ptr())
+    hit = owner.__dict__.get("_conv3x3_seg_packed")
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    packed = (pack_weight(weight),
+              bias.detach().to(torch.float32).contiguous())
+    owner.__dict__["_conv3x3_seg_packed"] = (key, packed)
+    return packed
+
+
+def staging_route(w: int, batch_stride: int, data_ptr: int) -> str:
+    """How the kernel stages a bf16 input range of width ``w``: "tma" when
+    its rows (and so its planes), its batch stride (elements) and its
+    address are multiples of 16 bytes, as TMA's tensor map needs;
+    "cp.async" (4-byte copies) otherwise."""
+    ok = (2 * w % TMA_ALIGN == 0 and 2 * batch_stride % TMA_ALIGN == 0
+          and data_ptr % TMA_ALIGN == 0)
+    return "tma" if ok else "cp.async"
 
 
 def conv3x3_seg_plain(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, dilation: int, relu: bool,
-                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      out: Optional[torch.Tensor] = None,
+                      packed: Optional[Packed] = None) -> torch.Tensor:
     """Plain PyTorch version: the bf16 input and the bf16-rounded weights
     widened to fp32, an fp32 convolution (TF32 off), the fp32 bias, the
     LeakyReLU in fp32, one rounding to bf16.  Writes into ``out`` when it
-    is given and returns it."""
+    is given and returns it; ``packed`` is not read."""
     count_cuda_call(conv3x3_seg_plain, x, weight)
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
@@ -83,50 +141,68 @@ conv3x3_seg_plain.cuda_calls = 0
 
 def conv3x3_seg_cuda(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, dilation: int, relu: bool,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     out: Optional[torch.Tensor] = None,
+                     packed: Optional[Packed] = None) -> torch.Tensor:
     """Launches ``upflow_conv3x3_seg`` on the current stream."""
     op = "conv3x3_seg"
     check_cuda_input(op, "x", x, (None, None, None, None),
                      dtypes=(torch.bfloat16,), batch_strided=True)
     b, cin, h, w = x.shape
     cout = weight.shape[0]
-    if tuple(weight.shape) != (cout, cin, 3, 3) or cout == 0:
+    if tuple(weight.shape) != (cout, cin, 3, 3) or cout == 0 or cin == 0:
         raise ValueError("%s: weight has shape %s, expected (Cout, %d, 3, 3)"
                          % (op, tuple(weight.shape), cin))
     if tuple(bias.shape) != (cout,):
         raise ValueError("%s: bias has shape %s, expected (%d,)"
                          % (op, tuple(bias.shape), cout))
+    if not 1 <= dilation <= MAX_DILATION:
+        raise ValueError("%s: dilation %d outside 1..%d"
+                         % (op, dilation, MAX_DILATION))
     if out is None:
         out = torch.empty((b, cout, h, w), dtype=torch.bfloat16,
                           device=x.device)
     check_cuda_input(op, "out", out, (b, cout, h, w), x.device,
                      (torch.bfloat16,), batch_strided=True)
-    packed = pack_weight(weight.to(x.device))
-    bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    if packed is None:
+        packed = (pack_weight(weight.to(x.device)),
+                  bias.to(device=x.device, dtype=torch.float32).contiguous())
+    wp, bias32 = packed
+    nb = block_width(cout)
+    if (wp.device != x.device or wp.dtype != torch.bfloat16
+            or tuple(wp.shape) != (-(-cout // nb), -(-cin // CHUNK), 9, nb,
+                                   CHUNK)
+            or bias32.device != x.device or bias32.dtype != torch.float32):
+        raise ValueError("%s: packed weights do not fit a (%d, %d, 3, 3) "
+                         "conv on %s" % (op, cout, cin, x.device))
+    route = staging_route(w, x.stride(0), x.data_ptr())
+    vec_out = (w * 2 % 16 == 0 and out.stride(0) * 2 % 16 == 0
+               and out.data_ptr() % 16 == 0)
     fn = _build.kernel_fn("upflow_conv3x3_seg",
                           [PTR, LONG, PTR, PTR, PTR, LONG, INT, INT, INT,
-                           INT, INT, INT, INT, INT, PTR])
-    with torch.cuda.device(x.device):
-        conv3x3_seg.launches += 1
-        code = fn(x.data_ptr(), x.stride(0), packed.data_ptr(),
-                  bias.data_ptr(), out.data_ptr(), out.stride(0), b, cin,
-                  cout, h, w, int(dilation), int(bool(relu)),
-                  block_width(cout), stream_of(x))
-    _build.check_launch(op, code)
+                           INT, INT, INT, INT, INT, INT, INT, PTR])
+    conv3x3_seg.route_launches[route] += 1
+    launch(op, conv3x3_seg, x, fn, x.data_ptr(), x.stride(0), wp.data_ptr(),
+           bias32.data_ptr(), out.data_ptr(), out.stride(0), b, cin, cout, h,
+           w, int(dilation), int(bool(relu)), nb, int(route == "tma"),
+           int(vec_out))
     return out
 
 
 def conv3x3_seg(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                 dilation: int = 1, relu: bool = True,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None,
+                packed: Optional[Packed] = None) -> torch.Tensor:
     """bf16 3x3 conv + bias (+ LeakyReLU): the kernel for CUDA tensors, the
     plain version for CPU tensors.  ``x``: (B, Cin, H, W) bf16; ``weight``:
     (Cout, Cin, 3, 3); ``bias``: (Cout,); ``out``: an optional (B, Cout, H,
-    W) bf16 destination, such as a channel slot of a dense buffer."""
+    W) bf16 destination, such as a channel slot of a dense buffer;
+    ``packed``: the weights as ``packed_params`` gives them, packed here
+    when it is None."""
     if x.is_cuda:
-        return conv3x3_seg_cuda(x, weight, bias, dilation, relu, out)
+        return conv3x3_seg_cuda(x, weight, bias, dilation, relu, out, packed)
     check_cpu_input("conv3x3_seg", x)
     return conv3x3_seg_plain(x, weight, bias, dilation, relu, out)
 
 
 conv3x3_seg.launches = 0
+conv3x3_seg.route_launches = {"tma": 0, "cp.async": 0}

@@ -36,7 +36,7 @@ from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as kfw
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FLOAT, FP32_BF16, INT, PTR, check_cpu_input, check_cuda_input,
-    count_cuda_call, stream_of)
+    count_cuda_call, launch)
 from upflow_pytorch_tpu_torch.ops.kernels.correlation import (
     KERNEL_DISP, correlation_plain)
 
@@ -108,11 +108,8 @@ def corr_norm_cuda(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
     fn = _build.kernel_fn("upflow_corr_norm" + (
         "_bf16" if f1.dtype == torch.bfloat16 else ""),
                           [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
-    with torch.cuda.device(f1.device):
-        corr_norm.launches += 1
-        code = fn(f1.data_ptr(), f2.data_ptr(), aff.data_ptr(),
-                  out.data_ptr(), b, c, h, w, slope, stream_of(f1))
-    _build.check_launch(op, code)
+    launch(op, corr_norm, f1, fn, f1.data_ptr(), f2.data_ptr(), aff.data_ptr(),
+           out.data_ptr(), b, c, h, w, slope)
     return out
 
 

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FP32_BF16, INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
-    stream_of)
+    launch)
 
 KERNEL_DISP = 4  # the kernel's compiled displacement (corr_body.cuh)
 
@@ -61,11 +61,8 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
     fn = _build.kernel_fn("upflow_correlation" + (
         "_bf16" if f1.dtype == torch.bfloat16 else ""),
                           [PTR, PTR, PTR, INT, INT, INT, INT, PTR])
-    with torch.cuda.device(f1.device):
-        correlation.launches += 1
-        code = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w,
-                  stream_of(f1))
-    _build.check_launch(op, code)
+    launch(op, correlation, f1, fn, f1.data_ptr(), f2.data_ptr(),
+           out.data_ptr(), b, c, h, w)
     return out
 
 

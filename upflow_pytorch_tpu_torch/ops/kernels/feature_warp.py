@@ -22,7 +22,7 @@ from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FLOAT, FP32_BF16, INT, PTR, check_cpu_input, check_cuda_input,
-    count_cuda_call, stream_of)
+    count_cuda_call, launch)
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -57,12 +57,9 @@ def feature_warp_cuda(x: torch.Tensor, flow: torch.Tensor, thr: float,
     fn = _build.kernel_fn("upflow_feature_warp" + (
         "_bf16" if x.dtype == torch.bfloat16 else ""),
                           [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
-    with torch.cuda.device(x.device):
-        feature_warp.launches += 1
-        code = fn(x.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                  mask.data_ptr() if with_mask else None, b, c, h, w,
-                  float(thr), stream_of(x))
-    _build.check_launch(op, code)
+    launch(op, feature_warp, x, fn, x.data_ptr(), flow.data_ptr(),
+           out.data_ptr(), mask.data_ptr() if with_mask else None, b, c, h, w,
+           float(thr))
     return (out, mask) if with_mask else out
 
 

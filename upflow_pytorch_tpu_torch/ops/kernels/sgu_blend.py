@@ -17,7 +17,7 @@ import torch
 
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call, stream_of)
+    INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call, launch)
 from upflow_pytorch_tpu_torch.ops.kernels.warp import warp_plain
 
 
@@ -42,11 +42,8 @@ def sgu_blend_cuda(flow: torch.Tensor, inter_flow: torch.Tensor,
     out = torch.empty_like(flow)
     fn = _build.kernel_fn("upflow_sgu_blend",
                           [PTR, PTR, PTR, PTR, INT, INT, INT, PTR])
-    with torch.cuda.device(flow.device):
-        sgu_blend.launches += 1
-        code = fn(flow.data_ptr(), inter_flow.data_ptr(), mask.data_ptr(),
-                  out.data_ptr(), b, h, w, stream_of(flow))
-    _build.check_launch(op, code)
+    launch(op, sgu_blend, flow, fn, flow.data_ptr(), inter_flow.data_ptr(),
+           mask.data_ptr(), out.data_ptr(), b, h, w)
     return out
 
 

@@ -24,7 +24,7 @@ import torch
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FLOAT, INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
-    stream_of)
+    launch)
 from upflow_pytorch_tpu_torch.ops.kernels.sgu_blend import sgu_blend_plain
 from upflow_pytorch_tpu_torch.ops.resize import (
     interp_taps, upsample2d_as, upsample2d_flow_as)
@@ -62,13 +62,10 @@ def sgu_final_cuda(flow_q: torch.Tensor, x_out: torch.Tensor,
     fn = _build.kernel_fn("upflow_sgu_final",
                           [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT,
                            INT, INT, INT, FLOAT, FLOAT, PTR])
-    with torch.cuda.device(flow_q.device):
-        sgu_final.launches += 1
-        code = fn(flow_q.data_ptr(), x_out.data_ptr(), mask_q.data_ptr(),
-                  row_idx.data_ptr(), row_wt.data_ptr(), col_idx.data_ptr(),
-                  col_wt.data_ptr(), out.data_ptr(), b, hq, wq, h, w,
-                  w / wq, h / hq, stream_of(flow_q))
-    _build.check_launch(op, code)
+    launch(op, sgu_final, flow_q, fn, flow_q.data_ptr(), x_out.data_ptr(),
+           mask_q.data_ptr(), row_idx.data_ptr(), row_wt.data_ptr(),
+           col_idx.data_ptr(), col_wt.data_ptr(), out.data_ptr(), b, hq, wq, h,
+           w, w / wq, h / hq)
     return out
 
 

@@ -14,7 +14,7 @@ import torch
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call, stream_of)
+    INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call, launch)
 
 MAX_CHANNELS = 4  # the kernel's channel limit (csrc/warp.cu)
 
@@ -41,11 +41,8 @@ def warp_cuda(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     fn = _build.kernel_fn("upflow_warp",
                           [PTR, PTR, PTR, INT, INT, INT, INT, PTR])
-    with torch.cuda.device(x.device):
-        warp.launches += 1
-        code = fn(x.data_ptr(), flow.data_ptr(), out.data_ptr(), b, c, h, w,
-                  stream_of(x))
-    _build.check_launch(op, code)
+    launch(op, warp, x, fn, x.data_ptr(), flow.data_ptr(), out.data_ptr(), b,
+           c, h, w)
     return out
 
 
