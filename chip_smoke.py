@@ -16,8 +16,15 @@ Phases, each of which must pass:
    TPU's windowed planar warp.  The bf16 path's kernels are held at bf16:
    ``conv3x3_seg`` at every distinct conv shape of a bf16 forward (and two
    ragged shapes of 375x1242), the correlations and the feature warp at
-   bf16 inputs.  ``conv3x3_seg`` is timed as the model calls it (weights
-   packed once) and packing on every call, and each shape prints its
+   bf16 inputs.  The feature warp is timed at all 18 of its calls in an
+   SGU forward (the 8 cost-volume warps and the SGU's 10 warps of the
+   32-channel features) and must equal its plain version bit for bit,
+   values and mask bits; ``corr_norm`` must also give the same bits on a
+   second call.  Both are held at the ragged level shapes of 375x1242
+   (B=1) too.  A device time the profiler misses is retried, up to three
+   windows, and each reading prints its attempt.  ``conv3x3_seg`` is
+   timed as the model calls it (weights packed once) and packing on
+   every call, and each shape prints its
    staging route (TMA or cp.async), device ms, cuDNN's device ms, its
    bound and the host's share of a call (CUDA-event time beyond device
    time); the image warp prints the same beside ``grid_sample``.
@@ -116,7 +123,7 @@ RELAXED_THRESHOLD = 0.9999
 DEV = "cuda"
 # the port's kernels by the profiler's kernel names
 KERNEL_OF = (("corr_kernel<false", "correlation"),
-             ("corr_kernel<true", "corr_norm"),
+             ("corr_norm_kernel", "corr_norm"),
              ("feature_warp_kernel", "feature_warp"),
              ("sgu_blend_kernel", "sgu_blend"),
              ("sgu_final_kernel", "sgu_final"),
@@ -177,25 +184,33 @@ def time_ms(fn, reps: int = 21, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+DEVICE_MS_ATTEMPTS = 3
+
+
 def device_ms(fn, key=None, calls: int = 21):
     """Device time per call of ``fn``, from torch.profiler over ``calls``
     calls: of the kernels whose names hold ``key``, or of every kernel
-    with no key (None if the profiler saw none).  Unlike ``time_ms`` it
-    leaves out the host's time to launch a call."""
+    with no key.  Unlike ``time_ms`` it leaves out the host's time to
+    launch a call.  A window in which the profiler saw no such kernel is
+    retried with a fresh one, up to ``DEVICE_MS_ATTEMPTS`` in all.
+    Returns (ms or None, the attempt that gave it or None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA
-          and (key is None or key in e.name)]
-    return sum(us) / calls / 1e3 if us else None
+    for attempt in range(1, DEVICE_MS_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and (key is None or key in e.name)]
+        if us:
+            return sum(us) / calls / 1e3, attempt
+    return None, None
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -298,15 +313,16 @@ def phase_kernels(k):
                per_forward=2, ops_per_s=FP32_OPS_PER_S, reps=21, inner=10,
                **extra):
         t_bound, by = bound_ms(nbytes, ops, ops_per_s)
+        dev, attempt = device_ms(fn, KERNEL_KEY[name], reps)
+        lib_dev, lib_attempt = ((None, None) if library is None
+                                else device_ms(library, calls=reps))
         row = dict(
             shape=shape, max_abs_err=err, per_forward=per_forward,
-            ms=time_ms(fn, reps, inner),
-            device_ms=device_ms(fn, KERNEL_KEY[name], reps),
-            plain_ms=time_ms(plain, reps, inner),
+            ms=time_ms(fn, reps, inner), device_ms=dev,
+            device_attempt=attempt, plain_ms=time_ms(plain, reps, inner),
             library_ms=(None if library is None
                         else time_ms(library, reps, inner)),
-            library_device_ms=(None if library is None
-                               else device_ms(library, calls=reps)),
+            library_device_ms=lib_dev, library_device_attempt=lib_attempt,
             bound_ms=t_bound, bound_by=by, **extra)
         # the host's share of a call: event time of back-to-back calls
         # beyond the device time of the same calls
@@ -344,85 +360,138 @@ def phase_kernels(k):
            lambda: k.corr.correlation_plain(f1b, f2b),
            2 * 2 * px * c + 4 * 81 * px, px * (162 * c + 81))
 
-    # kernels 2 and 3 at decode levels 1-4
-    for level in range(1, 5):
-        c = PYRAMID_CHS[level]
-        h, w = levels[level]
-        amp = max(2.0, min(40.0, w / 4))
-        x = randn(MAIN_B, c, h, w) * 2 + 0.5
-        flow = make_flow(rng, MAIN_B, h, w, amp)
+    # kernels 2 and 3.  The feature warp must equal its plain version bit
+    # for bit, values and mask bits, and its mask must have both values;
+    # corr_norm must be within 1e-5 x max|out| of its plain version and
+    # give the same bits on a second call.
+    def warp_check(what, x, flow):
         out, mask = k.fw.feature_warp(x, flow, 1.0, with_mask=True)
         ref, ref_mask = k.fw.feature_warp_plain(x, flow, 1.0, with_mask=True)
-        err = (out - ref).abs().max().item()
+        differ = int((out != ref).sum().item())
         flips = int((mask != ref_mask).sum().item())
-        check(err <= 1e-6 and flips == 0,
-              "feature_warp level %d %s, flow +-%g px: max abs err %.3e, "
-              "%d of %d mask bits differ (valid share %.4f)"
-              % (level, tuple(x.shape), amp, err, flips, mask.numel(),
-                 mask.mean().item()))
-        check(0.0 < mask.mean().item() < 1.0,
-              "feature_warp level %d: the mask has both values" % level)
-        grid = grid_of(flow)
-        px = MAIN_B * h * w
-        record("feature_warp", list(x.shape), err,
-               lambda: k.fw.feature_warp(x, flow, 1.0),
-               lambda: k.fw.feature_warp_plain(x, flow, 1.0),
-               4 * (2 * px * c + 2 * px), px * (30 + 8 * c),
-               library=lambda: grid_sample(x, grid))
+        share = mask.mean().item()
+        threads, _, groups, size = k.fw.launch_config(*x.shape)
+        check(out.dtype == x.dtype and differ == 0 and flips == 0
+              and 0.0 < share < 1.0,
+              "feature_warp %s %s %s (%d threads a block, %d groups of %d "
+              "channels): %d of %d values and %d of %d mask bits differ; "
+              "valid share %.4f"
+              % (str(x.dtype)[6:], what, tuple(x.shape), threads, groups,
+                 size, differ, out.numel(), flips, mask.numel(), share))
+        return ref, (out.float() - ref.float()).abs().max().item()
 
-        f_tgt = randn(MAIN_B, c, h, w) * 3 - 1
-        warped = ref
+    def corr_norm_check(what, f_tgt, warped):
         m1, v1 = k.cn.moments(f_tgt, False)
         m2, v2 = k.cn.moments(warped, False)
         aff = k.cn.affine_pair(m1, v1, m2, v2, NORM_KW)
         got = k.cn.corr_norm(f_tgt, warped, aff, 0.1)
+        again = k.cn.corr_norm(f_tgt, warped, aff, 0.1)
         ref = k.cn.corr_norm_plain(f_tgt, warped, aff, 0.1)
         err = (got - ref).abs().max().item()
-        check(err <= 1e-5 * ref.abs().max().item(),
-              "corr_norm level %d %s: max abs err %.3e (bound %.3e)"
-              % (level, tuple(f_tgt.shape), err,
-                 1e-5 * ref.abs().max().item()))
-        record("corr_norm", list(f_tgt.shape), err,
-               lambda: k.cn.corr_norm(f_tgt, warped, aff, 0.1),
-               lambda: k.cn.corr_norm_plain(f_tgt, warped, aff, 0.1),
-               4 * (2 * px * c + MAIN_B * 4 * c + 81 * px),
-               px * (162 * c + 4 * c + 162))
+        bar = 1e-5 * ref.abs().max().item()
+        rows_, splits, blocks = k.cn.launch_config(*f_tgt.shape)
+        route = k.cn.staging_route(f_tgt.shape[3], f_tgt.element_size(),
+                                   f_tgt.data_ptr(), warped.data_ptr())
+        check(err <= bar,
+              "corr_norm %s %s %s (tile %dx32, channels split %d ways, %d "
+              "blocks, %s staging): max abs err %.3e (bound 1e-5 x "
+              "max|out| = %.3e)"
+              % (str(f_tgt.dtype)[6:], what, tuple(f_tgt.shape), rows_,
+                 splits, blocks, route, err, bar))
+        check(torch.equal(got, again),
+              "corr_norm %s %s %s: a second call gives the same bits (%d of "
+              "%d values differ)"
+              % (str(f_tgt.dtype)[6:], what, tuple(f_tgt.shape),
+                 int((got != again).sum().item()), got.numel()))
+        return aff, err
 
-        # kernels 2 and 3 at bf16 maps: the warp rounds its fp32 result to
-        # bf16 once, bit-equal to its plain version
-        xb = x.bfloat16()
-        out_b, mask_b = k.fw.feature_warp(xb, flow, 1.0, with_mask=True)
-        ref_b, ref_mask_b = k.fw.feature_warp_plain(xb, flow, 1.0,
-                                                    with_mask=True)
-        differ = int((out_b != ref_b).sum().item())
-        flips = int((mask_b != ref_mask_b).sum().item())
-        check(out_b.dtype == torch.bfloat16 and differ == 0 and flips == 0,
-              "feature_warp bf16 level %d %s: %d of %d values and %d mask "
-              "bits differ" % (level, tuple(x.shape), differ, out_b.numel(),
-                               flips))
-        grid_b = grid.bfloat16()
-        record("feature_warp_bf16", list(x.shape),
-               (out_b.float() - ref_b.float()).abs().max().item(),
-               lambda: k.fw.feature_warp(xb, flow, 1.0),
-               lambda: k.fw.feature_warp_plain(xb, flow, 1.0),
-               2 * 2 * px * c + 4 * 2 * px, px * (30 + 8 * c),
-               library=lambda: grid_sample(xb, grid_b))
-        f_tgt_b = f_tgt.bfloat16()
-        m1, v1 = k.cn.moments(f_tgt_b, False)
-        m2, v2 = k.cn.moments(ref_b, False)
-        aff_b = k.cn.affine_pair(m1, v1, m2, v2, NORM_KW)
-        got = k.cn.corr_norm(f_tgt_b, ref_b, aff_b, 0.1)
-        ref = k.cn.corr_norm_plain(f_tgt_b, ref_b, aff_b, 0.1)
-        err = (got - ref).abs().max().item()
-        check(err <= 1e-5 * ref.abs().max().item(),
-              "corr_norm bf16 level %d %s: max abs err %.3e (bound %.3e)"
-              % (level, tuple(f_tgt.shape), err,
-                 1e-5 * ref.abs().max().item()))
-        record("corr_norm_bf16", list(f_tgt.shape), err,
-               lambda: k.cn.corr_norm(f_tgt_b, ref_b, aff_b, 0.1),
-               lambda: k.cn.corr_norm_plain(f_tgt_b, ref_b, aff_b, 0.1),
-               2 * 2 * px * c + 4 * (MAIN_B * 4 * c + 81 * px),
-               px * (162 * c + 4 * c + 162))
+    def info(row, name, what):
+        print("  info %s %s %s: device %s ms (attempt %s), events %.4f ms, "
+              "host %s ms; library device %s ms (attempt %s), events %s "
+              "ms; bound %.5f ms"
+              % (name, what, tuple(row["shape"]), fmt(row["device_ms"]),
+                 row["device_attempt"], row["ms"], fmt(row["host_ms"]),
+                 fmt(row["library_device_ms"]),
+                 row["library_device_attempt"], fmt(row["library_ms"]),
+                 row["bound_ms"]))
+
+    def record_warp(name, what, x, flow, err, per_forward):
+        grid = grid_of(flow).to(x.dtype)
+        b, c, h, w = x.shape
+        px = b * h * w
+        # bytes: the map read and the output written at its type, the
+        # flow read; operations: the taps (30) and 8 a channel
+        row = record(name, list(x.shape), err,
+                     lambda: k.fw.feature_warp(x, flow, 1.0),
+                     lambda: k.fw.feature_warp_plain(x, flow, 1.0),
+                     x.element_size() * 2 * px * c + 4 * 2 * px,
+                     px * (30 + 8 * c),
+                     library=lambda: grid_sample(x, grid),
+                     per_forward=per_forward, what=what)
+        info(row, name, what)
+
+    def record_corr_norm(name, what, f_tgt, warped, aff, err):
+        b, c, h, w = f_tgt.shape
+        px = b * h * w
+        row = record(name, list(f_tgt.shape), err,
+                     lambda: k.cn.corr_norm(f_tgt, warped, aff, 0.1),
+                     lambda: k.cn.corr_norm_plain(f_tgt, warped, aff, 0.1),
+                     f_tgt.element_size() * 2 * px * c
+                     + 4 * (b * 4 * c + 81 * px),
+                     px * (162 * c + 4 * c + 162), what=what)
+        info(row, name, what)
+
+    # the 8 cost-volume calls (levels 1-4, two directions each) and the
+    # SGU's 10 warps of the 32-channel 1x1 features (levels 1-4 and the
+    # final stage at quarter resolution), at fp32 and at bf16
+    dtypes = ((torch.float32, ""), (torch.bfloat16, "_bf16"))
+    for level in range(1, 6):
+        final = level == 5
+        h, w = levels[4 if final else level]
+        amp = max(2.0, min(40.0, w / 4))
+        if not final:
+            c = PYRAMID_CHS[level]
+            x = randn(MAIN_B, c, h, w) * 2 + 0.5
+            flow = make_flow(rng, MAIN_B, h, w, amp)
+            f_tgt = randn(MAIN_B, c, h, w) * 3 - 1
+            what = "cost volume L%d" % level
+            for dtype, suffix in dtypes:
+                xd = x.to(dtype)
+                warped, err = warp_check("%s, flow +-%g px" % (what, amp), xd,
+                                         flow)
+                record_warp("feature_warp" + suffix, what, xd, flow, err, 2)
+                td = f_tgt.to(dtype)
+                aff, err = corr_norm_check(what, td, warped)
+                record_corr_norm("corr_norm" + suffix, what, td, warped, aff,
+                                 err)
+        x = randn(MAIN_B, 32, h, w) * 2 + 0.5
+        flow = make_flow(rng, MAIN_B, h, w, amp)
+        what = "SGU final" if final else "SGU L%d" % level
+        for dtype, suffix in dtypes:
+            xd = x.to(dtype)
+            _, err = warp_check("%s, flow +-%g px" % (what, amp), xd, flow)
+            record_warp("feature_warp" + suffix, what, xd, flow, err, 2)
+    check(sum(r["per_forward"] for r in rows["feature_warp"])
+          == SGU_LAUNCHES_PER_FORWARD["feature_warp"],
+          "feature_warp shapes cover %d calls of an SGU forward"
+          % sum(r["per_forward"] for r in rows["feature_warp"]))
+
+    # the same checks at the ragged level shapes of 375x1242 (B=1): widths
+    # 39, 78, 156 and 311 end in partial tiles and partial float4 groups
+    for level, (h, w) in enumerate(pyramid_hw(375, 1242)):
+        if level == 0:
+            continue
+        amp = max(2.0, min(40.0, w / 4))
+        c = PYRAMID_CHS[level]
+        flow = make_flow(rng, 1, h, w, amp)
+        x = randn(1, c, h, w) * 2 + 0.5
+        x32 = randn(1, 32, h, w) * 2 + 0.5
+        f_tgt = randn(1, c, h, w) * 3 - 1
+        for dtype, _ in dtypes:
+            what = "ragged L%d" % level
+            warped, _ = warp_check(what, x.to(dtype), flow)
+            warp_check("ragged SGU L%d" % level, x32.to(dtype), flow)
+            corr_norm_check(what, f_tgt.to(dtype), warped)
 
     # kernel 4: the occlusion check's flow warp at full resolution
     flow_src = make_flow(rng, MAIN_B, MAIN_H, MAIN_W, 40.0)
@@ -726,14 +795,17 @@ def phase_serve(k, tag: str, ref_model=None):
 
     # the path's run: every count 0 just before, read just after
     routes = k.seg.conv3x3_seg.route_launches
+    cn_routes = k.cn.corr_norm.route_launches
     for fn in k.dispatch.values():
         fn.launches = 0
     for fn in k.plain.values():
         fn.cuda_calls = 0
     routes.update({"tma": 0, "cp.async": 0})
+    cn_routes.update({"vec": 0, "word": 0})
     for i, ((b, h, w, seed), (im1, im2)) in enumerate(zip(requests, pairs)):
         before = {n: fn.launches for n, fn in k.dispatch.items()}
         routes_before = dict(routes)
+        cn_before = dict(cn_routes)
         packs_before = k.seg.pack_weight.calls
         out = k.upflow.forward(model, im1, im2)
         torch.cuda.synchronize()
@@ -750,6 +822,13 @@ def phase_serve(k, tag: str, ref_model=None):
         check(ran == {"tma": convs if aligned else 0,
                       "cp.async": 0 if aligned else convs},
               "%s: conv3x3_seg launches by staging route %s" % (what, ran))
+        # corr_norm: 4-pixel copies at the widths that are whole 4-pixel
+        # groups (all of 384x1280's levels, 375x1242's 156), 4-byte words
+        # at 375x1242's 39, 78 and 311
+        vec = 2 * sum(lw % 4 == 0 for _, lw in pyramid_hw(h, w)[1:])
+        ran = {r: n - cn_before[r] for r, n in cn_routes.items()}
+        check(ran == {"vec": vec, "word": per_forward["corr_norm"] - vec},
+              "%s: corr_norm launches by staging route %s" % (what, ran))
         check(i == 0 or packs == 0,
               "%s: %d pack_weight calls (the model's first forward packs "
               "its kernel-route convs once)" % (what, packs))

@@ -14,6 +14,8 @@ INT = ctypes.c_int
 FLOAT = ctypes.c_float
 LONG = ctypes.c_longlong
 
+SMS = 132  # streaming multiprocessors of an H100 SXM: one wave of blocks
+
 FP32 = (torch.float32,)
 FP32_BF16 = (torch.float32, torch.bfloat16)
 

@@ -3,8 +3,10 @@
 Replaces ``upflow_pytorch_tpu/ops/pallas/feature_warp.py::
 feature_warp_window_pallas``: ``WarpingLayer_no_div``, the zero-padded
 bilinear warp of a (B, C, H, W) feature map by a (B, 2, H, W) flow, times
-``mask = (warped all-ones >= thr)``.  Memory-bound on the H100; the
-source note in the ``.cu`` file says how the design meets that.
+``mask = (warped all-ones >= thr)``.  Memory-bound on the H100, and
+latency-bound on the coarse levels' small maps; the source note in the
+``.cu`` file says how the design meets that, and ``launch_config`` gives
+the grid for each shape.
 
 The kernel reproduces ``ops/warp.py``'s arithmetic op for op, so kernel
 and plain version agree bit for bit, mask bits included.  Maps are fp32
@@ -21,10 +23,36 @@ import torch
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    FLOAT, FP32_BF16, INT, PTR, check_cpu_input, check_cuda_input,
+    FLOAT, FP32_BF16, INT, PTR, SMS, check_cpu_input, check_cuda_input,
     count_cuda_call, launch)
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+TARGET_BLOCKS = 4 * SMS  # the grid the launch configuration aims for
+THREADS = (128, 64)  # block sizes, largest first
+UNROLL = 4  # the kernel's channels per step (gathers issued together)
+
+
+def launch_config(b: int, c: int, h: int, w: int) -> Tuple[int, int, int,
+                                                          int]:
+    """(threads, pixel blocks, channel groups, channels per group) of the
+    kernel's grid (pixel blocks x groups x batch items) for a (b, c, h, w)
+    map.  The pixels alone take one group of all ``c`` channels when they
+    fill ``TARGET_BLOCKS``; smaller maps split the channels into groups (a
+    multiple of ``UNROLL`` channels each, or fewer than ``UNROLL``) until
+    the grid reaches the target, and take smaller blocks where even one
+    channel a group leaves fewer than ``SMS`` blocks."""
+    plane = h * w
+    for threads in THREADS:
+        pixel_blocks = -(-plane // threads)
+        base = max(1, b * pixel_blocks)
+        size = max(1, -(-c // -(-TARGET_BLOCKS // base)))
+        if size > UNROLL:
+            size = -(-size // UNROLL) * UNROLL
+        groups = max(1, -(-c // size))
+        if base * groups >= SMS:
+            break
+    return threads, pixel_blocks, groups, size
 
 
 def feature_warp_plain(x: torch.Tensor, flow: torch.Tensor, thr: float,
@@ -54,12 +82,14 @@ def feature_warp_cuda(x: torch.Tensor, flow: torch.Tensor, thr: float,
     out = torch.empty_like(x)
     mask = (torch.empty((b, h, w), dtype=torch.float32, device=x.device)
             if with_mask else None)
+    threads, _, groups, size = launch_config(b, c, h, w)
     fn = _build.kernel_fn("upflow_feature_warp" + (
         "_bf16" if x.dtype == torch.bfloat16 else ""),
-                          [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, PTR])
+                          [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, INT,
+                           INT, INT, PTR])
     launch(op, feature_warp, x, fn, x.data_ptr(), flow.data_ptr(),
            out.data_ptr(), mask.data_ptr() if with_mask else None, b, c, h, w,
-           float(thr))
+           float(thr), threads, groups, size)
     return (out, mask) if with_mask else out
 
 
