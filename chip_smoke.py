@@ -16,7 +16,11 @@ Phases, each of which must pass:
    TPU's windowed planar warp.  The bf16 path's kernels are held at bf16:
    ``conv3x3_seg`` at every distinct conv shape of a bf16 forward (and two
    ragged shapes of 375x1242), the correlations and the feature warp at
-   bf16 inputs.  The feature warp is timed at all 18 of its calls in an
+   bf16 inputs.  The plain correlation is held at every decode level of
+   both request sizes (B=4 384x1280, B=1 375x1242), must give the same
+   bits on a second call, and prints its grid and its device ms beside
+   ``corr_norm``'s at the same shape; the final SGU stage is held at both
+   sizes.  The feature warp is timed at all 18 of its calls in an
    SGU forward (the 8 cost-volume warps and the SGU's 10 warps of the
    32-channel features) and must equal its plain version bit for bit,
    values and mask bits; ``corr_norm`` must also give the same bits on a
@@ -34,7 +38,9 @@ Phases, each of which must pass:
    with SGU at bf16.  For each path: count the kernel launches of each
    forward (``conv3x3_seg`` by staging route, and its weight packs: none
    after a model's first forward), then hold the kernel path against the
-   plain path on the card and time both.
+   plain path on the card and time both.  Then one SGU request under
+   ``torch.set_float32_matmul_precision("high")`` keeps the SGU bars, and
+   the caller's setting reads the same afterwards.
 4. Profile one forward of each path at B=4, 384x1280 and split its device
    time by kind.
 
@@ -122,7 +128,7 @@ AGREEMENT = {"no-sgu": (1e-4, 1e-3, 1e-3), "sgu": (3e-4, 3e-3, 1e-3),
 RELAXED_THRESHOLD = 0.9999
 DEV = "cuda"
 # the port's kernels by the profiler's kernel names
-KERNEL_OF = (("corr_kernel<false", "correlation"),
+KERNEL_OF = (("corr_plain_kernel", "correlation"),
              ("corr_norm_kernel", "corr_norm"),
              ("feature_warp_kernel", "feature_warp"),
              ("sgu_blend_kernel", "sgu_blend"),
@@ -331,34 +337,58 @@ def phase_kernels(k):
         rows[name].append(row)
         return row
 
-    # kernel 1: plain correlation at decode level 0
-    c = PYRAMID_CHS[0]
-    h, w = levels[0]
-    f1 = randn(MAIN_B, c, h, w)
-    f2 = randn(MAIN_B, c, h, w)
-    got = k.corr.correlation(f1, f2)
-    ref = k.corr.correlation_plain(f1, f2)
-    err = (got - ref).abs().max().item()
-    check(err <= 1e-5 * ref.abs().max().item(),
-          "correlation %s: max abs err %.3e (bound 1e-5 x max|out| = %.3e)"
-          % (tuple(f1.shape), err, 1e-5 * ref.abs().max().item()))
-    px = MAIN_B * h * w
-    record("correlation", list(f1.shape), err,
-           lambda: k.corr.correlation(f1, f2),
-           lambda: k.corr.correlation_plain(f1, f2),
-           4 * (2 * px * c + 81 * px), px * (162 * c + 81))
-    # the same at bf16 maps (level 0 of the bf16 forward)
-    f1b, f2b = f1.bfloat16(), f2.bfloat16()
-    got = k.corr.correlation(f1b, f2b)
-    ref = k.corr.correlation_plain(f1b, f2b)
-    err = (got - ref).abs().max().item()
-    check(err <= 1e-5 * ref.abs().max().item(),
-          "correlation bf16 %s: max abs err %.3e (bound 1e-5 x max|out| = "
-          "%.3e)" % (tuple(f1.shape), err, 1e-5 * ref.abs().max().item()))
-    record("correlation_bf16", list(f1.shape), err,
-           lambda: k.corr.correlation(f1b, f2b),
-           lambda: k.corr.correlation_plain(f1b, f2b),
-           2 * 2 * px * c + 4 * 81 * px, px * (162 * c + 81))
+    # kernel 1: the plain correlation at every decode level of B=4
+    # 384x1280 and B=1 375x1242, fp32 and bf16 (the main path runs level
+    # 0; with if_use_cor_pytorch it runs at every level).  Each shape must
+    # be within 1e-5 x max|out| of the plain version and give the same bits
+    # on a second call; it prints its grid and its device ms beside
+    # corr_norm's at the same shape.  Level 0 of the main size is timed
+    # for the kernels line.
+    for b, hw in ((MAIN_B, (MAIN_H, MAIN_W)), (1, (375, 1242))):
+        for level, (h, w) in enumerate(pyramid_hw(*hw)):
+            c = PYRAMID_CHS[level]
+            f1 = randn(b, c, h, w)
+            f2 = randn(b, c, h, w)
+            aff = k.cn.affine_pair(*k.cn.moments(f1, False),
+                                   *k.cn.moments(f2, False), NORM_KW)
+            for dtype, suffix in ((torch.float32, ""),
+                                  (torch.bfloat16, "_bf16")):
+                a1, a2 = f1.to(dtype), f2.to(dtype)
+                got = k.corr.correlation(a1, a2)
+                again = k.corr.correlation(a1, a2)
+                ref = k.corr.correlation_plain(a1, a2)
+                err = (got - ref).abs().max().item()
+                bar = 1e-5 * ref.abs().max().item()
+                rows_, cols, splits, blocks = k.corr.launch_config(
+                    b, c, h, w)
+                what = "correlation %s L%d %s (tile %dx%d, channels split " \
+                    "%d ways, %d blocks)" % (str(dtype)[6:], level,
+                                             (b, c, h, w), rows_, cols,
+                                             splits, blocks)
+                check(err <= bar, "%s: max abs err %.3e (bound 1e-5 x "
+                      "max|out| = %.3e)" % (what, err, bar))
+                check(torch.equal(got, again),
+                      "%s: a second call gives the same bits (%d of %d "
+                      "values differ)" % (what, int((got != again).sum()),
+                                          got.numel()))
+                fn = (lambda a1=a1, a2=a2: k.corr.correlation(a1, a2))
+                if b == MAIN_B and level == 0:
+                    px = b * h * w
+                    dev = record(
+                        "correlation" + suffix, [b, c, h, w], err, fn,
+                        lambda a1=a1, a2=a2: k.corr.correlation_plain(a1, a2),
+                        a1.element_size() * 2 * px * c + 4 * 81 * px,
+                        px * (162 * c + 81))["device_ms"]
+                else:
+                    dev, _ = device_ms(fn, KERNEL_KEY["correlation"])
+                norm_dev, _ = device_ms(
+                    lambda a1=a1, a2=a2, aff=aff: k.cn.corr_norm(
+                        a1, a2, aff, 0.1), KERNEL_KEY["corr_norm"])
+                ratio = (None if dev is None or norm_dev is None
+                         else dev / norm_dev)
+                print("  info %s: device %s ms, corr_norm %s ms at the same "
+                      "shape (ratio %s)" % (what, fmt(dev), fmt(norm_dev),
+                                            fmt(ratio)))
 
     # kernels 2 and 3.  The feature warp must equal its plain version bit
     # for bit, values and mask bits, and its mask must have both values;
@@ -389,15 +419,15 @@ def phase_kernels(k):
         ref = k.cn.corr_norm_plain(f_tgt, warped, aff, 0.1)
         err = (got - ref).abs().max().item()
         bar = 1e-5 * ref.abs().max().item()
-        rows_, splits, blocks = k.cn.launch_config(*f_tgt.shape)
+        rows_, cols, splits, blocks = k.cn.launch_config(*f_tgt.shape)
         route = k.cn.staging_route(f_tgt.shape[3], f_tgt.element_size(),
                                    f_tgt.data_ptr(), warped.data_ptr())
         check(err <= bar,
-              "corr_norm %s %s %s (tile %dx32, channels split %d ways, %d "
+              "corr_norm %s %s %s (tile %dx%d, channels split %d ways, %d "
               "blocks, %s staging): max abs err %.3e (bound 1e-5 x "
               "max|out| = %.3e)"
               % (str(f_tgt.dtype)[6:], what, tuple(f_tgt.shape), rows_,
-                 splits, blocks, route, err, bar))
+                 cols, splits, blocks, route, err, bar))
         check(torch.equal(got, again),
               "corr_norm %s %s %s: a second call gives the same bits (%d of "
               "%d values differ)"
@@ -578,36 +608,45 @@ def phase_kernels(k):
                        lambda: k.sb.sgu_blend_plain(flow, inter, mask),
                        4 * 7 * px, px * (30 + 2 * 11))
 
-    # kernel 8: the final SGU stage, (4, ., 96, 320) -> (384, 1280).
-    # Quarter-resolution inter-flows of +-0.4, +-9 (the trained checkpoint's
-    # regime, timed) and +-75 px.
-    hq, wq = levels[4]
-    flow_q = make_flow(rng, MAIN_B, hq, wq, 10.0)
-    for amp in (0.4, 9.0, 75.0):
-        x_out = torch.cat([uniform((MAIN_B, 2, hq, wq), amp),
-                           uniform((MAIN_B, 1, hq, wq), 3.0)], dim=1)
-        got = k.sf.sgu_final(flow_q, x_out, (MAIN_H, MAIN_W))
-        ref = k.sf.sgu_final_plain(flow_q, x_out, (MAIN_H, MAIN_W))
-        d = (got - ref).abs()
-        err = d.max().item()
-        check(tuple(got.shape) == (MAIN_B, 2, MAIN_H, MAIN_W) and err <= 1e-4,
-              "sgu_final %s -> %s, quarter-resolution inter-flow +-%g px: "
-              "max abs err %.3e px (<= 1e-4), mean %.3e, %d of %d values "
-              "differ" % (tuple(x_out.shape), tuple(got.shape), amp, err,
-                          d.mean().item(), int((d > 0).sum().item()),
-                          got.numel()))
-        if amp == 9.0:
-            px = MAIN_B * MAIN_H * MAIN_W
-            # bytes: flow_q and x_out read, the output written; operations
-            # of the kernel per output pixel: 3 resized samples (9 each)
-            # and their scales, the taps (30), and per flow plane 5 resized
-            # samples, 5 scales, the tap sum (7) and the blend (4)
-            record("sgu_final", list(x_out.shape), err,
-                   lambda: k.sf.sgu_final(flow_q, x_out, (MAIN_H, MAIN_W)),
-                   lambda: k.sf.sgu_final_plain(flow_q, x_out,
-                                                (MAIN_H, MAIN_W)),
-                   4 * (5 * MAIN_B * hq * wq + 2 * px),
-                   px * (29 + 30 + 2 * (50 + 7 + 4)))
+    # kernel 8: the final SGU stage, (4, ., 96, 320) -> (384, 1280) and
+    # (1, ., 94, 311) -> (375, 1242).  Quarter-resolution inter-flows of
+    # +-0.4, +-9 (the trained checkpoint's regime, timed) and +-75 px, the
+    # last beyond the kernel's staged halo.
+    for b, h, w in ((MAIN_B, MAIN_H, MAIN_W), (1, 375, 1242)):
+        hq, wq = pyramid_hw(h, w)[4]
+        flow_q = make_flow(rng, b, hq, wq, 10.0)
+        for amp in (0.4, 9.0, 75.0):
+            x_out = torch.cat([uniform((b, 2, hq, wq), amp),
+                               uniform((b, 1, hq, wq), 3.0)], dim=1)
+            got = k.sf.sgu_final(flow_q, x_out, (h, w))
+            ref = k.sf.sgu_final_plain(flow_q, x_out, (h, w))
+            d = (got - ref).abs()
+            err = d.max().item()
+            what = "sgu_final %s -> %s (tile %dx%d), quarter-resolution " \
+                "inter-flow +-%g px" % (tuple(x_out.shape), (b, 2, h, w),
+                                       k.sf.tile_rows(b, h, w),
+                                       k.sf.TILE_W, amp)
+            check(tuple(got.shape) == (b, 2, h, w) and err <= 1e-4,
+                  "%s: max abs err %.3e px (<= 1e-4), mean %.3e, %d of %d "
+                  "values differ" % (what, err, d.mean().item(),
+                                     int((d > 0).sum().item()), got.numel()))
+            fn = (lambda x_out=x_out, flow_q=flow_q, h=h, w=w:
+                  k.sf.sgu_final(flow_q, x_out, (h, w)))
+            if b == MAIN_B and amp == 9.0:
+                px = b * h * w
+                # bytes: flow_q and x_out read, the output written;
+                # operations of the kernel per output pixel: 3 resized
+                # samples (9 each) and their scales, the taps (30), and per
+                # flow plane 5 resized samples, 5 scales, the tap sum (7)
+                # and the blend (4)
+                dev = record("sgu_final", list(x_out.shape), err, fn,
+                             lambda: k.sf.sgu_final_plain(flow_q, x_out,
+                                                          (h, w)),
+                             4 * (5 * b * hq * wq + 2 * px),
+                             px * (29 + 30 + 2 * (50 + 7 + 4)))["device_ms"]
+            else:
+                dev, _ = device_ms(fn, KERNEL_KEY["sgu_final"])
+            print("  info %s: device %s ms" % (what, fmt(dev)))
 
     # kernel 6: conv3x3_seg at every conv shape of the bf16 forward, reading
     # and writing channel ranges of a dense buffer where the model does.
@@ -919,6 +958,46 @@ def phase_serve(k, tag: str, ref_model=None):
     return launches, timing, model, pairs[0]
 
 
+def phase_tf32_request(k, model, pair):
+    """One SGU request under ``torch.set_float32_matmul_precision("high")``,
+    as a caller that wants TF32 elsewhere sets it.  ``forward`` pins
+    full-fp32 matrix products (the flow resizes) for the call, so the
+    request keeps the SGU agreement bars against the plain path, and the
+    caller's setting reads "high" afterwards."""
+    im1, im2 = pair
+    what = "sgu request %dx%dx%d under matmul precision \"high\"" % (
+        im1.shape[:3])
+    bar_mean, bar_p999, bar_occ = AGREEMENT["sgu"]
+    k.warp_ops.MASK_THRESHOLD = RELAXED_THRESHOLD
+    try:
+        exact = k.upflow.forward(model, im1, im2)
+        with plain_path(k):
+            plain = k.upflow.forward(model, im1, im2)
+        torch.set_float32_matmul_precision("high")
+        try:
+            fast = k.upflow.forward(model, im1, im2)
+            torch.cuda.synchronize()
+            after = torch.get_float32_matmul_precision()
+        finally:
+            torch.set_float32_matmul_precision("highest")
+    finally:
+        k.warp_ops.MASK_THRESHOLD = 1.0
+    check(after == "high", "%s: the caller's setting reads %r afterwards"
+          % (what, after))
+    mean, p999 = flow_diffs(fast, plain)
+    check(mean < bar_mean and p999 < bar_p999,
+          "%s at threshold %g: kernel vs plain path flow |diff| mean %.3e px "
+          "(< %g), p99.9 %.3e px (< %g)"
+          % (what, RELAXED_THRESHOLD, mean, bar_mean, p999, bar_p999))
+    for key in ("occ_fw", "occ_bw"):
+        frac = (fast[key] != plain[key]).float().mean().item()
+        check(frac < bar_occ, "%s: %s disagrees on %.2e of pixels (< %g)"
+              % (what, key, frac, bar_occ))
+    print("  info %s: flows equal to the forward under \"highest\" bit for "
+          "bit: %s" % (what, all(torch.equal(fast[key], exact[key]) for key
+                                 in ("flow_f_out", "flow_b_out"))))
+
+
 # cuDNN's kernel names, FFT-based convolutions included
 CONV_WORDS = ("conv", "gemm", "xmma", "cudnn", "winograd", "implicit", "fft",
               "region_transform")
@@ -1109,6 +1188,7 @@ def main() -> int:
         launches[tag], t, models[tag], pairs[tag] = phase_serve(
             k, tag, models["sgu"] if tag == "sgu-bf16" else None)
         timing += t
+    phase_tf32_request(k, models["sgu"], pairs["sgu"])
     print("phase 4: profile one forward of each path", flush=True)
     for tag in PATHS:
         phase_profile(k, models[tag], pairs[tag], tag)

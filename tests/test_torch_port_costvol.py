@@ -13,6 +13,7 @@ import pytest
 
 import chip_smoke
 from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as pcn
+from upflow_pytorch_tpu_torch.ops.kernels import correlation as pkc
 from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as pfw
 
 CSRC = (Path(__file__).resolve().parents[1] / "upflow_pytorch_tpu_torch"
@@ -71,24 +72,51 @@ def test_feature_warp_one_group_where_pixels_fill_the_card():
     assert pfw.launch_config(4, 32, 96, 320)[2:] == (1, 32)
 
 
-@pytest.mark.parametrize("shape", LEVEL_SHAPES, ids=_ids)
-def test_corr_norm_grid_fills_a_wave(shape):
+def _check_tile_grid(shape):
     b, c, h, w = shape
-    rows, splits, blocks = pcn.launch_config(b, c, h, w)
-    assert rows in pcn.TILE_ROWS and splits in pcn.SPLITS and splits <= c
-    tiles_x, tiles_y = -(-w // pcn.TILE_W), -(-h // rows)
-    assert tiles_x * pcn.TILE_W >= w and tiles_y * rows >= h
+    rows, cols, splits, blocks = pcn.launch_config(b, c, h, w)
+    assert (rows, cols) in pcn.TILES
+    assert splits in pcn.SPLITS and splits <= c
+    tiles_x, tiles_y = -(-w // cols), -(-h // rows)
+    assert tiles_x * cols >= w and tiles_y * rows >= h
     assert blocks == b * tiles_x * tiles_y * splits
     assert blocks >= pcn.SMS
+
+
+@pytest.mark.parametrize("shape", LEVEL_SHAPES, ids=_ids)
+def test_corr_norm_grid_fills_a_wave(shape):
+    _check_tile_grid(shape)
+
+
+# decode level 0 (6 x 20 at both sizes), where the plain correlation runs
+# on the main path; with if_use_cor_pytorch it runs at every level
+LEVEL0_SHAPES = [(4, 196, 6, 20), (1, 196, 6, 20)]
+
+
+@pytest.mark.parametrize("shape", LEVEL0_SHAPES + LEVEL_SHAPES[::2],
+                         ids=_ids)
+def test_correlation_grid_fills_a_wave(shape):
+    """The plain correlation takes the normalised correlation's grid: every
+    SM a block, at level 0 too, where one 32-column tile a row leaves 6
+    tiles a batch item."""
+    _check_tile_grid(shape)
+    assert pkc.launch_config is pcn.launch_config
+
+
+def test_correlation_configs_of_level0():
+    """Level 0: 1-row tiles and 16 splits at B=4; at B=1 16-column tiles,
+    the only grid that gives every SM a block there."""
+    assert pkc.launch_config(4, 196, 6, 20) == (1, 32, 16, 384)
+    assert pkc.launch_config(1, 196, 6, 20) == (1, 16, 16, 192)
 
 
 def test_corr_norm_configs_of_the_main_path():
     """The 384 x 1280 pyramid (B=4): channel splits only where the tiles
     alone leave SMs idle, the tallest tile where they do not."""
-    got = [pcn.launch_config(4, c, h, w)[:2]
+    got = [pcn.launch_config(4, c, h, w)[:3]
            for c, (h, w) in zip(chip_smoke.PYRAMID_CHS[1:],
                                 chip_smoke.pyramid_hw(384, 1280)[1:])]
-    assert got == [(4, 8), (4, 2), (4, 1), (8, 1)]
+    assert got == [(4, 32, 8), (4, 32, 2), (4, 32, 1), (8, 32, 1)]
 
 
 @pytest.mark.parametrize("c", CHANNELS)
@@ -140,18 +168,22 @@ def _global_functions():
 
 def test_profiler_keys_name_kernels():
     """Every key of ``chip_smoke.KERNEL_OF`` names a ``__global__``
-    function of ``csrc/`` (the part before a template's ``<``), and every
-    such function is attributed to its own kernel by the first key that
-    matches it, as phase 4 reads the profiler."""
+    function of ``csrc/``, and every such function, as the profiler shows
+    an instantiation of it, is attributed to its own kernel by the first
+    key that matches it, as phase 4 reads the profiler: no key swallows
+    another kernel (``corr_norm_kernel`` is not ``correlation``'s)."""
     kernels = _global_functions()
-    assert {"corr_norm_kernel", "feature_warp_kernel", "corr_kernel",
+    assert {"corr_norm_kernel", "corr_plain_kernel", "feature_warp_kernel",
             "warp_kernel"} <= kernels
+    assert "corr_kernel" not in kernels  # corr_body.cuh's kernel is gone
     keys = [key for key, _ in chip_smoke.KERNEL_OF]
-    assert all(key.split("<")[0] in kernels for key in keys)
+    assert all(key in kernels for key in keys)
     for name in kernels:
-        first = next(key for key in keys if key in name + "<true"
-                     or key in name + "<false")
-        assert first.split("<")[0] == name
-    assert {"correlation", "corr_norm"} <= {n for _, n in chip_smoke.KERNEL_OF}
-    assert dict((n, k) for k, n in chip_smoke.KERNEL_OF)[
-        "corr_norm"] == "corr_norm_kernel"
+        # the profiler's name of an instantiation
+        shown = "void (anonymous namespace)::%s<float, 1, true>(float " \
+                "const*, float const*)" % name
+        first = next(key for key in keys if key in shown)
+        assert first == name
+    key_of = dict((n, k) for k, n in chip_smoke.KERNEL_OF)
+    assert key_of["correlation"] == "corr_plain_kernel"
+    assert key_of["corr_norm"] == "corr_norm_kernel"

@@ -190,3 +190,67 @@ def test_port_sources_import_no_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, (path, name)
+
+
+def _set_high_legacy():
+    torch.set_float32_matmul_precision("high")
+
+
+def _set_tf32_per_backend():
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
+
+
+def _caller_setting():
+    """What a caller reads back: the per-backend setting and, where the
+    caller's API leaves it readable, the legacy one."""
+    try:
+        legacy = torch.get_float32_matmul_precision()
+    except RuntimeError:  # unreadable once the per-backend API was used
+        legacy = None
+    return torch.backends.cuda.matmul.fp32_precision, legacy
+
+
+@pytest.mark.parametrize("set_tf32", [_set_high_legacy,
+                                      _set_tf32_per_backend],
+                         ids=["legacy-high", "per-backend-tf32"])
+def test_forward_pins_full_fp32_matmuls(set_tf32, monkeypatch):
+    """A caller's TF32 request does not reach the flow resizes: inside
+    ``forward`` every resize sees "highest", afterwards the caller's
+    setting reads as before, and the flows equal those of a forward under
+    "highest" bit for bit."""
+    import upflow_pytorch_tpu_torch.ops.resize as presize
+
+    model = pupflow.build_model(UPFlowConfig().updated(SLICE_KNOBS),
+                                device="cpu", weights=NPZ)
+    im1, im2 = _images(1, 64, 128, seed=5)
+    want = pupflow.forward(model, im1, im2)
+    seen = []
+    resize = presize.resize_bilinear_align_corners
+
+    def spy(x, out_hw):
+        seen.append((torch.get_float32_matmul_precision(),
+                     torch.backends.cuda.matmul.fp32_precision))
+        return resize(x, out_hw)
+
+    monkeypatch.setattr(presize, "resize_bilinear_align_corners", spy)
+    saved = (torch.backends.cuda.matmul.fp32_precision,
+             torch.backends.mkldnn.matmul.fp32_precision)
+    try:
+        set_tf32()
+        before = _caller_setting()
+        assert before[0] == "tf32"
+        got = pupflow.forward(model, im1, im2)
+        assert _caller_setting() == before
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.fp32_precision = saved[0]
+        torch.backends.mkldnn.matmul.fp32_precision = saved[1]
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert len(seen) >= 10
+    assert all(legacy == "highest" and backend in ("ieee", "none")
+               for legacy, backend in seen)
+    for key in ("flow_f_out", "flow_b_out", "occ_fw", "occ_bw"):
+        assert torch.equal(got[key], want[key]), key
+    assert all(torch.equal(a, b) for pair, ref in zip(got["flows"],
+                                                      want["flows"])
+               for a, b in zip(pair, ref))

@@ -185,3 +185,20 @@ def test_sgu_final_lerp_formulation_matches_plain(dims, iscale):
     emulated = psb.sgu_blend_plain(flow, inter, mask)
     plain = psf.sgu_final_plain(fq, xo, (h, w))
     assert torch.equal(emulated, plain)
+
+
+# (output, input) sizes of the resizes on the path: the final stage's x4
+# at 384x1280 and 375x1242, the decode levels' x2, and edge cases
+LERP_SIZES = [(96, 24), (320, 80), (384, 96), (1280, 320), (375, 94),
+              (1242, 311), (47, 12), (155, 39), (7, 7), (5, 1), (1, 4)]
+
+
+@pytest.mark.parametrize("out_size,in_size", LERP_SIZES)
+def test_interp_taps_are_monotonic(out_size, in_size):
+    """The final-stage kernel bounds the quarter-resolution rows and
+    columns a range of outputs reaches by the range's first and last
+    entry, which holds where both indices never decrease."""
+    idx, _ = presize.interp_taps(out_size, in_size, torch.device("cpu"))
+    idx = idx.numpy()
+    assert (np.diff(idx, axis=0) >= 0).all()
+    assert (idx[:, 1] >= idx[:, 0]).all()

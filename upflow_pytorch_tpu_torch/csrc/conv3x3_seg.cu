@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -575,14 +576,13 @@ int launch(const CUtensorMap& wmap, const __nv_bfloat16* x,
   constexpr size_t smem =
       kBarBytes + 1023 +
       Pipe<NB>::kStages * (kWinBytes + 3 * NB * kChunk * 2) + 2 * kABytes;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv3x3_seg_kernel<NB, kTma>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
-  }
+  static upflow::PerDevice attrs;
+  const cudaError_t e = attrs.once([] {
+    return cudaFuncSetAttribute(conv3x3_seg_kernel<NB, kTma>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_x = (W + kTileW - 1) / kTileW;
   const int tiles_y = (H + kTileH - 1) / kTileH;
   const dim3 grid(tiles_x * tiles_y, (Cout + NB - 1) / NB, B);

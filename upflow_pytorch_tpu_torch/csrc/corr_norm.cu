@@ -8,441 +8,46 @@
 // where mask0 zeroes taps outside the image after the affine and m, rstd
 // are per-(b, c) moments reduced in torch beforehand.
 //
-// Bound on the H100: bytes at the fine levels (at decode level 4, B=4,
-// C=32, 96 x 320, it moves 2 x 15.7 MB in and 39.8 MB out for ~0.64 GFLOP),
-// latency at the coarse ones (12 x 40 holds 480 pixels a batch item).
-// Design:
-// - A block owns a TH x 32 pixel tile (TH = 8, 4 or 1) and one range of
-//   the channels.  Its threads are (8, TH, 9): each computes 4 adjacent
-//   pixels of one row against one of the 9 tap rows, 36 accumulators fed
-//   per channel by one 16-byte shared-memory load of f1 and three of f2
-//   (12 values), so a value loaded serves 3 to 9 products.
-// - Channels go through shared memory in chunks of 8, staged by cp.async
-//   two chunks ahead of the one being multiplied (a ring of 3 stages).
-//   Each thread copies the same 4-pixel slots of every chunk, whose
-//   offsets and image bounds it computes once, so staging divides nothing.
-//   Where rows are a multiple of 4 pixels and the maps aligned (the
-//   384 x 1280 pyramid) a slot is one copy (16 bytes of fp32, 8 of bf16);
-//   elsewhere (375 x 1242's widths 39, 78, 311) it is 4-byte copies of
-//   the elements in the image (bf16: of the aligned words that hold them).
-// - A shared-memory pass over the arrived chunk applies the affine
-//   (__fsub_rn, __fmul_rn, from the block's affine rows staged once) to
-//   each slot and zeroes every tap outside the image AFTER it, as the
-//   oracle zero-pads the normalised map; bf16 values widen to fp32 there.
-// - On small maps a thread-block cluster of KS blocks (KS <= 8) shares a
-//   tile and splits its channels; each block leaves its partial sums in
-//   shared memory and, after a cluster barrier, sums 1/KS of the tile over
-//   the KS blocks' shared memory in rank order.  The sum order is fixed,
-//   so two calls give the same bits; no atomics, one launch.
-// ops/kernels/corr_norm.py::launch_config picks TH and KS from the shape.
-// The TPU design's aligned 8-row window pair, scalar-prefetched affine and
-// iota validity masks are gone: the block computes its own bounds.
-#include <cooperative_groups.h>
+// The body, its bound on the H100 and its design are corr_tile.cuh's,
+// with the affine and the LeakyReLU (AFF); correlation.cu runs the same
+// body without them.
 #include <cuda_runtime.h>
 
-#include "warp_common.cuh"
+#include "corr_tile.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
-
-constexpr int kDisp = 4;
-constexpr int kTaps = 2 * kDisp + 1;         // 9
-constexpr int kTileW = 32;                   // output columns of a tile
-constexpr int kPx = 4;                       // adjacent pixels of a thread
-constexpr int kQuads = kTileW / kPx;         // 8
-constexpr int kLine = kTileW + 2 * kDisp;    // 40: an f2 row's columns
-constexpr int kChunk = 8;                    // channels staged per pass
-constexpr int kStages = 3;                   // raw stages: 2 chunks ahead
-constexpr int kMaxSplit = 8;                 // portable cluster size
-
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-template <int TH>
-struct Tile {
-  static constexpr int kThreads = kQuads * TH * kTaps;  // 576, 288, 72
-  static constexpr int kMinBlocks = kThreads > 288 ? 1 : 2;  // per SM
-  static constexpr int kRows2 = TH + 2 * kDisp;  // f2 rows with the halo
-  // a channel's normalised values: TH f1 rows of 32, then kRows2 f2 rows
-  // of 40; as float4 slots, kSlotsCh of them
-  static constexpr int kPerCh = TH * kTileW + kRows2 * kLine;
-  static constexpr int kSlotsCh = kPerCh / 4;
-  static constexpr int kSlots = kChunk * kSlotsCh;
-  static constexpr int kSlotsPerThread = (kSlots + kThreads - 1) / kThreads;
-  // shared memory, in 4-byte words: kStages raw stages and the normalised
-  // chunk (16 bytes a slot each), then the block's affine rows; after the
-  // channel loop the partial sums reuse the stages and the chunk
-  static constexpr int kNorm = kChunk * kPerCh;
-  static constexpr int kRed = kTaps * kTaps * TH * kTileW;
-  static size_t smem_bytes(int per) {
-    return 4 * static_cast<size_t>(
-                   cmax((kStages + 1) * kNorm + 4 * per, kRed));
-  }
-};
-
-__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
-                                          bool valid) {
-  // src-size 0 reads nothing and fills the word with zeros
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-// one float4 slot: 16 bytes of fp32 or 8 of bf16
-__device__ __forceinline__ void cp_async_slot(unsigned dst, const float* src,
-                                              bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_slot(unsigned dst,
-                                              const __nv_bfloat16* src,
-                                              bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 8 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The word route's copies of one float4 slot whose first element is
-// `first` (from the map's base) at column `col`: fp32, the 4 elements that
-// lie in the image; bf16, the aligned 4-byte words that hold an element in
-// the image, from the word holding the first (the normaliser skips the
-// parity), at most 3.  A row outside the image has col = kNoRow.
-constexpr int kNoRow = -(1 << 20);
-__device__ __forceinline__ void stage_words(unsigned raw, const float* map,
-                                            long long first, int col,
-                                            int W) {
-#pragma unroll
-  for (int e = 0; e < kPx; ++e) {
-    const bool ok = static_cast<unsigned>(col + e) < static_cast<unsigned>(W);
-    cp_async4(raw + 4 * e, ok ? map + first + e : map, ok);
-  }
-}
-__device__ __forceinline__ void stage_words(unsigned raw,
-                                            const __nv_bfloat16* map,
-                                            long long first, int col,
-                                            int W) {
-  const int parity = static_cast<int>(first & 1);
-  const unsigned* words =
-      reinterpret_cast<const unsigned*>(map) + ((first - parity) >> 1);
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const int c = col - parity + 2 * j;  // the word's first column
-    const bool ok = (j < 2 || parity) && c + 1 >= 0 && c < W;
-    cp_async4(raw + 4 * j, ok ? words + j : words, ok);
-  }
-}
-
-// The 4 raw values of slot s, widened to fp32: 16 bytes of fp32, or 4
-// bf16 from element `parity` of the slot's 16 bytes.
-__device__ __forceinline__ float4 raw_slot(const float* raw, int s, int) {
-  return reinterpret_cast<const float4*>(raw)[s];
-}
-__device__ __forceinline__ float4 raw_slot(const __nv_bfloat16* raw, int s,
-                                           int parity) {
-  const __nv_bfloat16* h = raw + 8 * s + parity;
-  return make_float4(__bfloat162float(h[0]), __bfloat162float(h[1]),
-                     __bfloat162float(h[2]), __bfloat162float(h[3]));
-}
-
-template <typename T, int TH, bool VEC>
-__global__ void __launch_bounds__(Tile<TH>::kThreads, Tile<TH>::kMinBlocks)
+template <typename T, int TH, int TW, bool VEC>
+__global__ void __launch_bounds__(upflow::corr::Tile<TH, TW>::kThreads,
+                                  upflow::corr::Tile<TH, TW>::kMinBlocks)
 corr_norm_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
                  const float* __restrict__ aff, float* __restrict__ out,
                  int C, int H, int W, float slope, int ks, int vec_out) {
-  using L = Tile<TH>;
-  extern __shared__ __align__(16) float smem[];
-  float* norm = smem + kStages * L::kNorm;
-  float* aff_s = norm + L::kNorm;
-  const unsigned smem_s =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-
-  const int tid = threadIdx.x;
-  const int qx = tid % kQuads;
-  const int ty = (tid / kQuads) % TH;
-  const int dy = tid / (kQuads * TH);
-  const int rank = blockIdx.x % ks;
-  const int x0 = (blockIdx.x / ks) * kTileW, y0 = blockIdx.y * TH;
-  const int b = blockIdx.z;
-  const size_t plane = static_cast<size_t>(H) * W;
-  const int per = (C + ks - 1) / ks;
-  const int c_begin = rank * per;
-  const int n_total = max(0, min(C, c_begin + per) - c_begin);
-  const int n_chunks = (n_total + kChunk - 1) / kChunk;
-
-  // the block's affine rows m1, rstd1, m2, rstd2 (stride `per`); the
-  // first barrier of the channel loop publishes them
-  const float* ab = aff + static_cast<size_t>(b) * 4 * C + c_begin;
-  for (int j = 0; j < 4; ++j)
-    for (int c = tid; c < n_total; c += L::kThreads)
-      aff_s[j * per + c] = __ldg(ab + j * C + c);
-
-  // this thread's float4 slots of a chunk, the same for every chunk: the
-  // channel in the chunk times 2, plus 1 for f1 (2 * kChunk past the last
-  // slot); the first element's column (kNoRow on a row outside the image)
-  // and its offset from the chunk's first plane
-  constexpr int S = L::kSlotsPerThread;
-  int slot_cf[S], slot_col[S], slot_off[S];
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const int s = tid + j * L::kThreads;
-    const int cc = s / L::kSlotsCh, r = s - cc * L::kSlotsCh;
-    const bool first = r < TH * kQuads;
-    const int r2 = r - TH * kQuads;
-    const int yy = first ? y0 + r / kQuads : y0 + r2 / (kLine / 4) - kDisp;
-    const int col = first ? x0 + kPx * (r % kQuads)
-                          : x0 - kDisp + kPx * (r2 % (kLine / 4));
-    slot_cf[j] = s < L::kSlots ? 2 * cc + first : 2 * kChunk;
-    slot_col[j] = yy >= 0 && yy < H ? col : kNoRow;
-    slot_off[j] = cc * static_cast<int>(plane) + yy * W + col;
-  }
-
-  // cp.async copies of a chunk into its raw stage: one a slot on the
-  // vector route (a slot lies wholly in or out of the image there)
-  auto stage = [&](int chunk) {
-    const int n = min(kChunk, n_total - chunk * kChunk);
-    const long long cbase =
-        (static_cast<long long>(b) * C + c_begin + chunk * kChunk) *
-        static_cast<long long>(plane);
-    const unsigned raw = smem_s + 4 * (chunk % kStages) * L::kNorm;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      if (slot_cf[j] >= 2 * n) continue;
-      const T* map = slot_cf[j] & 1 ? f1 : f2;
-      const unsigned dst = raw + 16 * (tid + j * L::kThreads);
-      const long long first = cbase + slot_off[j];
-      if (VEC) {
-        const bool in = static_cast<unsigned>(slot_col[j]) <
-                        static_cast<unsigned>(W);
-        cp_async_slot(dst, in ? map + first : map, in);
-      } else {
-        stage_words(dst, map, first, slot_col[j], W);
-      }
-    }
-  };
-
-  // the affine over the arrived chunk, zero outside the image after it
-  auto normalise = [&](int chunk) {
-    const int n = min(kChunk, n_total - chunk * kChunk);
-    const long long cbase =
-        (static_cast<long long>(b) * C + c_begin + chunk * kChunk) *
-        static_cast<long long>(plane);
-    const T* raw =
-        reinterpret_cast<const T*>(smem + (chunk % kStages) * L::kNorm);
-    const float* a = aff_s + chunk * kChunk;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      const int cc = slot_cf[j] >> 1;
-      if (cc >= n) continue;
-      const int s = tid + j * L::kThreads;
-      const float* ar = a + (slot_cf[j] & 1 ? 0 : 2) * per + cc;
-      const float m = ar[0], r = ar[per];
-      const int parity =
-          VEC ? 0 : static_cast<int>((cbase + slot_off[j]) & 1);
-      const float4 u = raw_slot(raw, s, parity);
-      const float uv[kPx] = {u.x, u.y, u.z, u.w};
-      float v[kPx];
-#pragma unroll
-      for (int e = 0; e < kPx; ++e)
-        v[e] = static_cast<unsigned>(slot_col[j] + e) <
-                       static_cast<unsigned>(W)
-                   ? __fmul_rn(__fsub_rn(uv[e], m), r)
-                   : 0.0f;
-      reinterpret_cast<float4*>(norm)[s] = make_float4(v[0], v[1], v[2], v[3]);
-    }
-  };
-
-  float acc[kPx][kTaps];
-#pragma unroll
-  for (int p = 0; p < kPx; ++p)
-#pragma unroll
-    for (int k = 0; k < kTaps; ++k) acc[p][k] = 0.0f;
-
-  // a chunk's raw stage is refilled kStages - 1 chunks later, after the
-  // barrier that follows its normalisation
-  for (int chunk = 0; chunk < kStages - 1; ++chunk) {
-    if (chunk < n_chunks) stage(chunk);
-    cp_async_commit();
-  }
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    if (chunk + kStages - 1 < n_chunks) stage(chunk + kStages - 1);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();  // chunk arrived; the previous chunk's products done
-    normalise(chunk);
-    __syncthreads();  // the chunk is normalised
-    const int n = min(kChunk, n_total - chunk * kChunk);
-    const float* n1 = norm + ty * kTileW + kPx * qx;
-    const float* n2 = norm + TH * kTileW + (ty + dy) * kLine + kPx * qx;
-#pragma unroll 2
-    for (int cc = 0; cc < n; ++cc) {
-      const float4 a = *reinterpret_cast<const float4*>(n1 + cc * L::kPerCh);
-      const float* s2 = n2 + cc * L::kPerCh;
-      const float4 s0 = *reinterpret_cast<const float4*>(s2);
-      const float4 s1 = *reinterpret_cast<const float4*>(s2 + 4);
-      const float4 s3 = *reinterpret_cast<const float4*>(s2 + 8);
-      const float av[kPx] = {a.x, a.y, a.z, a.w};
-      const float s[kPx + kTaps - 1] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y,
-                                        s1.z, s1.w, s3.x, s3.y, s3.z, s3.w};
-#pragma unroll
-      for (int p = 0; p < kPx; ++p)
-#pragma unroll
-        for (int k = 0; k < kTaps; ++k)
-          acc[p][k] = fmaf(av[p], s[p + k], acc[p][k]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // 1/C as a product, as torch divides a CUDA tensor by a number
-  const float inv_c = 1.0f / static_cast<float>(C);
-  auto finish = [&](float v) {
-    v = __fmul_rn(v, inv_c);
-    return v > 0.0f ? v : __fmul_rn(v, slope);
-  };
-  // stores 4 adjacent outputs of tap `tap` at (y, x..x+3): one 16-byte
-  // store where the row allows, else one by one up to the right edge
-  auto store4 = [&](int tap, int y, int x, float4 v) {
-    if (y >= H || x >= W) return;
-    float* o = out + ((static_cast<size_t>(b) * kTaps * kTaps + tap) * H + y) *
-                         static_cast<size_t>(W) + x;
-    v = make_float4(finish(v.x), finish(v.y), finish(v.z), finish(v.w));
-    if (vec_out) {
-      *reinterpret_cast<float4*>(o) = v;
-    } else {
-      const float vs[kPx] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int p = 0; p < kPx; ++p)
-        if (x + p < W) o[p] = vs[p];
-    }
-  };
-
-  if (ks == 1) {
-#pragma unroll
-    for (int k = 0; k < kTaps; ++k)
-      store4(dy * kTaps + k, y0 + ty, x0 + kPx * qx,
-             make_float4(acc[0][k], acc[1][k], acc[2][k], acc[3][k]));
-    return;
-  }
-
-  // channel split: partial sums (tap, row, column) in shared memory, then
-  // rank r sums its share of the tile over ranks 0..ks-1 in order
-  cg::cluster_group cluster = cg::this_cluster();
-  __syncthreads();
-  float4* red = reinterpret_cast<float4*>(smem);
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k)
-    red[((dy * kTaps + k) * TH + ty) * kQuads + qx] =
-        make_float4(acc[0][k], acc[1][k], acc[2][k], acc[3][k]);
-  cluster.sync();
-  constexpr int kGroups = kTaps * kTaps * TH * kQuads;
-  const int share = (kGroups + ks - 1) / ks;
-  const int g_end = min(kGroups, (rank + 1) * share);
-  for (int g = rank * share + tid; g < g_end; g += L::kThreads) {
-    float4 v = cluster.map_shared_rank(red, 0)[g];
-    for (int q = 1; q < ks; ++q) {
-      const float4 u = cluster.map_shared_rank(red, q)[g];
-      v.x += u.x;
-      v.y += u.y;
-      v.z += u.z;
-      v.w += u.w;
-    }
-    const int tap = g / (TH * kQuads);
-    const int rem = g - tap * TH * kQuads;
-    store4(tap, y0 + rem / kQuads, x0 + kPx * (rem % kQuads), v);
-  }
-  cluster.sync();  // no block leaves while another reads its partials
+  upflow::corr::corr_tile<T, TH, TW, VEC, true>(f1, f2, aff, out, C, H, W,
+                                                slope, ks, vec_out);
 }
 
-// The most dynamic shared memory a block may ask for on Hopper.
-constexpr int kMaxSmem = 227 * 1024;
-
-template <typename T, int TH, bool VEC>
-int launch_tile(const T* f1, const T* f2, const float* aff, float* out,
-                int B, int C, int H, int W, float slope, int ks,
-                cudaStream_t stream) {
-  using L = Tile<TH>;
-  auto kernel = corr_norm_kernel<T, TH, VEC>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
+struct NormKernels {
+  template <typename T, int TH, int TW, bool VEC>
+  static auto get() {
+    return &corr_norm_kernel<T, TH, TW, VEC>;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>((W + kTileW - 1) / kTileW * ks),
-                     static_cast<unsigned>((H + TH - 1) / TH), B);
-  cfg.blockDim = dim3(L::kThreads);
-  cfg.dynamicSmemBytes = L::smem_bytes((C + ks - 1) / ks);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = ks > 1 ? 1 : 0;
-  const int vec_out = W % kPx == 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, f1, f2, aff, out,
-                                             C, H, W, slope, ks, vec_out);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, bool VEC>
-int launch_route(const T* f1, const T* f2, const float* aff, float* out,
-                 int B, int C, int H, int W, float slope, int th, int ks,
-                 cudaStream_t s) {
-  switch (th) {
-    case 8:
-      return launch_tile<T, 8, VEC>(f1, f2, aff, out, B, C, H, W, slope, ks,
-                                    s);
-    case 4:
-      return launch_tile<T, 4, VEC>(f1, f2, aff, out, B, C, H, W, slope, ks,
-                                    s);
-    case 1:
-      return launch_tile<T, 1, VEC>(f1, f2, aff, out, B, C, H, W, slope, ks,
-                                    s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T>
-int launch_corr_norm(const T* f1, const T* f2, const float* aff, float* out,
-                     int B, int C, int H, int W, float slope, int th, int ks,
-                     int vec, void* stream) {
-  if (B == 0 || H == 0 || W == 0) return 0;
-  if (C <= 0 || ks < 1 || ks > kMaxSplit || ks > C ||
-      (vec && W % kPx != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch_route<T, true>(f1, f2, aff, out, B, C, H, W, slope, th,
-                                     ks, s)
-             : launch_route<T, false>(f1, f2, aff, out, B, C, H, W, slope,
-                                      th, ks, s);
-}
+};
 
 }  // namespace
 
 // f1, f2: (B, C, H, W) fp32; aff: (B, 4, C) fp32 rows m1, rstd1, m2,
-// rstd2; out: (B, 81, H, W).  Contiguous, current device.  th: tile rows
-// (8, 4 or 1); ks: blocks of a cluster splitting the channels (1-8); vec:
-// stage 4-pixel slots by 16-byte copies (W a multiple of 4, both maps
-// 16-byte aligned), else 4-byte words; as ops/kernels/corr_norm.py's
-// launch_config and staging_route give them.
+// rstd2; out: (B, 81, H, W).  Contiguous, current device.  th x tw: the
+// tile (8, 4 or 1 x 32, or 1 x 16); ks: blocks of a cluster splitting the
+// channels (1-16); vec: stage 4-pixel slots by 16-byte copies (W a
+// multiple of 4, both maps 16-byte aligned), else 4-byte words; as
+// ops/kernels/correlation.py's launch_config and staging_route give them.
 extern "C" int upflow_corr_norm(const float* f1, const float* f2,
                                 const float* aff, float* out, int B, int C,
-                                int H, int W, float slope, int th, int ks,
-                                int vec, void* stream) {
-  return launch_corr_norm(f1, f2, aff, out, B, C, H, W, slope, th, ks, vec,
-                          stream);
+                                int H, int W, float slope, int th, int tw,
+                                int ks, int vec, void* stream) {
+  return upflow::corr::launch<NormKernels, true>(
+      f1, f2, aff, out, B, C, H, W, slope, th, tw, ks, vec, stream);
 }
 
 // The same with bf16 maps, each 4-byte aligned (8-byte with vec, which
@@ -451,7 +56,7 @@ extern "C" int upflow_corr_norm_bf16(const __nv_bfloat16* f1,
                                      const __nv_bfloat16* f2,
                                      const float* aff, float* out, int B,
                                      int C, int H, int W, float slope, int th,
-                                     int ks, int vec, void* stream) {
-  return launch_corr_norm(f1, f2, aff, out, B, C, H, W, slope, th, ks, vec,
-                          stream);
+                                     int tw, int ks, int vec, void* stream) {
+  return upflow::corr::launch<NormKernels, true>(
+      f1, f2, aff, out, B, C, H, W, slope, th, tw, ks, vec, stream);
 }

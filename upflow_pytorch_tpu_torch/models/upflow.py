@@ -68,7 +68,8 @@ from upflow_pytorch_tpu_torch.ops.correlation import correlation
 from upflow_pytorch_tpu_torch.ops.kernels.corr_norm import warp_norm_corr
 from upflow_pytorch_tpu_torch.ops.kernels.sgu_final import sgu_final
 from upflow_pytorch_tpu_torch.ops.normalize import normalize_features
-from upflow_pytorch_tpu_torch.ops.resize import upsample2d_flow_as
+from upflow_pytorch_tpu_torch.ops.resize import (
+    full_fp32_matmuls, upsample2d_flow_as)
 
 Flows = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -271,13 +272,15 @@ def forward(model: UPFlowNet, im1, im2) -> Dict[str, Any]:
     to the model's device.  Returns NHWC ``flow_f_out``, ``flow_b_out``
     (B, H, W, 2), ``occ_fw``, ``occ_bw`` (B, H, W, 1) and ``flows``, the
     per-level ``[(flow_f, flow_b)]`` list finest-first, all fp32 whatever
-    the compute dtype.  fp32 convolutions run in full fp32: cuDNN's TF32
-    is switched off for the call.
+    the compute dtype.  fp32 convolutions and matrix products (the flow
+    resizes) run in full fp32: cuDNN's TF32 is switched off and the matrix
+    products' precision pinned for the call, whatever the caller set
+    (``ops/resize.py::full_fp32_matmuls``).
     """
     conf = model.conf
     device = next(model.parameters()).device
     cudnn = torch.backends.cudnn
-    with torch.no_grad(), cudnn.flags(
+    with torch.no_grad(), full_fp32_matmuls(), cudnn.flags(
             enabled=cudnn.enabled, benchmark=cudnn.benchmark,
             deterministic=cudnn.deterministic, allow_tf32=False):
         flow_f, flow_b, flows = model(_as_nchw(im1, device),

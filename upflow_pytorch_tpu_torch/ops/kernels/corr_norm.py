@@ -2,10 +2,12 @@
 
 Replaces ``upflow_pytorch_tpu/ops/pallas/corr_norm.py::
 corr_norm_window_pallas``.  Memory-bound on the H100 at the fine levels,
-latency-bound at the coarse ones; the source note in the ``.cu`` file
-says how the design meets that, and ``launch_config`` gives the tile and
-the channel split for each shape, ``staging_route`` how it copies the
-maps (``corr_norm.route_launches`` counts each route).
+latency-bound at the coarse ones; the source note in
+``csrc/corr_tile.cuh`` (the tile body it shares with kernel 1) says how
+the design meets that, and ``launch_config`` gives the tile and the
+channel split for each shape, ``staging_route`` how it copies the maps
+(``corr_norm.route_launches`` counts each route); both live beside
+kernel 1 in ``correlation.py``.
 
 Per-channel normalisation collapses to an affine ``(f - m) * rstd`` whose
 (B, 4, C) scalars [m1, rstd1, m2, rstd2] torch reduces from the
@@ -35,62 +37,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as kfw
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    FLOAT, FP32_BF16, INT, PTR, SMS, check_cpu_input, check_cuda_input,
-    count_cuda_call, launch)
-from upflow_pytorch_tpu_torch.ops.kernels.correlation import (
-    KERNEL_DISP, correlation_plain)
-
-TILE_W = 32  # output columns of a tile
-TILE_ROWS = (8, 4, 1)  # the kernel's tile heights, tallest first
-SPLITS = (1, 2, 4, 8)  # blocks of a cluster that split the channels
-THREADS_PER_ROW = 72  # a block's threads per tile row: 8 x 9 tap rows
-MIN_THREADS = SMS * 4 * THREADS_PER_ROW  # 288 threads an SM on average
-
-
-def launch_config(b: int, c: int, h: int, w: int) -> Tuple[int, int, int]:
-    """(tile rows, channel splits, blocks) of the kernel's grid for a (b,
-    c, h, w) map: the fewest splits (a cluster of that many blocks per
-    tile, each summing ``channel_ranges(c, splits)``), then the tallest
-    tile, whose grid gives every SM a block and ``MIN_THREADS`` threads in
-    all; else, of the grids that give every SM a block if any does, the
-    one with the most threads.  Each split stages the halo once more and
-    adds a pass over the tile's partial sums; a taller tile stages fewer
-    halo rows per output row; too few threads leave the SMs idle."""
-    best = None
-    for splits in SPLITS:
-        if splits > max(c, 1):
-            break
-        for rows in TILE_ROWS:
-            blocks = b * -(-w // TILE_W) * -(-h // rows) * splits
-            threads = blocks * THREADS_PER_ROW * rows
-            if blocks >= SMS and threads >= MIN_THREADS:
-                return rows, splits, blocks
-            key = (blocks >= SMS, threads)
-            if best is None or key > best[0]:
-                best = (key, rows, splits, blocks)
-    return best[1:]
-
-
-def staging_route(w: int, itemsize: int, *data_ptrs: int) -> str:
-    """How the kernel stages maps of width ``w`` and ``itemsize`` bytes an
-    element: "vec" (4 pixels a copy: 16 bytes of fp32 or 8 of bf16) when
-    ``w`` is a multiple of 4 and every map's address a multiple of the
-    copy, as on the 384 x 1280 pyramid; "word" (4-byte copies, an edge
-    test per pixel) otherwise, as at 375 x 1242's widths 39, 78 and
-    311."""
-    copy = 4 * itemsize
-    ok = w % 4 == 0 and all(p % copy == 0 for p in data_ptrs)
-    return "vec" if ok else "word"
-
-
-def channel_ranges(c: int, splits: int):
-    """The channels [start, stop) that each block of a cluster sums, by
-    rank, as the kernel computes them; the last ones may be empty."""
-    per = -(-c // splits)
-    return [(min(c, r * per), min(c, (r + 1) * per)) for r in range(splits)]
+    FP32_BF16, check_cpu_input, check_cuda_input, count_cuda_call)
+# the tile body's grid and staging rules, shared with the plain correlation
+from upflow_pytorch_tpu_torch.ops.kernels.correlation import (  # noqa: F401
+    KERNEL_DISP, SMS, SPLITS, TILES, channel_ranges, correlation_plain,
+    launch_config, launch_tiles, staging_route)
 
 
 def moments(f: torch.Tensor, across_channels: bool
@@ -157,19 +110,7 @@ def corr_norm_cuda(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
     out = torch.empty((b, k * k, h, w), dtype=torch.float32, device=f1.device)
     # LeakyReLU with slope 1 is the identity
     slope = 1.0 if leaky_slope is None else float(leaky_slope)
-    if f1.dtype == torch.bfloat16:
-        # the kernel stages bf16 maps as aligned 4-byte words
-        f1, f2 = (t if t.data_ptr() % 4 == 0 else t.clone() for t in (f1, f2))
-    rows, splits, _ = launch_config(b, c, h, w)
-    route = staging_route(w, f1.element_size(), f1.data_ptr(), f2.data_ptr())
-    fn = _build.kernel_fn("upflow_corr_norm" + (
-        "_bf16" if f1.dtype == torch.bfloat16 else ""),
-                          [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, INT,
-                           INT, INT, PTR])
-    corr_norm.route_launches[route] += 1
-    launch(op, corr_norm, f1, fn, f1.data_ptr(), f2.data_ptr(), aff.data_ptr(),
-           out.data_ptr(), b, c, h, w, slope, rows, splits,
-           int(route == "vec"))
+    launch_tiles(op, corr_norm, f1, f2, out, aff, slope)
     return out
 
 

@@ -1,8 +1,8 @@
 """Kernel 1: the 81-tap cost-volume correlation (``csrc/correlation.cu``).
 
 Replaces ``upflow_pytorch_tpu/ops/pallas/correlation.py::_corr_fwd_pallas``.
-Memory-bound on the H100; the source note in the ``.cu`` file says how
-the design meets that.
+Latency-bound on the H100 at decode level 0, where the main path runs it;
+the source note in the ``.cu`` file says how the design meets that.
 
     out[b, k, y, x] = (1/C) * sum_c f1[b, c, y, x] * f2[b, c, y+dy, x+dx]
 
@@ -10,19 +10,113 @@ with ``k = (dy+D)*(2D+1) + (dx+D)`` and zeros outside ``f2``.  NCHW in,
 (B, (2D+1)^2, H, W) out.  The maps are fp32 or bf16 (widened to fp32 as
 they are read); the output is fp32.  ``correlation`` launches the kernel for CUDA
 tensors and runs ``correlation_plain`` for CPU tensors.
+
+The kernel runs the tile body of the normalised correlation
+(``csrc/corr_tile.cuh``) without its affine, so both take their grid from
+``launch_config`` and their staging route from ``staging_route`` here,
+and both are launched by ``launch_tiles``.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    FP32_BF16, INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
-    launch)
+    FLOAT, FP32_BF16, INT, PTR, SMS, check_cpu_input, check_cuda_input,
+    count_cuda_call, launch)
 
-KERNEL_DISP = 4  # the kernel's compiled displacement (corr_body.cuh)
+KERNEL_DISP = 4  # the kernels' compiled displacement (csrc/corr_tile.cuh)
+# the kernel's tiles (rows, columns), tallest then widest first: a block
+# has 9 threads for every 4 pixels of a tile row
+TILES = ((8, 32), (4, 32), (1, 32), (1, 16))
+# blocks of a cluster that split the channels; more than 8 is a
+# non-portable cluster size, which the kernel allows for itself
+SPLITS = (1, 2, 4, 8, 16)
+MIN_THREADS = SMS * 288  # 288 threads an SM on average
+
+
+def threads_per_block(rows: int, cols: int) -> int:
+    return 9 * (cols // 4) * rows
+
+
+def launch_config(b: int, c: int, h: int, w: int
+                  ) -> Tuple[int, int, int, int]:
+    """(tile rows, tile columns, channel splits, blocks) of the kernel's
+    grid for a (b, c, h, w) map: the fewest splits (a cluster of that many
+    blocks per tile, each summing ``channel_ranges(c, splits)``), then the
+    first tile of ``TILES``, whose grid gives every SM a block and
+    ``MIN_THREADS`` threads in all; else, of the grids that give every SM
+    a block if any does, the one with the most threads.  Each split stages
+    the halo once more and adds a pass over the tile's partial sums; a
+    taller or wider tile stages fewer halo pixels per output pixel; too
+    few threads leave the SMs idle."""
+    best = None
+    for splits in SPLITS:
+        if splits > max(c, 1):
+            break
+        for rows, cols in TILES:
+            blocks = b * -(-w // cols) * -(-h // rows) * splits
+            threads = blocks * threads_per_block(rows, cols)
+            if blocks >= SMS and threads >= MIN_THREADS:
+                return rows, cols, splits, blocks
+            key = (blocks >= SMS, threads)
+            if best is None or key > best[0]:
+                best = (key, rows, cols, splits, blocks)
+    return best[1:]
+
+
+def staging_route(w: int, itemsize: int, *data_ptrs: int) -> str:
+    """How the kernel stages maps of width ``w`` and ``itemsize`` bytes an
+    element: "vec" (4 pixels a copy: 16 bytes of fp32 or 8 of bf16) when
+    ``w`` is a multiple of 4 and every map's address a multiple of the
+    copy, as on the 384 x 1280 pyramid; "word" (4-byte copies, an edge
+    test per pixel) otherwise, as at 375 x 1242's widths 39, 78 and
+    311."""
+    copy = 4 * itemsize
+    ok = w % 4 == 0 and all(p % copy == 0 for p in data_ptrs)
+    return "vec" if ok else "word"
+
+
+def channel_ranges(c: int, splits: int):
+    """The channels [start, stop) that each block of a cluster sums, by
+    rank, as the kernel computes them; the last ones may be empty."""
+    per = -(-c // splits)
+    return [(min(c, r * per), min(c, (r + 1) * per)) for r in range(splits)]
+
+
+def launch_tiles(op: str, wrapper, f1: torch.Tensor, f2: torch.Tensor,
+                 out: torch.Tensor, aff: Optional[torch.Tensor] = None,
+                 slope: float = 1.0) -> None:
+    """Launches the tile kernel on checked (B, C, H, W) maps: with ``aff``
+    the normalised correlation ``upflow_corr_norm(f1, f2, aff, out, b, c,
+    h, w, slope, rows, splits, vec, stream)``, else the plain one
+    ``upflow_correlation(f1, f2, out, b, c, h, w, rows, splits, vec,
+    stream)`` (``_bf16`` for bf16 maps); counts the launch in
+    ``wrapper.launches`` and its route in ``wrapper.route_launches``."""
+    b, c, h, w = f1.shape
+    bf16 = f1.dtype == torch.bfloat16
+    if bf16:
+        # the kernel stages bf16 maps as aligned 4-byte words
+        f1, f2 = (t if t.data_ptr() % 4 == 0 else t.clone() for t in (f1, f2))
+    rows, cols, splits, _ = launch_config(b, c, h, w)
+    route = staging_route(w, f1.element_size(), f1.data_ptr(), f2.data_ptr())
+    grid = [rows, cols, splits, int(route == "vec")]
+    if aff is None:
+        fn = _build.kernel_fn("upflow_correlation" + ("_bf16" if bf16 else ""),
+                              [PTR, PTR, PTR] + [INT] * 8 + [PTR])
+        args = [f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w]
+    else:
+        fn = _build.kernel_fn("upflow_corr_norm" + ("_bf16" if bf16 else ""),
+                              [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT]
+                              + [INT] * 4 + [PTR])
+        args = [f1.data_ptr(), f2.data_ptr(), aff.data_ptr(), out.data_ptr(),
+                b, c, h, w, slope]
+    wrapper.route_launches[route] += 1
+    launch(op, wrapper, f1, fn, *args, *grid)
 
 
 def correlation_plain(f1: torch.Tensor, f2: torch.Tensor,
@@ -58,11 +152,7 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
         raise ValueError("%s: no channels" % op)
     k = 2 * KERNEL_DISP + 1
     out = torch.empty((b, k * k, h, w), dtype=torch.float32, device=f1.device)
-    fn = _build.kernel_fn("upflow_correlation" + (
-        "_bf16" if f1.dtype == torch.bfloat16 else ""),
-                          [PTR, PTR, PTR, INT, INT, INT, INT, PTR])
-    launch(op, correlation, f1, fn, f1.data_ptr(), f2.data_ptr(),
-           out.data_ptr(), b, c, h, w)
+    launch_tiles(op, correlation, f1, f2, out)
     return out
 
 
@@ -77,3 +167,4 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
 
 
 correlation.launches = 0
+correlation.route_launches = {"vec": 0, "word": 0}

@@ -23,13 +23,27 @@ import torch
 
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    FLOAT, INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
+    FLOAT, INT, PTR, SMS, check_cpu_input, check_cuda_input, count_cuda_call,
     launch)
 from upflow_pytorch_tpu_torch.ops.kernels.sgu_blend import sgu_blend_plain
 from upflow_pytorch_tpu_torch.ops.resize import (
     interp_taps, upsample2d_as, upsample2d_flow_as)
 
 Size = Tuple[int, int]
+
+TILE_W = 128  # output columns of the kernel's tile
+TILE_ROWS = (32, 16)  # its tile heights, tallest first
+
+
+def tile_rows(b: int, h: int, w: int) -> int:
+    """The kernel's tile height for a (b, 2, h, w) output: the tallest
+    whose grid gives every SM a block, else the shortest.  A taller tile
+    stages its halo of row lerps (40 rows each side) for more pixels."""
+    for rows in TILE_ROWS:
+        if b * -(-h // rows) * -(-w // TILE_W) >= SMS:
+            return rows
+    return TILE_ROWS[-1]
+
 
 
 def sgu_final_plain(flow_q: torch.Tensor, x_out: torch.Tensor,
@@ -61,11 +75,11 @@ def sgu_final_cuda(flow_q: torch.Tensor, x_out: torch.Tensor,
     out = torch.empty((b, 2, h, w), dtype=torch.float32, device=flow_q.device)
     fn = _build.kernel_fn("upflow_sgu_final",
                           [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT,
-                           INT, INT, INT, FLOAT, FLOAT, PTR])
+                           INT, INT, INT, FLOAT, FLOAT, INT, PTR])
     launch(op, sgu_final, flow_q, fn, flow_q.data_ptr(), x_out.data_ptr(),
            mask_q.data_ptr(), row_idx.data_ptr(), row_wt.data_ptr(),
            col_idx.data_ptr(), col_wt.data_ptr(), out.data_ptr(), b, hq, wq, h,
-           w, w / wq, h / hq)
+           w, w / wq, h / hq, tile_rows(b, h, w))
     return out
 
 

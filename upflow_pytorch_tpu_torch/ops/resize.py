@@ -9,11 +9,45 @@ uses, so both packages give the same numbers.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def full_fp32_matmuls() -> Iterator[None]:
+    """Pins full-fp32 matrix products (no TF32) for the block, as the JAX
+    package pins ``Precision.HIGHEST`` for its resizes, and restores the
+    caller's setting after it.  Torch keeps the setting through two linked
+    APIs: ``torch.set_float32_matmul_precision`` (and ``allow_tf32``), and
+    the per-backend ``torch.backends.cuda.matmul.fp32_precision``; once a
+    caller has used the latter, the former's getter raises.  The setting
+    is pinned and restored through the API the caller used, and left
+    untouched where it already asks for full fp32."""
+    matmul = torch.backends.cuda.matmul
+    try:
+        legacy = torch.get_float32_matmul_precision()
+    except RuntimeError:  # the caller set the per-backend API
+        legacy = None
+    if legacy == "highest" or (legacy is None
+                               and matmul.fp32_precision == "ieee"):
+        yield
+        return
+    if legacy is None:
+        saved = matmul.fp32_precision
+        matmul.fp32_precision = "ieee"
+    else:
+        torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if legacy is None:
+            matmul.fp32_precision = saved
+        else:
+            torch.set_float32_matmul_precision(legacy)
 
 
 @functools.lru_cache(maxsize=256)
