@@ -31,7 +31,12 @@ Phases, each of which must pass:
    every call, and each shape prints its
    staging route (TMA or cp.async), device ms, cuDNN's device ms, its
    bound and the host's share of a call (CUDA-event time beyond device
-   time); the image warp prints the same beside ``grid_sample``.
+   time); the image warp prints the same beside ``grid_sample``.  The SGU
+   blend runs both directions of a level in one launch from raw heads
+   (fp32 and bf16) at decode levels 1-4 of both sizes and three
+   inter-flow magnitudes, bit for bit against its plain version, and
+   prints device ms, bound and wrapper-inclusive ms per level and per
+   forward.
 3. Serve requests through ``build_model`` / ``forward`` with the
    checkpoint ``assets/synthetic_trained.npz``, on three paths: the eval
    recipe without SGU (slice 1), with SGU (the served configuration), and
@@ -41,8 +46,14 @@ Phases, each of which must pass:
    plain path on the card and time both.  Then one SGU request under
    ``torch.set_float32_matmul_precision("high")`` keeps the SGU bars, and
    the caller's setting reads the same afterwards.
-4. Profile one forward of each path at B=4, 384x1280 and split its device
-   time by kind.
+4. Profile one forward of each path at B=4, 384x1280, split its device
+   time by kind and count its device kernels.
+5. Evaluate against ground truth: ``EvaluationBench`` with the port's
+   ``NetEvalModel`` over synthetic pairs with exact flow (B=4 384x1280;
+   B=1 375x1242 at native size and padded to multiples of 64), on the
+   fp32 and bf16 SGU paths, through the kernels and the plain versions;
+   the interior EPE of the kernel paths must be within 0.02 px of the JAX
+   package's (``upflow_pytorch_tpu_torch/eval/jax_reference_epe.json``).
 
 The line before the last is the card's name and power limit; the line
 before that holds the kernels' numbers as JSON.  The last line,
@@ -94,8 +105,9 @@ SGU_REQUESTS = [(4, 384, 1280, 4), (1, 375, 1242, 5), (4, 384, 1280, 6)]
 BF16_REQUESTS = [(4, 384, 1280, 7), (1, 375, 1242, 8), (4, 384, 1280, 9)]
 # kernel launches of one forward.  Without SGU: level 0 correlates both
 # directions, levels 1-4 warp and correlate both directions, the occlusion
-# check warps both flows.  SGU adds per direction a feature warp and a
-# blend at levels 1-4, and a feature warp and the final stage at the end.
+# check warps both flows.  SGU adds per direction a feature warp at levels
+# 1-4 and at the end, one blend launch a level for both directions at
+# levels 1-4, and per direction the final stage at the end.
 # bf16 adds conv3x3_seg wherever a 3x3 stride-1 conv reads >= 64 channels
 # on a map of >= 8 rows and >= 2048 pixels (ops/conv.py): at B=4 384x1280
 # and at 375x1242 the estimator (5 convs and its head) and the context
@@ -107,7 +119,7 @@ LAUNCHES_PER_FORWARD = {"correlation": 2, "feature_warp": 8,
                         "corr_norm": 8, "warp": 2, "sgu_blend": 0,
                         "sgu_final": 0, "conv3x3_seg": 0}
 SGU_LAUNCHES_PER_FORWARD = dict(LAUNCHES_PER_FORWARD, feature_warp=18,
-                                sgu_blend=8, sgu_final=2)
+                                sgu_blend=4, sgu_final=2)
 BF16_LAUNCHES_PER_FORWARD = dict(SGU_LAUNCHES_PER_FORWARD, conv3x3_seg=86)
 # per path: knobs, requests, launches per forward, snapshot arrays skipped
 PATHS = {"no-sgu": (EVAL_KNOBS, REQUESTS, LAUNCHES_PER_FORWARD, 20),
@@ -137,10 +149,10 @@ KERNEL_OF = (("corr_plain_kernel", "correlation"),
              ("warp_kernel", "warp"))
 # the kernels' other rows: row 5 of the TPU kernels (_window_warp_resident)
 # is served by the image warp kernel, and the bf16 rows are the bf16
-# instantiations of kernels 1-3
+# instantiations of kernels 1-3 and 7
 SERVED_BY = {"warp_window": "warp", "correlation_bf16": "correlation",
              "feature_warp_bf16": "feature_warp",
-             "corr_norm_bf16": "corr_norm"}
+             "corr_norm_bf16": "corr_norm", "sgu_blend_bf16": "sgu_blend"}
 KERNEL_KEY = {name: key for key, name in KERNEL_OF}
 KERNEL_KEY.update({row: KERNEL_KEY[kernel]
                    for row, kernel in SERVED_BY.items()})
@@ -227,6 +239,18 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
 
 def fmt(v) -> str:
     return "n/a" if v is None else "%.4f" % v
+
+
+def ulp_report(got, ref):
+    """(values that differ, the largest difference in fp32 ulps) between
+    two sequences of fp32 tensors."""
+    differ, ulps = 0, 0
+    for g, r in zip(got, ref):
+        d = (g.contiguous().view(torch.int32).long()
+             - r.contiguous().view(torch.int32).long()).abs()
+        differ += int((g != r).sum().item())
+        ulps = max(ulps, int(d.max().item()))
+    return differ, ulps
 
 
 def make_flow(rng, b, h, w, amp):
@@ -575,38 +599,117 @@ def phase_kernels(k):
                    library=lambda: grid_sample(flow_src, grid),
                    per_forward=1)
 
-    # kernel 7: the SGU blend at decode levels 1-4.  Inter-flows of the TPU's
-    # fused tier (+-1.5 px), its medium tier (+-30 / +-15 px) and beyond
-    # (+-300 px); the medium one is timed.
+    # kernel 7: the SGU blend at decode levels 1-4 of both request sizes,
+    # both directions in one launch, reading raw (B, 3, H, W) heads, fp32
+    # and bf16, in place.  Inter-flows of the TPU's fused tier (+-1.5 px),
+    # its medium tier (+-30 / +-15 px) and beyond (+-300 px), mask logits
+    # of +-6.  Bit for bit against the plain version; the medium tier at
+    # B=4 384x1280 is timed, one row a level.  The one-direction op with
+    # the mask given (ops/warp.py::sgu_blend) is held at the same cases.
     def uniform(shape, amp):
         return torch.from_numpy(
             ((rng.rand(*shape) - 0.5) * 2 * amp).astype(np.float32)).to(DEV)
 
-    for level in range(1, 5):
-        h, w = levels[level]
-        flow = make_flow(rng, MAIN_B, h, w, max(2.0, min(40.0, w / 4)))
-        mask = torch.from_numpy(
-            rng.rand(MAIN_B, 1, h, w).astype(np.float32)).to(DEV)
-        for tier, (amp_u, amp_v) in (("fused", (1.5, 1.5)),
-                                     ("medium", (30.0, 15.0)),
-                                     ("beyond", (300.0, 300.0))):
-            inter = torch.cat([uniform((MAIN_B, 1, h, w), amp_u),
-                               uniform((MAIN_B, 1, h, w), amp_v)], dim=1)
-            got = k.sb.sgu_blend(flow, inter, mask)
-            ref = k.sb.sgu_blend_plain(flow, inter, mask)
-            err = (got - ref).abs().max().item()
-            differ = int((got != ref).sum().item())
-            check(err <= 1e-6,
-                  "sgu_blend level %d %s, inter-flow +-%g/+-%g px (%s): max "
-                  "abs err %.3e (<= 1e-6), %d of %d values differ"
-                  % (level, tuple(flow.shape), amp_u, amp_v, tier, err,
-                     differ, got.numel()))
-            if tier == "medium":
-                px = MAIN_B * h * w
-                record("sgu_blend", list(flow.shape), err,
-                       lambda: k.sb.sgu_blend(flow, inter, mask),
-                       lambda: k.sb.sgu_blend_plain(flow, inter, mask),
-                       4 * 7 * px, px * (30 + 2 * 11))
+    def raw_head(b, h, w, amp_u, amp_v):
+        return torch.cat([uniform((b, 1, h, w), amp_u),
+                          uniform((b, 1, h, w), amp_v),
+                          uniform((b, 1, h, w), 6.0)], dim=1)
+
+    stages = {}
+    for b, hw in ((MAIN_B, (MAIN_H, MAIN_W)), (1, (375, 1242))):
+        for level, (h, w) in enumerate(pyramid_hw(*hw)):
+            if level == 0:
+                continue
+            amp = max(2.0, min(40.0, w / 4))
+            flows = [make_flow(rng, b, h, w, amp) for _ in range(2)]
+            pix, rows_, blocks = k.sb.launch_config(2, b, h, w)
+            for tier, (amp_u, amp_v) in (("fused", (1.5, 1.5)),
+                                         ("medium", (30.0, 15.0)),
+                                         ("beyond", (300.0, 300.0))):
+                heads32 = [raw_head(b, h, w, amp_u, amp_v) for _ in range(2)]
+                for dtype, suffix in dtypes:
+                    heads = [x.to(dtype) for x in heads32]
+                    args = (flows[0], heads[0], flows[1], heads[1])
+                    got = k.sb.sgu_blend_pair(*args)
+                    ref = k.sb.sgu_blend_pair_plain(*args)
+                    differ, ulps = ulp_report(got, ref)
+                    err = max((g - r).abs().max().item()
+                              for g, r in zip(got, ref))
+                    what = "sgu_blend %s head L%d %s, both directions (%d " \
+                        "pixels a thread, %d-row blocks, %d blocks), " \
+                        "inter-flow +-%g/+-%g px (%s)" % (
+                            str(dtype)[6:], level, (b, 3, h, w), pix, rows_,
+                            blocks, amp_u, amp_v, tier)
+                    check(differ == 0, "%s: %d of %d values differ (max "
+                          "%d ulp, max abs err %.3e)"
+                          % (what, differ, 2 * got[0].numel(), ulps, err))
+                    if dtype == torch.float32:
+                        masks = [torch.sigmoid(x[:, 2:3]) for x in heads]
+                        one = [k.sb.sgu_blend(fl, x[:, :2].contiguous(), m)
+                               for fl, x, m in zip(flows, heads, masks)]
+                        differ, ulps = ulp_report(one, ref)
+                        check(differ == 0, "sgu_blend one direction, mask "
+                              "given, L%d %s (%s): %d values differ from "
+                              "the plain pair (max %d ulp)"
+                              % (level, (b, 2, h, w), tier, differ, ulps))
+                    if b != MAIN_B or tier != "medium":
+                        continue
+                    stages[level, str(dtype)[6:]] = args
+                    px = 2 * b * h * w
+                    # bytes: per pixel and direction the flow and the head
+                    # read, the output written; operations: the taps (30),
+                    # the sigmoid besides its exp (3), per plane the tap
+                    # sum (7) and the blend (4)
+                    row = record(
+                        "sgu_blend" + suffix, [2, b, 3, h, w], err,
+                        lambda args=args: k.sb.sgu_blend_pair(*args),
+                        lambda args=args: k.sb.sgu_blend_pair_plain(*args),
+                        px * (8 + 3 * heads[0].element_size() + 8),
+                        px * (30 + 3 + 2 * 11), per_forward=1,
+                        what="L%d" % level, pix=pix, block_rows=rows_,
+                        blocks=blocks)
+                    print("  info sgu_blend %s L%d %s: device %s ms "
+                          "(attempt %s), bound %.5f ms (%.2f MB), events "
+                          "%.4f ms with the wrapper, host %s ms"
+                          % (str(dtype)[6:], level, (2, b, 3, h, w),
+                             fmt(row["device_ms"]), row["device_attempt"],
+                             row["bound_ms"],
+                             px * (16 + 3 * heads[0].element_size()) / 1e6,
+                             row["ms"], fmt(row["host_ms"])))
+    # a level's blend stage as this model runs it (one launch from the raw
+    # heads) and as the model ran it before (per direction the head cast
+    # to fp32, the inter-flow slice copied, the sigmoid, a one-direction
+    # blend), by events (the host's time included) and device time
+    def stage_before(args):
+        out = []
+        for fl, x in ((args[0], args[1]), (args[2], args[3])):
+            x = x.float()
+            out.append(k.warp_ops.sgu_blend(fl, x[:, :2],
+                                            torch.sigmoid(x[:, 2:3])))
+        return out
+
+    for (level, dtype), args in sorted(stages.items()):
+        if level not in (1, 4):
+            continue
+        times = []
+        for stage in (lambda: k.warp_ops.sgu_blend_pair(*args),
+                      lambda: stage_before(args)):
+            dev, _ = device_ms(stage)
+            times += [time_ms(stage), dev]
+        print("  info sgu_blend stage L%d, %s heads: %.4f ms by events, %s "
+              "device ms in one launch; as the model ran it before: %.4f "
+              "ms, %s device ms in %d kernels"
+              % (level, dtype, times[0], fmt(times[1]), times[2],
+                 fmt(times[3]), 8 if dtype == "bfloat16" else 6))
+    for name in ("sgu_blend", "sgu_blend_bf16"):
+        shapes = rows[name]
+        dev = (None if any(r["device_ms"] is None for r in shapes)
+               else sum(r["device_ms"] for r in shapes))
+        print("  info %s a forward (%d launches): device %s ms, bound %.5f "
+              "ms, events %.4f ms with the wrapper"
+              % (name, len(shapes), fmt(dev),
+                 sum(r["bound_ms"] for r in shapes),
+                 sum(r["ms"] for r in shapes)))
 
     # kernel 8: the final SGU stage, (4, ., 96, 320) -> (384, 1280) and
     # (1, ., 94, 311) -> (375, 1242).  Quarter-resolution inter-flows of
@@ -753,6 +856,7 @@ def plain_path(k):
              (k.fw, "feature_warp", k.fw.feature_warp_plain),
              (k.warp, "warp", k.warp.warp_plain),
              (k.sb, "sgu_blend", k.sb.sgu_blend_plain),
+             (k.sb, "sgu_blend_pair", k.sb.sgu_blend_pair_plain),
              (k.upflow, "sgu_final", k.sf.sgu_final_plain),
              (k.conv_ops, "conv3x3_seg", k.seg.conv3x3_seg_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -1005,9 +1109,11 @@ CONV_WORDS = ("conv", "gemm", "xmma", "cudnn", "winograd", "implicit", "fft",
 
 def phase_profile(k, model, pair, tag):
     """One forward of the first request under torch.profiler: device time
-    by kernel, by kind, and the device's busy share of the wall time.
-    Copies are host-device transfers and copy kernels (concatenation and
-    ``.contiguous()``)."""
+    by kernel, by kind, the device's busy share of the wall time and the
+    number of device kernels the forward launched (host-device transfers
+    and memsets counted apart).  Copies are host-device transfers and copy
+    kernels (concatenation and ``.contiguous()``).  Returns the kernel
+    count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1021,14 +1127,19 @@ def phase_profile(k, model, pair, tag):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
+    kernels = transfers = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us())
+            if e.name.lower().startswith(("memcpy", "memset")):
+                transfers += 1
+            else:
+                kernels += 1
     busy_us = sum(by_name.values())
     if busy_us == 0:
         print("  info the profiler recorded no device time")
-        return
+        return None
     kinds = {"port kernels": 0.0, "convolutions": 0.0, "copies": 0.0,
              "other": 0.0}
     port = {name: 0.0 for _, name in KERNEL_OF}
@@ -1053,6 +1164,109 @@ def phase_profile(k, model, pair, tag):
         print("  info   %9.0f us  %s" % (us, kname[:110]))
     print("  info port kernels' device us in this forward: %s"
           % {n: round(us, 1) for n, us in port.items()})
+    print("  info %s forward: %d device kernels, %d transfers and memsets"
+          % (tag, kernels, transfers))
+    return kernels
+
+
+# phase 5's requests: name -> (make_dataset arguments, pairs a forward,
+# pad_to_multiple); the names are those of the JAX reference file
+EVAL_REQUESTS = {
+    "b4_384x1280": (dict(n_pairs=4, seed=7, raw_hw=(384, 1280),
+                         crop_hw=(384, 1280)), 4, None),
+    "b1_375x1242_native": (dict(n_pairs=2, seed=11, raw_hw=(375, 1242),
+                                crop_hw=(375, 1242)), 1, None),
+    "b1_375x1242_pad64": (dict(n_pairs=2, seed=11, raw_hw=(375, 1242),
+                               crop_hw=(375, 1242)), 1, 64),
+}
+# the requests whose interior EPE is held to the JAX package's, within
+# EPE_BAR px, on both SGU paths
+EPE_GATED = ("b4_384x1280", "b1_375x1242_native")
+EPE_BAR = 0.02
+JAX_REFERENCE = ROOT / "upflow_pytorch_tpu_torch" / "eval" / \
+    "jax_reference_epe.json"
+
+
+def phase_eval(k, models):
+    """The evaluation path: ``EvaluationBench`` with the port's
+    ``NetEvalModel`` over the synthetic pairs of ``EVAL_REQUESTS``, on the
+    fp32 and the bf16 SGU paths at the default mask threshold, through the
+    kernels and through the plain versions on the card.  Per path and
+    request it prints EPE-all and F1 (all-ones masks) and the interior EPE
+    (8 px cropped, ``data/synthetic.epe``) beside the JAX package's (fp32,
+    on the CPU, ``scripts/torch_eval_jax_reference.py``), and the bf16
+    path's mean |flow - fp32 flow|.  Each kernel run counts its launches
+    from 0: every kernel of the path, as often as its forwards need."""
+    ref = json.loads(JAX_REFERENCE.read_text())
+    print("  info JAX reference: %s" % ref["source"])
+
+    class Keeping(k.trainer.NetEvalModel):
+        def eval_save_result(self, save_name, predflow, *args, **kwargs):
+            self.preds.append(predflow)
+
+    for name, (kw, per_forward, pad) in EVAL_REQUESTS.items():
+        kw = dict(kw)
+        t0 = time.perf_counter()
+        data = k.synthetic.make_dataset(kw.pop("n_pairs"), **kw)
+        gt = data["gt_flow"]
+        ones = np.ones_like(gt[..., :1])
+        samples = [k.bench.EvalSample(
+            data["im1"][i:i + per_forward], data["im2"][i:i + per_forward],
+            gt[i:i + per_forward], ones[i:i + per_forward],
+            gt[i:i + per_forward], ones[i:i + per_forward])
+            for i in range(0, len(gt), per_forward)]
+        jax_ref = ref["requests"][name]
+        print("  info %s: %d pairs made in %.1f s; JAX fp32 EPE-all %.4f, "
+              "F1 %.4f, interior EPE %.4f"
+              % (name, len(gt), time.perf_counter() - t0, jax_ref["epe_all"],
+                 jax_ref["f1"], jax_ref["epe_interior"]))
+        preds = {}
+        for tag in ("sgu", "sgu-bf16"):
+            for route in ("kernels", "plain"):
+                eval_model = Keeping(models[tag], pad_to_multiple=pad)
+                eval_model.preds = []
+                bench = k.bench.EvaluationBench(samples)
+                what = "%s %s path (%s)" % (name, tag, route)
+                if route == "kernels":
+                    for fn in k.dispatch.values():
+                        fn.launches = 0
+                    for fn in k.plain.values():
+                        fn.cuda_calls = 0
+                    res = bench(eval_model)
+                    torch.cuda.synchronize()
+                    want = {n: c * len(samples)
+                            for n, c in PATHS[tag][2].items()}
+                    got = {n: fn.launches for n, fn in k.dispatch.items()}
+                    plain_calls = sum(fn.cuda_calls
+                                      for fn in k.plain.values())
+                    check(got == want and plain_calls == 0,
+                          "%s: launches %s over %d forwards, %d plain calls "
+                          "on CUDA tensors" % (what, got, len(samples),
+                                                plain_calls))
+                else:
+                    with plain_path(k):
+                        res = bench(eval_model)
+                pred = np.concatenate(eval_model.preds)
+                preds[tag, route] = pred
+                interior = k.synthetic.epe(pred, gt)
+                check(pred.shape == gt.shape and bool(np.isfinite(pred).all())
+                      and all(np.isfinite(v) for v in res),
+                      "%s: flow %s finite; EPE-all %.4f, F1 %.4f, interior "
+                      "EPE %.4f (JAX %.4f, diff %+.4f)"
+                      % (what, pred.shape, res.epe_all, res.f1, interior,
+                         jax_ref["epe_interior"],
+                         interior - jax_ref["epe_interior"]))
+                if route == "kernels" and name in EPE_GATED:
+                    check(abs(interior - jax_ref["epe_interior"]) <= EPE_BAR,
+                          "%s: interior EPE %.4f within %g px of the JAX "
+                          "package's %.4f"
+                          % (what, interior, EPE_BAR,
+                             jax_ref["epe_interior"]))
+        for route in ("kernels", "plain"):
+            drift = np.abs(preds["sgu-bf16", route] - preds["sgu", route])
+            print("  info %s (%s): bf16 against fp32 flow |diff| mean %.4f "
+                  "px, share above 1 px %.2e"
+                  % (name, route, drift.mean(), (drift > 1.0).mean()))
 
 
 class Port:
@@ -1062,6 +1276,8 @@ class Port:
         sys.path.insert(0, str(ROOT))
         from upflow_pytorch_tpu_torch import _build
         from upflow_pytorch_tpu_torch.config import UPFlowConfig
+        from upflow_pytorch_tpu_torch.data import synthetic
+        from upflow_pytorch_tpu_torch.eval import bench
         from upflow_pytorch_tpu_torch.models import upflow
         from upflow_pytorch_tpu_torch.ops import conv as conv_ops
         from upflow_pytorch_tpu_torch.ops import warp as warp_ops
@@ -1072,12 +1288,14 @@ class Port:
         from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as sb
         from upflow_pytorch_tpu_torch.ops.kernels import sgu_final as sf
         from upflow_pytorch_tpu_torch.ops.kernels import warp
+        from upflow_pytorch_tpu_torch.train import trainer
 
         self.build, self.UPFlowConfig = _build, UPFlowConfig
         self.upflow = upflow
         self.warp_ops, self.cn, self.corr, self.fw, self.warp = (
             warp_ops, cn, corr, fw, warp)
         self.sb, self.sf, self.conv_ops, self.seg = sb, sf, conv_ops, seg
+        self.synthetic, self.bench, self.trainer = synthetic, bench, trainer
         self.dispatch = {"correlation": corr.correlation,
                          "feature_warp": fw.feature_warp,
                          "corr_norm": cn.corr_norm, "warp": warp.warp,
@@ -1114,7 +1332,7 @@ SOURCES.update({row: SOURCES[kernel] for row, kernel in SERVED_BY.items()
                 if row != "warp_window"})
 # the rows that the bf16 path runs: their launches are counted there
 BF16_ROWS = ("conv3x3_seg", "correlation_bf16", "feature_warp_bf16",
-             "corr_norm_bf16")
+             "corr_norm_bf16", "sgu_blend_bf16")
 
 
 def kernels_line(rows, launches):
@@ -1190,10 +1408,13 @@ def main() -> int:
         timing += t
     phase_tf32_request(k, models["sgu"], pairs["sgu"])
     print("phase 4: profile one forward of each path", flush=True)
-    for tag in PATHS:
-        phase_profile(k, models[tag], pairs[tag], tag)
+    kernels_per_forward = {tag: phase_profile(k, models[tag], pairs[tag], tag)
+                           for tag in PATHS}
+    print("phase 5: evaluate against ground truth", flush=True)
+    phase_eval(k, models)
 
-    print(json.dumps({"forward_ms": timing}))
+    print(json.dumps({"forward_ms": timing,
+                      "device_kernels_per_forward": kernels_per_forward}))
     print(json.dumps(kernels_line(rows, launches)))
     print(smi)
     if failures:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Launch-configuration sweeps of two kernels of the PyTorch/CUDA port.
+"""Launch-configuration sweeps of three kernels of the PyTorch/CUDA port.
 
     python3 scripts/torch_kernel_sweep.py
 
@@ -17,12 +17,18 @@ taken in turns (a, b, ..., b, a) so that a drift of the card shows.
 - ``sgu_final`` (``csrc/sgu_final.cu``) at B=4 384x1280 and B=1 375x1242:
   tiles of 16 and 32 rows at quarter-resolution inter-flows of +-0.4, +-9
   and +-75 px.
+- ``sgu_blend`` (``csrc/sgu_blend.cu``) at decode levels 1-4 of B=4
+  384x1280, both directions a launch, fp32 heads: 1 and 2 pixels a
+  thread, blocks of 1, 2, 4 and 8 rows, at inter-flows of +-1.5 px and
+  +-30/+-15 px, each bit for bit against its plain version, beside the
+  configuration ``ops/kernels/sgu_blend.py::launch_config`` takes.
 
 Before the sweeps it checks the final SGU stage's division
 (``csrc/warp_common.cuh::div_rn``) and the coordinate roundtrip built on
 it against ``__fdiv_rn`` bit for bit, on every nonzero float of magnitude
 up to 2^14 for the divisors the sizes give.
-``--sgu-final-only`` skips the correlation sweep.
+``--sgu-final-only`` skips the correlation sweep; ``--sgu-blend-only``
+runs the ``sgu_blend`` sweep alone.
 
 Prints one line a reading and, last, the card's name and power limit.
 """
@@ -43,9 +49,10 @@ import chip_smoke as cs  # noqa: E402
 from upflow_pytorch_tpu_torch import _build  # noqa: E402
 from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as kcn  # noqa
 from upflow_pytorch_tpu_torch.ops.kernels import correlation as kc  # noqa
+from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as ksb  # noqa
 from upflow_pytorch_tpu_torch.ops.kernels import sgu_final as ksf  # noqa
 from upflow_pytorch_tpu_torch.ops.kernels._common import (  # noqa: E402
-    FLOAT, INT, PTR, launch)
+    FLOAT, INT, LONG, PTR, launch)
 from upflow_pytorch_tpu_torch.ops.resize import interp_taps  # noqa: E402
 
 COUNT = types.SimpleNamespace(launches=0)
@@ -135,6 +142,52 @@ def sweep_sgu_final():
                       % (b, 3, hq, wq, h, w, amp, ty, d.max().item(),
                          "ok" if d.max().item() <= 1e-4 else "FAIL",
                          int((d > 0).sum().item()), d.numel(),
+                         cs.fmt(dev)), flush=True)
+
+
+def sweep_sgu_blend():
+    rng = np.random.RandomState(2)
+    fn = _build.kernel_fn("upflow_sgu_blend",
+                          [PTR] * 8 + [INT, LONG, LONG] + [INT] * 7 + [PTR])
+    configs = [(pix, rows) for pix in (1, 2) for rows in (1, 2, 4, 8)]
+    for level, (h, w) in enumerate(cs.pyramid_hw(cs.MAIN_H, cs.MAIN_W)):
+        if level == 0:
+            continue
+        b = cs.MAIN_B
+        flows = [cs.make_flow(rng, b, h, w, max(2.0, min(40.0, w / 4)))
+                 for _ in range(2)]
+        chosen = ksb.launch_config(2, b, h, w)[:2]
+        for amp_u, amp_v in ((1.5, 1.5), (30.0, 15.0)):
+            heads = [torch.from_numpy(np.concatenate(
+                [(rng.rand(b, 1, h, w) - 0.5) * 2 * amp_u,
+                 (rng.rand(b, 1, h, w) - 0.5) * 2 * amp_v,
+                 (rng.rand(b, 1, h, w) - 0.5) * 12], axis=1
+            ).astype(np.float32)).cuda() for _ in range(2)]
+            ref = ksb.sgu_blend_pair_plain(flows[0], heads[0], flows[1],
+                                           heads[1])
+            outs = [torch.empty_like(r) for r in ref]
+            plane = 4 * h * w
+            for pix, rows in configs + configs[::-1]:
+                def call(pix=pix, rows=rows):
+                    launch("sgu_blend", COUNT, flows[0], fn,
+                           flows[0].data_ptr(), heads[0].data_ptr(),
+                           heads[0].data_ptr() + 2 * plane,
+                           outs[0].data_ptr(), flows[1].data_ptr(),
+                           heads[1].data_ptr(),
+                           heads[1].data_ptr() + 2 * plane,
+                           outs[1].data_ptr(), 2, 3 * h * w, 3 * h * w, b,
+                           h, w, 0, 1, pix, rows)
+                call()
+                torch.cuda.synchronize()
+                differ = sum(int((o != r).sum().item())
+                             for o, r in zip(outs, ref))
+                dev, _ = cs.device_ms(call, "sgu_blend_kernel", 21)
+                print("sgu_blend L%d (2,%d,3,%d,%d), inter-flow +-%g/+-%g px,"
+                      " %d pixels a thread, %d-row blocks%s: %d values "
+                      "differ (%s), device %s ms"
+                      % (level, b, h, w, amp_u, amp_v, pix, rows,
+                         " (launch_config)" if (pix, rows) == chosen else "",
+                         differ, "ok" if differ == 0 else "FAIL",
                          cs.fmt(dev)), flush=True)
 
 
@@ -231,10 +284,15 @@ def main() -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if ("Used" in line or "spill" in line or "Compiling entry" in line):
             print("ptxas " + line.strip())
+    if "--sgu-blend-only" in sys.argv:
+        sweep_sgu_blend()
+        print(cs.nvidia_smi_line())
+        return 0
     check_division()
     if "--sgu-final-only" not in sys.argv:
         sweep_correlation()
     sweep_sgu_final()
+    sweep_sgu_blend()
     print(cs.nvidia_smi_line())
     return 0
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from test_pallas_sgu import blend_oracle
@@ -23,6 +24,7 @@ from upflow_pytorch_tpu_torch.ops import resize as presize
 from upflow_pytorch_tpu_torch.ops import warp as pwarp
 from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as psb
 from upflow_pytorch_tpu_torch.ops.kernels import sgu_final as psf
+from upflow_pytorch_tpu_torch.ops.kernels._common import SMS
 
 
 def _nchw(x: np.ndarray) -> torch.Tensor:
@@ -86,6 +88,99 @@ def test_sgu_blend_dispatch_equals_plain_composition():
     want = pwarp.flow_warp(f, _nchw(inter)) * (1 - _nchw(mask)) \
         + f * _nchw(mask)
     assert torch.equal(got, want)
+
+
+def _raw_heads(seed, b, h, w, iscale, dtype):
+    """Flows of ±20 px and two directions' raw SGU heads: inter-flow of
+    ±iscale/2 px, mask logits of ±4, rounded to ``dtype``; the heads are
+    also returned widened to fp32 NHWC, as the JAX op reads them."""
+    rng = np.random.RandomState(seed)
+    flows, heads, jax_heads = [], [], []
+    for _ in range(2):
+        flows.append(_nchw(((rng.rand(b, h, w, 2) - 0.5) * 40
+                            ).astype(np.float32)))
+        x = (rng.rand(b, h, w, 3) - 0.5).astype(np.float32)
+        x[..., :2] *= iscale
+        x[..., 2] *= 8.0
+        head = _nchw(x).to(dtype)
+        heads.append(head)
+        jax_heads.append(_nhwc(head.float()))
+    return flows, heads, jax_heads
+
+
+PAIR_CASES = [(shape, iscale, dtype) for shape in ((2, 24, 130), (1, 17, 100))
+              for iscale in (3.8, 30.0, 500.0)
+              for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,iscale,dtype", PAIR_CASES)
+def test_sgu_blend_pair_plain_matches_jax(shape, iscale, dtype):
+    """Each direction of the pair op, from the raw head (fp32 or bf16),
+    equals the JAX blend of the head's inter-flow and sigmoided logit:
+    the blend within 1e-6 px given the same mask, and the mask, torch's
+    sigmoid of the logit, within 2 fp32 ulps of ``jax.nn.sigmoid``'s.
+    (The two sigmoids differ by 1-2 ulps at about 0.4% of logits, which a
+    blend of flows 20 px apart turns into up to 2e-6 px.)"""
+    flows, heads, jax_heads = _raw_heads(34, *shape, iscale, dtype)
+    outs = psb.sgu_blend_pair(flows[0], heads[0], flows[1], heads[1])
+    assert len(outs) == 2
+    for fl, out, x in zip(flows, outs, jax_heads):
+        assert out.dtype == torch.float32 and out.shape == fl.shape
+        mask = torch.sigmoid(torch.from_numpy(x[..., 2:3])).numpy()
+        jax_mask = np.asarray(jax.nn.sigmoid(jnp.asarray(x[..., 2:3])))
+        ulp = np.spacing(np.maximum(np.abs(mask), np.abs(jax_mask)))
+        assert (np.abs(mask - jax_mask) <= 2 * ulp).all()
+        ref = np.asarray(_sgu_blend_xla(
+            jnp.asarray(_nhwc(fl)), jnp.asarray(x[..., :2]),
+            jnp.asarray(mask)))
+        assert np.abs(_nhwc(out) - ref).max() <= 1e-6
+        assert np.abs(_nhwc(out) - _nhwc(fl)).max() > 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgu_blend_pair_equals_single_directions(dtype):
+    """The pair op's directions equal two single-direction calls with the
+    mask sigmoided, bit for bit, and ``ops/warp.py::sgu_blend_pair`` is the
+    same op; a head that is a channel range of a larger buffer reads the
+    same."""
+    flows, heads, _ = _raw_heads(35, 2, 9, 14, 30.0, dtype)
+    pair = psb.sgu_blend_pair(flows[0], heads[0], flows[1], heads[1])
+    for fl, x, out in zip(flows, heads, pair):
+        single = psb.sgu_blend(fl, x[:, :2].float().contiguous(),
+                               torch.sigmoid(x[:, 2:3].float()).contiguous())
+        assert torch.equal(out, single)
+    buffers = []
+    for x in heads:
+        buf = x.new_zeros((x.shape[0], 8) + x.shape[2:])
+        buf[:, 5:] = x
+        buffers.append(buf[:, 5:])
+    via_ops = pwarp.sgu_blend_pair(flows[0], buffers[0], flows[1],
+                                   buffers[1])
+    assert all(torch.equal(a, b) for a, b in zip(via_ops, pair))
+
+
+# decode levels 1-4 of B=4 384x1280 and B=1 375x1242, two directions
+BLEND_LEVELS = [(4, 12, 40), (4, 24, 80), (4, 48, 160), (4, 96, 320),
+                (1, 12, 39), (1, 24, 78), (1, 47, 156), (1, 94, 311)]
+
+
+@pytest.mark.parametrize("b,h,w", BLEND_LEVELS)
+def test_sgu_blend_launch_config(b, h, w):
+    """One launch covers both directions' pixels; 2 pixels a thread on an
+    even row of a level that fills more than half the card (level 4 of
+    B=4 384x1280 only); the tallest block that still gives every SM a
+    block, or one-row blocks where the pixels do not allow that."""
+    pix, rows, blocks = psb.launch_config(2, b, h, w)
+    assert pix == (2 if w % 2 == 0 and 2 * b * h * w > SMS * 1024 else 1)
+    assert (pix == 2) == ((b, h, w) == (4, 96, 320))
+    assert rows in psb.BLOCK_ROWS
+    cols = -(-w // (psb.BLOCK_X * pix))
+    assert blocks == cols * -(-h // rows) * 2 * b
+    assert cols * psb.BLOCK_X * pix >= w and blocks * rows >= cols * h * 2 * b
+    taller = [r for r in psb.BLOCK_ROWS if r > rows]
+    assert all(cols * -(-h // r) * 2 * b < SMS for r in taller)
+    assert blocks >= SMS or rows == 1
+    assert psb.launch_config(2, b, h, w, vector=False)[0] == 1
 
 
 def _final_inputs(seed, b, hq, wq, iscale):

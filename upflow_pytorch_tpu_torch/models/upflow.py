@@ -15,10 +15,11 @@ Port of ``upflow_pytorch_tpu.models.upflow``, at fp32 or bf16
   the raw images;
 - ``forward`` adds the forward-backward occlusion check.
 
-SGU per direction (``_sgu_pair``): masked feature-warp kernel of the
+SGU (``_sgu_pair``): per direction, masked feature-warp kernel of the
 other frame's 1x1 features -> SGU dense estimator (inter-flow and mask
-logit) -> at the decode levels the blend kernel (``ops/warp.py::
-sgu_blend``), at the end the final-stage kernel
+logit); then at the decode levels one blend launch for both directions
+(``ops/warp.py::sgu_blend_pair``, which reads the raw heads in place), at
+the end per direction the final-stage kernel
 (``ops/kernels/sgu_final.py``), which upsamples, warps and blends in one
 pass.
 
@@ -37,8 +38,9 @@ parameters stay fp32 and are rounded at each use), the cost volume is
 rounded to bf16 after its LeakyReLU, the upsampled flow is rounded where
 it enters the estimator and ``flow_up + res`` where it enters the context
 network, and the estimator's residual, the context network's output and
-the SGU head's output come back as fp32.  Flows, resizes, the SGU blend
-and final stage and the occlusion check stay fp32.  The feature warps keep
+the SGU head's output for the final stage come back as fp32; the blend
+widens the bf16 head in its kernel.  Flows, resizes, the SGU blend and
+final stage and the occlusion check stay fp32.  The feature warps keep
 the bf16 maps (rounded once), the correlations read them and compute in
 fp32, and the 3x3 convs of the dense stacks run ``conv3x3_seg`` where the
 JAX package's predicate selects it (``ops/conv.py``).
@@ -110,7 +112,7 @@ class UPFlowNet(nn.Module):
             flow_1 = upsample2d_flow_as(flow_1, hw, if_rate=True)
             flow_2 = upsample2d_flow_as(flow_2, hw, if_rate=True)
         estimator = self.sgi_model.dense_estimator_mask
-        outs = []
+        heads = []
         for fl, fa, fb in ((flow_1, feature_1, feature_2),
                            (flow_2, feature_2, feature_1)):
             fb_warp = _warp.flow_warp_masked(fb, fl)
@@ -118,13 +120,12 @@ class UPFlowNet(nn.Module):
                 x = estimator.dense_buffer([fa, fb_warp])
             else:
                 x = torch.cat([fa, fb_warp], dim=1)
-            x_out = estimator(x)[1].float()
-            if output_hw is not None:
-                outs.append(sgu_final(fl, x_out, output_hw))
-            else:
-                outs.append(_warp.sgu_blend(fl, x_out[:, :2],
-                                            torch.sigmoid(x_out[:, 2:3])))
-        return outs[0], outs[1]
+            heads.append(estimator(x)[1])
+        if output_hw is not None:
+            return tuple(sgu_final(fl, x_out.float(), output_hw)
+                         for fl, x_out in zip((flow_1, flow_2), heads))
+        # the raw heads, fp32 or bf16, go to one blend launch for the level
+        return _warp.sgu_blend_pair(flow_1, heads[0], flow_2, heads[1])
 
     def _norm_kw(self) -> Optional[dict]:
         c = self.conf

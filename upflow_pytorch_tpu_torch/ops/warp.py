@@ -4,7 +4,8 @@ Two warp semantics of the reference:
 
 1. ``flow_warp`` — ``tools.torch_warp``: bilinear sample at ``(x+u, y+v)``
    with zeros outside the image, no validity mask.  Used by the occlusion
-   check, and by ``sgu_blend``, the SGU's blend of a flow with its warp.
+   check, and by ``sgu_blend`` / ``sgu_blend_pair``, the SGU's blend of a
+   flow with its warp.
 2. ``flow_warp_with_mask`` / ``flow_warp_masked`` — ``WarpingLayer_no_div``:
    the same sample times ``mask = (warped all-ones >= threshold)``.
 
@@ -176,3 +177,16 @@ def sgu_blend(flow_init: torch.Tensor, inter_flow: torch.Tensor,
     return kb.sgu_blend(flow_init.float().contiguous(),
                         inter_flow.float().contiguous(),
                         inter_mask.float().contiguous()).to(flow_init.dtype)
+
+
+def sgu_blend_pair(flow_1: torch.Tensor, x_out_1: torch.Tensor,
+                   flow_2: torch.Tensor, x_out_2: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both directions of a decode level's SGU blend, from the SGU
+    estimator's raw heads: per direction ``sgu_blend(flow, x[:, :2],
+    sigmoid(x[:, 2:3]))``, in one kernel launch on the card.  Flows
+    (B, 2, H, W); heads (B, 3, H, W), fp32 or bf16, read in place."""
+    from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as kb
+
+    return kb.sgu_blend_pair(flow_1.float().contiguous(), x_out_1,
+                             flow_2.float().contiguous(), x_out_2)
