@@ -54,9 +54,27 @@ Phases, each of which must pass:
    fp32 and bf16 SGU paths, through the kernels and the plain versions;
    the interior EPE of the kernel paths must be within 0.02 px of the JAX
    package's (``upflow_pytorch_tpu_torch/eval/jax_reference_epe.json``).
+6. Train: ``create_train_state`` from the checkpoint with the training
+   recipe of the JAX package's ``bench.py`` (photometric, census,
+   smoothness, 'upup' distillation, SGU, boundary-dilated warp) and
+   ``make_train_step`` on B=4 256x832 crops of 320x896 synthetic pairs,
+   at fp32 (one warm-up step and 5 timed) and bf16 (one and 3).  Every
+   step's forward launches every kernel of the path (at bf16 ``conv3x3_
+   seg`` included, with one weight pack per kernel-route conv a step, as
+   the optimizer's update changes the weights), no plain version runs on
+   a CUDA tensor, every loss term is finite and every parameter gets a
+   nonzero gradient.  One step's gradient through the kernels is held
+   against the same step through the plain versions on the card (mask
+   threshold 0.9999; cosine >= 0.9999 at fp32, >= 0.999 at bf16).  It
+   prints the step's ms (median and range), one profiled step's device
+   time split by kind (forward kernels, backward rules, convolutions,
+   optimizer, copies, other) and each kernel op's backward rule, and the
+   peak memory.  Then 25 fp32 steps from seeded weights (lr 2e-4) on one
+   pair must lower the total loss.
 
 The line before the last is the card's name and power limit; the line
-before that holds the kernels' numbers as JSON.  The last line,
+before that holds the kernels' numbers as JSON, and the one before that
+the training step's.  The last line,
 ``{"ok": true, "device": ...}``, is printed only when every check passed;
 any failure exits non-zero without it.
 """
@@ -138,6 +156,27 @@ PATHS = {"no-sgu": (EVAL_KNOBS, REQUESTS, LAUNCHES_PER_FORWARD, 20),
 AGREEMENT = {"no-sgu": (1e-4, 1e-3, 1e-3), "sgu": (3e-4, 3e-3, 1e-3),
              "sgu-bf16": (4e-2, 1.2, 2e-2)}
 RELAXED_THRESHOLD = 0.9999
+# phase 6: the JAX package's training recipe (bench.py's train lane, with
+# the occlusion masks' gradient stopped as tests/test_grad_parity.py has
+# it) on B=4 256x832 crops of 320x896 synthetic pairs
+TRAIN_KNOBS = dict(SGU_KNOBS, photo_loss_census_weight=1.0,
+                   multi_scale_distillation_weight=0.01,
+                   multi_scale_distillation_style="upup",
+                   multi_scale_distillation_occ=True,
+                   if_use_boundary_warp=True, stop_occ_gradient=True)
+TRAIN_DATA = dict(n_pairs=4, seed=11, raw_hw=(320, 896), crop_hw=(256, 832))
+# per precision: knobs, timed steps after one warm-up step, kernel launches
+# of one step (its forward's: the backward rules launch none), the cosine
+# bar of the gradient against the plain path's.  At 256x832 the bf16 step
+# runs conv3x3_seg where it does at 384x1280 (86 calls), in 19 ConvBlocks
+# (the estimator's and the SGU estimator's six, the context network's
+# first six, the pyramid's level2_conv1), each packing its weights once a
+# step.
+TRAIN_PATHS = {
+    "fp32": (TRAIN_KNOBS, 5, SGU_LAUNCHES_PER_FORWARD, 0.9999, 0),
+    "bf16": (dict(TRAIN_KNOBS, compute_dtype="bfloat16"), 3,
+             BF16_LAUNCHES_PER_FORWARD, 0.999, 19)}
+DESCENT_STEPS, DESCENT_LR = 25, 2e-4
 DEV = "cuda"
 # the port's kernels by the profiler's kernel names
 KERNEL_OF = (("corr_plain_kernel", "correlation"),
@@ -1269,6 +1308,248 @@ def phase_eval(k, models):
                   % (name, route, drift.mean(), (drift > 1.0).mean()))
 
 
+def train_batch(k, n_pairs=None):
+    data = k.synthetic.make_dataset(**TRAIN_DATA)
+    return {key: torch.from_numpy(v[:n_pairs]).to(DEV)
+            for key, v in data.items() if key != "gt_flow"}
+
+
+def step_gradients(k, conf, batch):
+    """The gradient of one step's total loss by parameter name, from the
+    checkpoint's weights, the step's loss terms, and the peak memory (GiB)
+    of its forward and of the whole step."""
+    model = k.upflow.build_model(conf, weights=str(NPZ))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = k.upflow.forward_with_loss(model, batch)
+    torch.cuda.synchronize()
+    forward_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with k.upflow.fp32_numerics():
+        out["total_loss"].backward()
+    torch.cuda.synchronize()
+    return ({n: p.grad for n, p in model.named_parameters()},
+            {key: float(out[key].detach()) for key in k.step.METRICS},
+            (forward_peak, torch.cuda.max_memory_allocated() / 2 ** 30))
+
+
+@contextlib.contextmanager
+def backward_ranges(k):
+    """Wraps each kernel op's backward rule in a profiler range
+    ``upflow_bwd::<op>``, so a profile attributes its device time."""
+    saved = {name: fn.backward for name, fn in k.functions.items()}
+
+    def ranged(name, backward):
+        def run(ctx, *grads):
+            with torch.profiler.record_function("upflow_bwd::" + name):
+                return backward(ctx, *grads)
+        return staticmethod(run)
+
+    for name, fn in k.functions.items():
+        fn.backward = ranged(name, saved[name])
+    try:
+        yield
+    finally:
+        for name, fn in k.functions.items():
+            fn.backward = staticmethod(saved[name])
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind in a training step's split, by its name."""
+    low = name.lower()
+    if any(key in name for key, _ in KERNEL_OF):
+        return "forward kernels"
+    if "memcpy" in low or "copy" in low:
+        return "copies"
+    if any(w in low for w in CONV_WORDS):
+        return "convolutions"
+    return "other"
+
+
+def profile_train_step(k, step_fn, state, batch, tag):
+    """One training step under torch.profiler: device time split by kind
+    and by backward rule.  Every device kernel counts by its name
+    (``kernel_kind``), except those that the profiler links to a host op
+    inside a backward rule's range (``backward_ranges``) or the
+    optimizer's step, which count there.  Returns (state, split, rules,
+    busy ms, wall ms); the split and rules are None when the profiler saw
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with backward_ranges(k), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kinds = {"forward kernels": 0.0, "backward rules": 0.0,
+             "convolutions": 0.0, "optimizer": 0.0, "copies": 0.0,
+             "other": 0.0}
+    rules = {name: 0.0 for name in k.functions}
+    by_name = {}
+    events = prof.events()
+    for e in events:
+        # the profiler mirrors each host range on the device's timeline
+        # as a user annotation: a span, not a kernel
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.name.startswith(("upflow_bwd::", "Optimizer."))):
+            us = e.time_range.elapsed_us()
+            kinds[kernel_kind(e.name)] += us
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        scope, parent = None, e
+        while parent is not None and scope is None:
+            if parent.name.startswith("upflow_bwd::"):
+                scope = parent.name[len("upflow_bwd::"):]
+            elif parent.name.startswith("Optimizer.step"):
+                scope = "optimizer"
+            parent = parent.cpu_parent
+        if scope is None:
+            continue
+        for kern in e.kernels:
+            kinds[kernel_kind(kern.name)] -= kern.duration
+            if scope == "optimizer":
+                kinds["optimizer"] += kern.duration
+            else:
+                kinds["backward rules"] += kern.duration
+                rules[scope] += kern.duration
+    busy = sum(kinds.values())
+    if busy == 0:
+        print("  info %s step: the profiler recorded no device time" % tag)
+        return state, None, None, None, wall
+    print("  info %s step under the profiler: wall %.1f ms, device busy "
+          "%.1f ms (%.1f%%)" % (tag, wall, busy / 1e3, busy / 10 / wall))
+    for kind, us in kinds.items():
+        print("  info   %-16s %9.3f ms  %5.1f%% of device time"
+              % (kind, us / 1e3, 100 * us / busy))
+    print("  info %s backward rules' device ms a step: %s"
+          % (tag, {n: round(us / 1e3, 4) for n, us in rules.items()}))
+    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print("  info   %9.3f ms  %s" % (us / 1e3, kname[:110]))
+    return (state, {kind: us / 1e3 for kind, us in kinds.items()},
+            {n: us / 1e3 for n, us in rules.items()}, busy / 1e3, wall)
+
+
+def phase_train(k):
+    """Phase 6: the training step on both precisions, its gradient against
+    the plain path's, and a descent from seeded weights.  Returns the
+    train JSON object."""
+    batch = train_batch(k)
+    out = {"batch": [4, 256, 832], "raw": [320, 896]}
+    for tag, (knobs, steps, per_step, cos_bar, packers) in \
+            TRAIN_PATHS.items():
+        conf = k.UPFlowConfig().updated(knobs)
+        model, state, opt = k.step.create_train_state(
+            conf, k.TrainerConfig(), weights=str(NPZ))
+        step_fn = k.step.make_train_step(model, opt)
+        # the path's run: every count 0 just before, read just after
+        for fn in k.dispatch.values():
+            fn.launches = 0
+        for fn in k.plain.values():
+            fn.cuda_calls = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(1 + steps):
+            before = {n: fn.launches for n, fn in k.dispatch.items()}
+            packs = k.seg.pack_weight.calls
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            if i > 0:
+                times.append((time.perf_counter() - t0) * 1e3)
+            what = "train %s step %d" % (tag, i)
+            delta = {n: fn.launches - before[n]
+                     for n, fn in k.dispatch.items()}
+            check(delta == per_step, "%s: launches %s" % (what, delta))
+            packs = k.seg.pack_weight.calls - packs
+            check(packs == packers, "%s: %d conv3x3_seg weight packs (one "
+                  "per kernel-route conv, %d)" % (what, packs, packers))
+            terms = {key: float(v) for key, v in metrics.items()}
+            check(all(np.isfinite(v) for v in terms.values()),
+                  "%s: loss terms finite %s" % (what, terms))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {n: fn.launches for n, fn in k.dispatch.items()}
+        plain_calls = {n: fn.cuda_calls for n, fn in k.plain.items()}
+        check(all((v > 0) == (per_step[n] > 0) for n, v in launches.items()),
+              "train %s path launched every kernel it runs: %s"
+              % (tag, launches))
+        check(all(v == 0 for v in plain_calls.values()),
+              "no plain version ran on CUDA tensors in the train %s path: "
+              "%s" % (tag, plain_calls))
+        zero = [n for n, p in model.named_parameters()
+                if p.grad is None or not bool(p.grad.abs().max() > 0)]
+        check(not zero and any(n.startswith("feature_pyramid_extractor")
+                               for n, _ in model.named_parameters()),
+              "train %s: every parameter has a nonzero gradient, the "
+              "pyramid's included (zero: %s)" % (tag, zero))
+        print("  info train %s: step %.1f ms median (%.1f-%.1f) over %d "
+              "steps; peak memory %.2f GiB; last terms %s"
+              % (tag, statistics.median(times), min(times), max(times),
+                 steps, peak, {key: round(v, 5) for key, v in terms.items()}))
+        state, split, rules, busy, wall = profile_train_step(
+            k, step_fn, state, batch, "train " + tag)
+
+        # one step's gradient, kernels against plain versions on the card
+        k.warp_ops.MASK_THRESHOLD = RELAXED_THRESHOLD
+        try:
+            fast, fast_terms, peaks = step_gradients(k, conf, batch)
+            with plain_path(k):
+                plain, plain_terms, _ = step_gradients(k, conf, batch)
+        finally:
+            k.warp_ops.MASK_THRESHOLD = 1.0
+        names = sorted(fast)
+        a = torch.cat([fast[n].double().flatten() for n in names])
+        b = torch.cat([plain[n].double().flatten() for n in names])
+        cos = float(a @ b / (a.norm() * b.norm()))
+        rel = {n: float((fast[n].double() - plain[n].double()).norm()
+                        / plain[n].double().norm().clamp_min(1e-30))
+               for n in names}
+        worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+        check(cos >= cos_bar, "train %s at threshold %g: gradient cosine, "
+              "kernels vs plain path, %.7f (>= %g)"
+              % (tag, RELAXED_THRESHOLD, cos, cos_bar))
+        print("  info train %s: per-tensor relative L2, kernels vs plain: "
+              "median %.2e, largest %s; terms kernels %s, plain %s; peak "
+              "memory from the weights: forward %.2f GiB, step %.2f GiB"
+              % ((tag, statistics.median(rel.values()),
+                  [(n, "%.2e" % v) for n, v in worst],
+                  {key: round(v, 6) for key, v in fast_terms.items()},
+                  {key: round(v, 6) for key, v in plain_terms.items()})
+                 + peaks))
+        out[tag] = dict(step_ms_median=statistics.median(times),
+                        step_ms_min=min(times), step_ms_max=max(times),
+                        timed_steps=steps, peak_memory_gib=peak,
+                        launches_per_step=per_step,
+                        profiled_step=dict(wall_ms=wall, device_ms=busy,
+                                           split_ms=split,
+                                           backward_rule_ms=rules),
+                        forward_peak_memory_gib=peaks[0],
+                        grad_cosine_vs_plain=cos,
+                        max_tensor_rel_l2_vs_plain=worst[0][1])
+
+    # descent from seeded weights on one pair
+    conf = k.UPFlowConfig().updated(TRAIN_KNOBS)
+    model, state, opt = k.step.create_train_state(
+        conf, k.TrainerConfig(lr=DESCENT_LR), seed=0)
+    step_fn = k.step.make_train_step(model, opt)
+    pair = train_batch(k, 1)
+    losses = []
+    for _ in range(DESCENT_STEPS):
+        state, metrics = step_fn(state, pair)
+        losses.append(float(metrics["total_loss"]))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "train from seeded weights, %d fp32 steps (lr %g) on one pair: "
+          "total loss %.5f -> %.5f" % (DESCENT_STEPS, DESCENT_LR, losses[0],
+                                       losses[-1]))
+    out["descent"] = dict(steps=DESCENT_STEPS, lr=DESCENT_LR,
+                          first=losses[0], last=losses[-1])
+    return out
+
+
 class Port:
     """The port's modules, imported once the card is known to be there."""
 
@@ -1288,9 +1569,11 @@ class Port:
         from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as sb
         from upflow_pytorch_tpu_torch.ops.kernels import sgu_final as sf
         from upflow_pytorch_tpu_torch.ops.kernels import warp
-        from upflow_pytorch_tpu_torch.train import trainer
+        from upflow_pytorch_tpu_torch.train import step, trainer
+        from upflow_pytorch_tpu_torch.config import TrainerConfig
 
         self.build, self.UPFlowConfig = _build, UPFlowConfig
+        self.step, self.TrainerConfig = step, TrainerConfig
         self.upflow = upflow
         self.warp_ops, self.cn, self.corr, self.fw, self.warp = (
             warp_ops, cn, corr, fw, warp)
@@ -1308,6 +1591,15 @@ class Port:
                       "sgu_blend": sb.sgu_blend_plain,
                       "sgu_final": sf.sgu_final_plain,
                       "conv3x3_seg": seg.conv3x3_seg_plain}
+        # each kernel op's autograd Function (its backward is the JAX
+        # package's gradient rule)
+        self.functions = {"correlation": corr.CorrelationFn,
+                          "feature_warp": fw.FeatureWarpFn,
+                          "corr_norm": cn.CorrNormFn, "warp": warp.WarpFn,
+                          "sgu_blend_pair": sb.SguBlendPairFn,
+                          "sgu_blend": sb.SguBlendFn,
+                          "sgu_final": sf.SguFinalFn,
+                          "conv3x3_seg": seg.Conv3x3SegFn}
 
 
 SOURCES = {
@@ -1412,9 +1704,13 @@ def main() -> int:
                            for tag in PATHS}
     print("phase 5: evaluate against ground truth", flush=True)
     phase_eval(k, models)
+    del models, pairs
+    print("phase 6: train", flush=True)
+    train = phase_train(k)
 
     print(json.dumps({"forward_ms": timing,
                       "device_kernels_per_forward": kernels_per_forward}))
+    print(json.dumps({"train": train}))
     print(json.dumps(kernels_line(rows, launches)))
     print(smi)
     if failures:

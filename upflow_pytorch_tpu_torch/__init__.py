@@ -2,5 +2,6 @@
 
 A port of ``upflow_pytorch_tpu`` (JAX) that imports neither JAX nor that
 package.  Entry points: ``models.upflow.build_model`` and
-``models.upflow.forward``.
+``models.upflow.forward`` (inference), ``train.step.create_train_state``
+and ``train.step.make_train_step`` (training).
 """

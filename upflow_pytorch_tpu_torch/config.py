@@ -3,7 +3,8 @@
 The same knob surface as ``upflow_pytorch_tpu.config.UPFlowConfig``: the 22
 knobs of the reference ``UPFlow_net.config`` with their defaults, the
 extensions below them, and the ``updated`` / ``get_name`` helpers of the
-reference ``tools.abstract_config``.
+reference ``tools.abstract_config``; and ``TrainerConfig``, the trainer's
+knobs that the training step reads.
 """
 
 from __future__ import annotations
@@ -99,3 +100,17 @@ class UPFlowConfig(ConfigBase):
     @property
     def dim_corr(self) -> int:
         return (self.search_range * 2 + 1) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig(ConfigBase):
+    """The knobs of the reference ``Trainer.Config`` that the training step
+    reads, with their defaults: Adam (AMSGrad) with ``lr`` and L2
+    ``weight_decay``, the learning rate multiplied by ``scheduler_gamma``
+    every ``batch_per_epoch`` steps, and the seed of the initial weights."""
+
+    batch_per_epoch: int = 500
+    lr: float = 1e-4
+    weight_decay: float = 1e-4
+    scheduler_gamma: float = 1.0
+    seed: int = 0

@@ -25,7 +25,9 @@ outputs.  At bf16 the dense estimators keep their features in one
 preallocated buffer (``FlowEstimatorDense.dense_buffer``): each conv reads
 a channel range of it and writes its output into the slot in front, so no
 concatenation is copied.  The fp32 path concatenates as the reference
-does.
+does, and so does the bf16 path under autograd, which cannot follow the
+buffer's in-place slot writes (``FlowEstimatorDense.dense_input``); the
+values are the same.
 """
 
 from __future__ import annotations
@@ -96,9 +98,9 @@ class FlowEstimatorDense(nn.Module):
     """DenseNet-style estimator: 5 convs with concat-skips plus a linear
     head.  Returns ``(features, flow_residual)``.
 
-    At fp32 ``x`` is the input (B, ch_in, H, W).  At bf16 ``x`` is a dense
-    buffer from ``dense_buffer``, and the features are its first
-    ``feat_dim`` channels."""
+    ``x`` is the input (B, ch_in, H, W), fp32 or bf16, or at bf16 a wider
+    dense buffer from ``dense_buffer``, whose first ``feat_dim`` channels
+    are then the features."""
 
     def __init__(self, ch_in: int,
                  f_channels: Sequence[int] = (128, 128, 96, 64, 32),
@@ -130,8 +132,16 @@ class FlowEstimatorDense(nn.Module):
             c += s.shape[1]
         return buf
 
+    def dense_input(self, segments: Sequence[torch.Tensor],
+                    extra: int = 0) -> torch.Tensor:
+        """The bf16 input of ``segments``: under autograd their
+        concatenation, otherwise a dense buffer (``dense_buffer``)."""
+        if torch.is_grad_enabled():
+            return torch.cat([s.to(torch.bfloat16) for s in segments], dim=1)
+        return self.dense_buffer(segments, extra)
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        if x.dtype != torch.bfloat16:
+        if x.dtype != torch.bfloat16 or x.shape[1] == self.ch_in:
             for i in range(self.n_convs):
                 x = torch.cat([getattr(self, "conv%d" % (i + 1))(x), x],
                               dim=1)

@@ -1,4 +1,5 @@
-"""The UPFlow network (bidirectional inference forward), PyTorch/CUDA.
+"""The UPFlow network (bidirectional forward and training losses),
+PyTorch/CUDA.
 
 Port of ``upflow_pytorch_tpu.models.upflow``, at fp32 or bf16
 (``compute_dtype``):
@@ -13,7 +14,10 @@ Port of ``upflow_pytorch_tpu.models.upflow``, at fp32 or bf16
 - final flow to full resolution: the rate-scaled upsample, or with
   ``if_sgu_upsample`` the final SGU stage on 1/4-resolution features of
   the raw images;
-- ``forward`` adds the forward-backward occlusion check.
+- ``forward`` adds the forward-backward occlusion check;
+  ``forward_with_loss`` adds the unsupervised losses of training
+  (smoothness, photometric with the boundary-dilated or plain warp,
+  census, multi-scale distillation).
 
 SGU (``_sgu_pair``): per direction, masked feature-warp kernel of the
 other frame's 1x1 features -> SGU dense estimator (inter-flow and mask
@@ -46,21 +50,33 @@ fp32, and the 3x3 convs of the dense stacks run ``conv3x3_seg`` where the
 JAX package's predicate selects it (``ops/conv.py``).
 
 CUDA tensors always go through the kernels; CPU tensors through their
-plain versions.  Internally NCHW; ``forward`` takes and returns NHWC.
+plain versions.  Under autograd each kernel op goes through its
+``torch.autograd.Function`` (the JAX package's gradient rule), the bf16
+dense stacks concatenate instead of writing into buffers, and with
+``remat`` the estimator and the context network recompute their
+activations in the backward.  Internally NCHW; ``forward`` and
+``forward_with_loss`` take and return NHWC.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import contextlib
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from upflow_pytorch_tpu_torch.checkpoint.convert import params_from_jax
 from upflow_pytorch_tpu_torch.checkpoint.npz_io import load_npz_flat
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
+from upflow_pytorch_tpu_torch.losses.census import census_loss
+from upflow_pytorch_tpu_torch.losses.photometric import photo_loss_multi_type
+from upflow_pytorch_tpu_torch.losses.smoothness import (
+    edge_aware_smoothness_order1, edge_aware_smoothness_order2,
+    flow_smooth_delta)
 from upflow_pytorch_tpu_torch.models.blocks import (
     ContextNetwork, ConvBlock, FeatureExtractor, FlowEstimatorDense,
     SGUModel)
@@ -71,7 +87,7 @@ from upflow_pytorch_tpu_torch.ops.kernels.corr_norm import warp_norm_corr
 from upflow_pytorch_tpu_torch.ops.kernels.sgu_final import sgu_final
 from upflow_pytorch_tpu_torch.ops.normalize import normalize_features
 from upflow_pytorch_tpu_torch.ops.resize import (
-    full_fp32_matmuls, upsample2d_flow_as)
+    downsample_area, full_fp32_matmuls, upsample2d_flow_as, upsample_flow)
 
 Flows = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -117,7 +133,7 @@ class UPFlowNet(nn.Module):
                            (flow_2, feature_2, feature_1)):
             fb_warp = _warp.flow_warp_masked(fb, fl)
             if self.dtype == torch.bfloat16:
-                x = estimator.dense_buffer([fa, fb_warp])
+                x = estimator.dense_input([fa, fb_warp])
             else:
                 x = torch.cat([fa, fb_warp], dim=1)
             heads.append(estimator(x)[1])
@@ -178,14 +194,30 @@ class UPFlowNet(nn.Module):
                self._heads(corr_2, feature_2_1x1, flow_2_up)]
         return flow_1_up, flow_2_up, out[0], out[1]
 
+    def _remat(self, module: nn.Module, x: torch.Tensor):
+        """``module(x)``; with ``remat`` under autograd its activations are
+        recomputed in the backward instead of kept (``nn.remat`` of the
+        JAX package's estimator and context network)."""
+        if self.conf.remat and torch.is_grad_enabled():
+            return checkpoint(module, x, use_reentrant=False)
+        return module(x)
+
     def _heads(self, corr, f_1x1, flow_up):
         """The dense flow estimator and the context network of one
         direction: the fp32 residual ``res + fine``."""
         estimator = self.flow_estimators
         if self.dtype != torch.bfloat16:
-            feat, res = estimator(torch.cat([corr, f_1x1, flow_up], dim=1))
-            return res + self.context_networks(
-                torch.cat([feat, flow_up + res], dim=1))
+            feat, res = self._remat(
+                estimator, torch.cat([corr, f_1x1, flow_up], dim=1))
+            return res + self._remat(self.context_networks,
+                                     torch.cat([feat, flow_up + res], dim=1))
+        if torch.is_grad_enabled():
+            feat, res = self._remat(
+                estimator, estimator.dense_input([corr, f_1x1, flow_up]))
+            res = res.float()
+            ctx_in = torch.cat([feat, (flow_up + res).to(torch.bfloat16)],
+                               dim=1)
+            return res + self._remat(self.context_networks, ctx_in).float()
         # one buffer: the estimator's features, then flow_up + res for the
         # context network in the last two channels
         buf = estimator.dense_buffer([corr, f_1x1, flow_up], extra=2)
@@ -265,6 +297,19 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+@contextlib.contextmanager
+def fp32_numerics() -> Iterator[None]:
+    """fp32 convolutions and matrix products (the flow resizes) in full
+    fp32 for the block: cuDNN's TF32 switched off and the matrix products'
+    precision pinned (``ops/resize.py::full_fp32_matmuls``), whatever the
+    caller set, and both restored after it."""
+    cudnn = torch.backends.cudnn
+    with full_fp32_matmuls(), cudnn.flags(
+            enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+            deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
 def forward(model: UPFlowNet, im1, im2) -> Dict[str, Any]:
     """Inference forward (``UPFlow_net.forward`` with if_loss=False): flows
     and analytic occlusion masks.
@@ -273,17 +318,11 @@ def forward(model: UPFlowNet, im1, im2) -> Dict[str, Any]:
     to the model's device.  Returns NHWC ``flow_f_out``, ``flow_b_out``
     (B, H, W, 2), ``occ_fw``, ``occ_bw`` (B, H, W, 1) and ``flows``, the
     per-level ``[(flow_f, flow_b)]`` list finest-first, all fp32 whatever
-    the compute dtype.  fp32 convolutions and matrix products (the flow
-    resizes) run in full fp32: cuDNN's TF32 is switched off and the matrix
-    products' precision pinned for the call, whatever the caller set
-    (``ops/resize.py::full_fp32_matmuls``).
+    the compute dtype.  Runs under ``fp32_numerics``.
     """
     conf = model.conf
     device = next(model.parameters()).device
-    cudnn = torch.backends.cudnn
-    with torch.no_grad(), full_fp32_matmuls(), cudnn.flags(
-            enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-            deterministic=cudnn.deterministic, allow_tf32=False):
+    with torch.no_grad(), fp32_numerics():
         flow_f, flow_b, flows = model(_as_nchw(im1, device),
                                       _as_nchw(im2, device))
         occ_fw, occ_bw = occ_check(flow_f, flow_b, conf.alpha_1,
@@ -296,3 +335,159 @@ def forward(model: UPFlowNet, im1, im2) -> Dict[str, Any]:
         "occ_bw": _nhwc(occ_bw),
         "flows": [(_nhwc(f), _nhwc(b)) for f, b in flows],
     }
+
+
+def _smooth_loss(conf: UPFlowConfig, ims, flows) -> torch.Tensor:
+    """The smoothness terms of both directions: edge-aware or delta, of
+    order 1 and 2, each weighted."""
+    (im1, im2), (flow_f, flow_b) = ims, flows
+    loss = flow_f.new_zeros(())
+    for order, weight in ((1, conf.smooth_order_1_weight),
+                          (2, conf.smooth_order_2_weight)):
+        if weight <= 0:
+            continue
+        if conf.smooth_type == "edge":
+            fn = (edge_aware_smoothness_order1 if order == 1
+                  else edge_aware_smoothness_order2)
+            loss = loss + weight * (fn(im1, flow_f) + fn(im2, flow_b))
+        elif conf.smooth_type == "delta":
+            loss = loss + weight * (flow_smooth_delta(flow_f, order == 2)
+                                    + flow_smooth_delta(flow_b, order == 2))
+        else:
+            raise ValueError("wrong smooth_type: %s" % conf.smooth_type)
+    return loss
+
+
+def _msd_loss(conf: UPFlowConfig, flows: Flows, flow_f, flow_b, occ_fw,
+              occ_bw) -> torch.Tensor:
+    """The multi-scale distillation: each level's flows against the final
+    flows (detached), 'down' at the level's size or 'upup' at the final
+    size."""
+    label_f, label_b = flow_f.detach(), flow_b.detach()
+    msd = flow_f.new_zeros(())
+    for scale_f, scale_b in flows:
+        if conf.multi_scale_distillation_style == "down":
+            hw = scale_f.shape[2:]
+            pairs = ((scale_f, upsample_flow(label_f, hw),
+                      _nearest_resize(occ_fw, hw)),
+                     (scale_b, upsample_flow(label_b, hw),
+                      _nearest_resize(occ_bw, hw)))
+        elif conf.multi_scale_distillation_style == "upup":
+            hw = label_f.shape[2:]
+            pairs = ((upsample_flow(scale_f, hw), label_f, occ_fw),
+                     (upsample_flow(scale_b, hw), label_b, occ_bw))
+        else:
+            raise ValueError("wrong multi_scale_distillation_style: %s"
+                             % conf.multi_scale_distillation_style)
+        for pred, label, occ in pairs:
+            msd = msd + photo_loss_multi_type(
+                pred, label, occ, "abs_robust",
+                photo_loss_use_occ=conf.multi_scale_distillation_occ)
+    return conf.multi_scale_distillation_weight * msd
+
+
+def forward_with_loss(model: UPFlowNet, batch: Dict[str, Any]
+                      ) -> Dict[str, Any]:
+    """Training forward and the unsupervised losses (``UPFlow_net.forward``
+    with if_loss=True).
+
+    ``batch``: NHWC ``im1``, ``im2`` (the crops), and as the knobs need
+    them ``im1_raw``, ``im2_raw`` and ``start`` (B, 2) in (x, y) order for
+    the boundary-dilated warp, ``im1_sp``, ``im2_sp`` for
+    ``input_or_sp_input``; tensors or arrays, moved to the model's device.
+    Returns the forward's NHWC outputs (as ``forward``), ``im1_warp``,
+    ``im2_warp`` (NHWC) and the scalar ``smooth_loss``, ``photo_loss``,
+    ``census_loss`` and ``msd_loss`` (None when their weight is 0) and
+    ``total_loss``, differentiable with respect to the parameters when
+    grad mode is on.  Runs under ``fp32_numerics``; a backward of
+    ``total_loss`` must too (``train/step.py`` does it).
+    """
+    conf = model.conf
+    device = next(model.parameters()).device
+    im1_ori = _as_nchw(batch["im1"], device)
+    im2_ori = _as_nchw(batch["im2"], device)
+    if conf.input_or_sp_input == 1:
+        im1, im2 = im1_ori, im2_ori
+    else:
+        im1 = _as_nchw(batch["im1_sp"], device)
+        im2 = _as_nchw(batch["im2_sp"], device)
+    with fp32_numerics():
+        flow_f, flow_b, flows = model(im1, im2)
+        # thresholds of the flows: their gradient is zero everywhere
+        with torch.no_grad():
+            occ_fw, occ_bw = occ_check(
+                flow_f, flow_b, conf.alpha_1, conf.alpha_2,
+                conf.occ_check_obj_out_all, conf.occ_type)
+
+        if conf.smooth_level == "final":
+            s_flows, s_ims = (flow_f, flow_b), (im1_ori, im2_ori)
+        elif conf.smooth_level == "1/4":
+            s_flows = flows[0]
+            hw = s_flows[0].shape[2:]
+            s_ims = (downsample_area(im1_ori, hw),
+                     downsample_area(im2_ori, hw))
+        else:
+            raise ValueError("wrong smooth level: %s" % conf.smooth_level)
+        smooth_loss = _smooth_loss(conf, s_ims, s_flows)
+
+        if conf.if_use_boundary_warp:
+            start = torch.as_tensor(batch["start"]).to(device)
+            im1_warp = _warp.boundary_dilated_warp(
+                _as_nchw(batch["im2_raw"], device), flow_f, start)
+            im2_warp = _warp.boundary_dilated_warp(
+                _as_nchw(batch["im1_raw"], device), flow_b, start)
+        else:
+            im1_warp = _warp.flow_warp(im2_ori, flow_f)
+            im2_warp = _warp.flow_warp(im1_ori, flow_b)
+        occ_fw_l, occ_bw_l = occ_fw, occ_bw
+        if conf.stop_occ_gradient:
+            occ_fw_l, occ_bw_l = occ_fw_l.detach(), occ_bw_l.detach()
+        photo_loss = sum(photo_loss_multi_type(
+            im, warped, occ, conf.photo_loss_type, conf.photo_loss_delta,
+            conf.photo_loss_use_occ)
+            for im, warped, occ in ((im1_ori, im1_warp, occ_fw_l),
+                                    (im2_ori, im2_warp, occ_bw_l)))
+
+        census = None
+        if conf.photo_loss_census_weight > 0:
+            census = conf.photo_loss_census_weight * sum(census_loss(
+                im, warped, occ, q=conf.photo_loss_delta,
+                charbonnier_or_abs_robust=False,
+                if_use_occ=conf.photo_loss_use_occ)
+                for im, warped, occ in ((im1_ori, im1_warp, occ_fw_l),
+                                        (im2_ori, im2_warp, occ_bw_l)))
+        msd_loss = None
+        if conf.multi_scale_distillation_weight > 0:
+            msd_loss = _msd_loss(conf, flows, flow_f, flow_b, occ_fw, occ_bw)
+
+        total = photo_loss + smooth_loss
+        if census is not None:
+            total = total + census
+        if msd_loss is not None:
+            total = total + msd_loss
+    return {
+        "flow_f_out": _nhwc(flow_f),
+        "flow_b_out": _nhwc(flow_b),
+        "occ_fw": _nhwc(occ_fw),
+        "occ_bw": _nhwc(occ_bw),
+        "flows": [(_nhwc(f), _nhwc(b)) for f, b in flows],
+        "im1_warp": _nhwc(im1_warp),
+        "im2_warp": _nhwc(im2_warp),
+        "smooth_loss": smooth_loss,
+        "photo_loss": photo_loss,
+        "census_loss": census,
+        "msd_loss": msd_loss,
+        "total_loss": total,
+    }
+
+
+def _nearest_resize(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Nearest resize as ``F.interpolate(mode='nearest')``: source index
+    ``floor(dst * in / out)``, in fp32 as the JAX package computes it."""
+    _, _, h, w = x.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    iy = torch.floor(torch.arange(oh, dtype=torch.float32, device=x.device)
+                     * (h / oh)).long()
+    ix = torch.floor(torch.arange(ow, dtype=torch.float32, device=x.device)
+                     * (w / ow)).long()
+    return x[:, :, iy][:, :, :, ix]

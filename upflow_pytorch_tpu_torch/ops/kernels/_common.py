@@ -1,4 +1,5 @@
-"""Argument checks and the launch path shared by the kernel wrappers."""
+"""Argument checks, the launch path and the autograd test shared by the
+kernel wrappers."""
 
 from __future__ import annotations
 
@@ -81,6 +82,15 @@ def launch(op: str, wrapper, t: torch.Tensor, fn, *args) -> None:
         with torch.cuda.device(index):
             code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     _build.check_launch(op, code)
+
+
+def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether a wrapper's call must go through its autograd Function:
+    grad mode is on and one of its inputs requires grad.  Otherwise the
+    wrapper calls its kernel directly, so serving pays nothing for the
+    Functions."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def count_cuda_call(fn, *tensors: torch.Tensor) -> None:

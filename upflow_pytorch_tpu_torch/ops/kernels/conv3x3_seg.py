@@ -27,7 +27,18 @@ The weights go in packed (``pack_weight``).  The model packs them once:
 that owns the conv and packs anew only when a parameter changed (its
 ``_version``, bumped by every in-place update such as ``copy_`` or
 ``load_state_dict``, or its storage, as after ``.to()``).  A call without
-``packed`` packs for itself.
+``packed`` packs for itself.  An optimizer step updates the parameters in
+place, so the next step's first call packs anew.
+
+Under autograd ``conv3x3_seg`` goes through ``Conv3x3SegFn``, whose
+backward is the JAX package's rule (``conv.py::_bwd``): the LeakyReLU's
+gradient from the bf16 output (``out >= 0`` passes it, the rest takes
+slope 0.1); ``d_x`` a bf16 convolution of the bf16 cotangent with the
+flipped, transposed bf16 weights, summed in fp32 and rounded to bf16;
+``d_w`` from the bf16 input's taps and the bf16 cotangent, summed in
+fp32; ``d_b`` the fp32 cotangent's sum.  These are library calls
+(cuDNN's data gradient, cuBLAS's GEMMs), as the JAX package leaves its
+backward to XLA.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ import torch.nn.functional as F
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     INT, LONG, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
-    launch)
+    launch, wants_grad)
 
 CHUNK = 64  # input channels per K step of the kernel
 BLOCK_WIDTHS = (8, 16, 32, 64, 96, 128)  # the kernel's output tile widths
@@ -188,20 +199,99 @@ def conv3x3_seg_cuda(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
+def _conv3x3_seg(x, weight, bias, dilation, relu, out, packed):
+    if x.is_cuda:
+        return conv3x3_seg_cuda(x, weight, bias, dilation, relu, out, packed)
+    check_cpu_input("conv3x3_seg", x)
+    return conv3x3_seg_plain(x, weight, bias, dilation, relu, out)
+
+
+def conv3x3_seg_vjp(x: torch.Tensor, weight: torch.Tensor,
+                    out: Optional[torch.Tensor], dilation: int,
+                    g: torch.Tensor, needs=(True, True, True)):
+    """(d_x, d_weight, d_bias) of ``conv3x3_seg`` given its bf16 output
+    ``out`` (None without the LeakyReLU) and the output's cotangent ``g``;
+    an entry whose ``needs`` is False is None.
+
+    ``d_x`` is a bf16 convolution with fp32 sums: cuDNN's on the card; on
+    the CPU, whose bf16 convolution differs from one with fp32 sums, an
+    fp32 convolution of the widened operands (their products are exact),
+    rounded once.  ``d_weight`` is, as in the JAX rule, a product of the
+    bf16 input's taps and the bf16 cotangent with fp32 sums: one GEMM per
+    batch item over the unfolded input (on the card ``torch.bmm`` with an
+    fp32 output, as cuDNN's fp32 weight gradient picks an algorithm 15-30
+    ms slow at two of the step's shapes), summed over the batch in fp32.
+    """
+    g = g.float()
+    if out is not None:
+        g = torch.where(out >= 0, g, g * 0.1)
+    gb = g.to(torch.bfloat16)
+    d_x = d_w = d_b = None
+    if needs[0]:
+        wb = weight.to(torch.bfloat16)
+        if x.is_cuda:
+            d_x = torch.nn.grad.conv2d_input(
+                x.shape, wb, gb, padding=dilation, dilation=dilation)
+        else:
+            cudnn = torch.backends.cudnn
+            with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                             deterministic=cudnn.deterministic,
+                             allow_tf32=False):
+                d_x = torch.nn.grad.conv2d_input(
+                    x.shape, wb.float(), gb.float(), padding=dilation,
+                    dilation=dilation).to(torch.bfloat16)
+    if needs[1]:
+        b, _, h, w = x.shape
+        if x.is_cuda:
+            cols = F.unfold(x, 3, dilation=dilation, padding=dilation)
+            taps = torch.bmm(gb.reshape(b, -1, h * w), cols.transpose(1, 2),
+                             out_dtype=torch.float32)
+        else:
+            cols = F.unfold(x.float(), 3, dilation=dilation,
+                            padding=dilation)
+            taps = torch.bmm(gb.float().reshape(b, -1, h * w),
+                             cols.transpose(1, 2))
+        d_w = taps.sum(dim=0).reshape(weight.shape).to(weight.dtype)
+    if needs[2]:
+        d_b = g.sum(dim=(0, 2, 3))
+    return d_x, d_w, d_b
+
+
+class Conv3x3SegFn(torch.autograd.Function):
+    """``conv3x3_seg`` (without ``out``) with the JAX package's gradient
+    rule."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, dilation, relu, packed):
+        out = _conv3x3_seg(x, weight, bias, dilation, relu, None, packed)
+        ctx.save_for_backward(x, weight, out if relu else None)
+        ctx.dilation = dilation
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, out = ctx.saved_tensors
+        return conv3x3_seg_vjp(x, weight, out, ctx.dilation, g,
+                               ctx.needs_input_grad[:3]) + (None,) * 3
+
+
 def conv3x3_seg(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                 dilation: int = 1, relu: bool = True,
                 out: Optional[torch.Tensor] = None,
                 packed: Optional[Packed] = None) -> torch.Tensor:
     """bf16 3x3 conv + bias (+ LeakyReLU): the kernel for CUDA tensors, the
-    plain version for CPU tensors.  ``x``: (B, Cin, H, W) bf16; ``weight``:
-    (Cout, Cin, 3, 3); ``bias``: (Cout,); ``out``: an optional (B, Cout, H,
-    W) bf16 destination, such as a channel slot of a dense buffer;
-    ``packed``: the weights as ``packed_params`` gives them, packed here
-    when it is None."""
-    if x.is_cuda:
-        return conv3x3_seg_cuda(x, weight, bias, dilation, relu, out, packed)
-    check_cpu_input("conv3x3_seg", x)
-    return conv3x3_seg_plain(x, weight, bias, dilation, relu, out)
+    plain version for CPU tensors; through ``Conv3x3SegFn`` under
+    autograd, where ``out`` must be None.  ``x``: (B, Cin, H, W) bf16;
+    ``weight``: (Cout, Cin, 3, 3); ``bias``: (Cout,); ``out``: an optional
+    (B, Cout, H, W) bf16 destination, such as a channel slot of a dense
+    buffer; ``packed``: the weights as ``packed_params`` gives them,
+    packed here when it is None."""
+    if wants_grad(x, weight, bias):
+        if out is not None:
+            raise ValueError("conv3x3_seg: under autograd the output is a "
+                             "new tensor; out must be None")
+        return Conv3x3SegFn.apply(x, weight, bias, dilation, relu, packed)
+    return _conv3x3_seg(x, weight, bias, dilation, relu, out, packed)
 
 
 conv3x3_seg.launches = 0

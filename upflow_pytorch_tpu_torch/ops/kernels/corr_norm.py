@@ -18,6 +18,14 @@ the LeakyReLU, so no normalised map reaches device memory.
 ``warp_norm_corr`` is the decoder's per-level segment at levels >= 1:
 masked feature warp (kernel 2) -> torch moments -> this kernel.
 
+Under autograd ``corr_norm`` goes through ``CorrNormFn``, whose backward
+(``corr_norm_vjp``) returns d f1, d f2 and d aff through the LeakyReLU
+(``>= 0`` passes the gradient, as ``jax.nn.leaky_relu``), the
+correlation, the zero taps outside the image and the affine; autograd
+carries the moments and ``affine_pair``, and ``FeatureWarpFn`` the warp,
+so ``warp_norm_corr``'s gradient is that of the unfused composition, the
+JAX package's rule (``corr_norm.py::_wnc_bwd``).
+
 bf16 maps (the bf16 forward) keep the TPU's fused semantics
 (``ops/pallas/corr_norm.py::_wnc_fast``): the warped source is rounded to
 bf16, the moments are taken in fp32 from the rounded values, and the
@@ -39,11 +47,12 @@ import torch.nn.functional as F
 
 from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as kfw
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    FP32_BF16, check_cpu_input, check_cuda_input, count_cuda_call)
+    FP32_BF16, check_cpu_input, check_cuda_input, count_cuda_call,
+    wants_grad)
 # the tile body's grid and staging rules, shared with the plain correlation
 from upflow_pytorch_tpu_torch.ops.kernels.correlation import (  # noqa: F401
     KERNEL_DISP, SMS, SPLITS, TILES, channel_ranges, correlation_plain,
-    launch_config, launch_tiles, staging_route)
+    correlation_vjp, launch_config, launch_tiles, staging_route)
 
 
 def moments(f: torch.Tensor, across_channels: bool
@@ -114,14 +123,62 @@ def corr_norm_cuda(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
     return out
 
 
-def corr_norm(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
-              leaky_slope: Optional[float]) -> torch.Tensor:
-    """Normalised correlation: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+def _corr_norm(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
+               leaky_slope: Optional[float]) -> torch.Tensor:
     if f1.is_cuda:
         return corr_norm_cuda(f1, f2, aff, leaky_slope)
     check_cpu_input("corr_norm", f1)
     return corr_norm_plain(f1, f2, aff, leaky_slope)
+
+
+def corr_norm_vjp(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
+                  out: torch.Tensor, leaky_slope: Optional[float],
+                  g: torch.Tensor):
+    """(d_f1, d_f2, d_aff) of ``corr_norm`` given its output ``out`` and
+    the output's cotangent ``g``.  The LeakyReLU passes ``g`` where the
+    output is >= 0 (so is its input) and ``slope * g`` elsewhere; the
+    correlation's rule (``correlation_vjp``) runs on the normalised maps,
+    whose zero padding lies outside the affine; the affine ``(f - m) * r``
+    gives ``d_f = d_fn * r``, ``d_m = -sum(d_fn * r)`` and ``d_r =
+    sum(d_fn * (f - m))`` over each channel's pixels."""
+    g = g.float()
+    if leaky_slope is not None:
+        g = torch.where(out >= 0, g, g * leaky_slope)
+    m1, r1, m2, r2 = (aff[:, i, :, None, None] for i in range(4))
+    c1 = f1.float() - m1
+    c2 = f2.float() - m2
+    d_f1n, d_f2n = correlation_vjp(c1 * r1, c2 * r2, g, KERNEL_DISP)
+    d_f1 = d_f1n * r1
+    d_f2 = d_f2n * r2
+    d_aff = torch.stack([-d_f1.sum(dim=(2, 3)), (d_f1n * c1).sum(dim=(2, 3)),
+                         -d_f2.sum(dim=(2, 3)), (d_f2n * c2).sum(dim=(2, 3))],
+                        dim=1)
+    return d_f1.to(f1.dtype), d_f2.to(f2.dtype), d_aff
+
+
+class CorrNormFn(torch.autograd.Function):
+    """``corr_norm`` with the gradient of its plain composition."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, aff, leaky_slope):
+        out = _corr_norm(f1, f2, aff, leaky_slope)
+        ctx.save_for_backward(f1, f2, aff, out)
+        ctx.leaky_slope = leaky_slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2, aff, out = ctx.saved_tensors
+        return corr_norm_vjp(f1, f2, aff, out, ctx.leaky_slope, g) + (None,)
+
+
+def corr_norm(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
+              leaky_slope: Optional[float]) -> torch.Tensor:
+    """Normalised correlation: the kernel for CUDA tensors, the plain
+    version for CPU tensors; through ``CorrNormFn`` under autograd."""
+    if wants_grad(f1, f2, aff):
+        return CorrNormFn.apply(f1, f2, aff, leaky_slope)
+    return _corr_norm(f1, f2, aff, leaky_slope)
 
 
 corr_norm.launches = 0

@@ -11,6 +11,11 @@ with ``k = (dy+D)*(2D+1) + (dx+D)`` and zeros outside ``f2``.  NCHW in,
 they are read); the output is fp32.  ``correlation`` launches the kernel for CUDA
 tensors and runs ``correlation_plain`` for CPU tensors.
 
+Under autograd (grad mode on, a map requiring grad) ``correlation`` goes
+through ``CorrelationFn``: the same forward, and as backward the JAX
+package's rule (``correlation.py::_corr_bwd_xla``) in torch ops,
+``correlation_vjp``.
+
 The kernel runs the tile body of the normalised correlation
 (``csrc/corr_tile.cuh``) without its affine, so both take their grid from
 ``launch_config`` and their staging route from ``staging_route`` here,
@@ -27,7 +32,7 @@ import torch.nn.functional as F
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FLOAT, FP32_BF16, INT, PTR, SMS, check_cpu_input, check_cuda_input,
-    count_cuda_call, launch)
+    count_cuda_call, launch, wants_grad)
 
 KERNEL_DISP = 4  # the kernels' compiled displacement (csrc/corr_tile.cuh)
 # the kernel's tiles (rows, columns), tallest then widest first: a block
@@ -156,14 +161,59 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
     return out
 
 
-def correlation(f1: torch.Tensor, f2: torch.Tensor,
-                max_displacement: int = 4) -> torch.Tensor:
-    """Cost volume: the kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+def _correlation(f1: torch.Tensor, f2: torch.Tensor,
+                 max_displacement: int) -> torch.Tensor:
     if f1.is_cuda:
         return correlation_cuda(f1, f2, max_displacement)
     check_cpu_input("correlation", f1)
     return correlation_plain(f1, f2, max_displacement)
+
+
+def correlation_vjp(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
+                    max_displacement: int = 4
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d_f1, d_f2) of the correlation given the cotangent ``g`` of its
+    (B, (2D+1)^2, H, W) output: ``_corr_bwd_xla``'s sums over the taps,
+    ``d_f1 = (1/C) sum_k g_k * f2(shift k)`` and ``d_f2`` the same products
+    of ``f1`` added back at the shifted places (out-of-image taps fall on
+    the discarded border), each in its map's type."""
+    b, c, h, w = f1.shape
+    d = int(max_displacement)
+    k = 2 * d + 1
+    g = g.float()
+    f2_taps = F.unfold(F.pad(f2.float(), (d, d, d, d)), k).reshape(
+        b, c, k * k, h, w)
+    d_f1 = (g[:, None] * f2_taps).sum(dim=2)
+    d_f2 = F.fold((g[:, None] * f1.float()[:, :, None]).reshape(
+        b, c * k * k, h * w), (h + 2 * d, w + 2 * d), k)
+    inv_c = 1.0 / c
+    return ((d_f1 * inv_c).to(f1.dtype),
+            (d_f2[:, :, d:d + h, d:d + w] * inv_c).to(f2.dtype))
+
+
+class CorrelationFn(torch.autograd.Function):
+    """``correlation`` with the JAX package's gradient rule."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_displacement):
+        ctx.save_for_backward(f1, f2)
+        ctx.max_displacement = max_displacement
+        return _correlation(f1, f2, max_displacement)
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        d_f1, d_f2 = correlation_vjp(f1, f2, g, ctx.max_displacement)
+        return d_f1, d_f2, None
+
+
+def correlation(f1: torch.Tensor, f2: torch.Tensor,
+                max_displacement: int = 4) -> torch.Tensor:
+    """Cost volume: the kernel for CUDA tensors, the plain version for CPU
+    tensors; through ``CorrelationFn`` under autograd."""
+    if wants_grad(f1, f2):
+        return CorrelationFn.apply(f1, f2, max_displacement)
+    return _correlation(f1, f2, max_displacement)
 
 
 correlation.launches = 0

@@ -12,6 +12,12 @@ The kernel reproduces ``ops/warp.py``'s arithmetic op for op, so kernel
 and plain version agree bit for bit, mask bits included.  Maps are fp32
 or bf16 and the output has the map's type: a bf16 map is warped in fp32
 and the result rounded to bf16 once (the TPU kernel's ``out_dtype``).
+
+Under autograd ``feature_warp`` goes through ``FeatureWarpFn``, whose
+backward is the JAX package's rule (``feature_warp.py::
+_feature_warp_bwd``): the gradient of the sample times the mask, the mask
+a constant.  The forward saves the mask the kernel returns, so the
+backward never recomputes the chaotic ``>= thr`` bits.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FLOAT, FP32_BF16, INT, PTR, SMS, check_cpu_input, check_cuda_input,
-    count_cuda_call, launch)
+    count_cuda_call, launch, wants_grad)
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -93,14 +99,40 @@ def feature_warp_cuda(x: torch.Tensor, flow: torch.Tensor, thr: float,
     return (out, mask) if with_mask else out
 
 
-def feature_warp(x: torch.Tensor, flow: torch.Tensor, thr: float,
-                 with_mask: bool = False) -> Result:
-    """Masked warp: the kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+def _feature_warp(x: torch.Tensor, flow: torch.Tensor, thr: float,
+                  with_mask: bool) -> Result:
     if x.is_cuda:
         return feature_warp_cuda(x, flow, thr, with_mask)
     check_cpu_input("feature_warp", x)
     return feature_warp_plain(x, flow, thr, with_mask)
+
+
+class FeatureWarpFn(torch.autograd.Function):
+    """``feature_warp`` with the JAX package's gradient rule; returns the
+    warp and the (non-differentiable) mask."""
+
+    @staticmethod
+    def forward(ctx, x, flow, thr):
+        out, mask = _feature_warp(x, flow, thr, True)
+        ctx.save_for_backward(x, flow, mask)
+        ctx.mark_non_differentiable(mask)
+        return out, mask
+
+    @staticmethod
+    def backward(ctx, g, _g_mask):
+        x, flow, mask = ctx.saved_tensors
+        d_x, d_flow = _w.warp_vjp(x, flow, g.float() * mask[:, None])
+        return d_x, d_flow, None
+
+
+def feature_warp(x: torch.Tensor, flow: torch.Tensor, thr: float,
+                 with_mask: bool = False) -> Result:
+    """Masked warp: the kernel for CUDA tensors, the plain version for CPU
+    tensors; through ``FeatureWarpFn`` under autograd."""
+    if wants_grad(x, flow):
+        out, mask = FeatureWarpFn.apply(x, flow, thr)
+        return (out, mask) if with_mask else out
+    return _feature_warp(x, flow, thr, with_mask)
 
 
 feature_warp.launches = 0

@@ -23,6 +23,11 @@ and their plain versions' calls on CUDA tensors in
 operations in its order (the sigmoid as ``torch.sigmoid`` computes it on
 CUDA), so the two agree bit for bit.  The source note in the ``.cu`` file
 says how the design meets the card's bound.
+
+Under autograd both go through ``SguBlendPairFn`` / ``SguBlendFn``,
+whose backward is the JAX package's rule (``ops/warp.py::
+_sgu_blend_tpu_bwd``: the VJP of ``_sgu_blend_xla``), through the
+sigmoid for the raw heads (``ops/warp.py::sgu_blend_vjp``).
 """
 
 from __future__ import annotations
@@ -32,9 +37,10 @@ from typing import Sequence, Tuple
 import torch
 
 from upflow_pytorch_tpu_torch import _build
+from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FP32_BF16, INT, LONG, PTR, SMS, check_cpu_input, check_cuda_input,
-    count_cuda_call, launch)
+    count_cuda_call, launch, wants_grad)
 from upflow_pytorch_tpu_torch.ops.kernels.warp import warp_plain
 
 BLOCK_X = 32  # threads along a row (csrc/sgu_blend.cu kBlockX)
@@ -168,27 +174,82 @@ def sgu_blend_cuda(flow: torch.Tensor, inter_flow: torch.Tensor,
     return out
 
 
-def sgu_blend_pair(flow_1: torch.Tensor, x_out_1: torch.Tensor,
-                   flow_2: torch.Tensor, x_out_2: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both directions' SGU blend from the raw heads: the kernel (one
-    launch) for CUDA tensors, the plain version for CPU tensors.  Flows
-    (B, 2, H, W) fp32, heads (B, 3, H, W) fp32 or bf16."""
+def _sgu_blend_pair(flow_1, x_out_1, flow_2, x_out_2):
     if flow_1.is_cuda:
         return sgu_blend_pair_cuda(flow_1, x_out_1, flow_2, x_out_2)
     check_cpu_input("sgu_blend_pair", flow_1)
     return sgu_blend_pair_plain(flow_1, x_out_1, flow_2, x_out_2)
 
 
-def sgu_blend(flow: torch.Tensor, inter_flow: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
-    """SGU blend of one direction with the mask given: the kernel for
-    CUDA tensors, the plain version for CPU tensors.  ``flow``,
-    ``inter_flow`` (B, 2, H, W), ``mask`` (B, 1, H, W)."""
+def _sgu_blend(flow, inter_flow, mask):
     if flow.is_cuda:
         return sgu_blend_cuda(flow, inter_flow, mask)
     check_cpu_input("sgu_blend", flow)
     return sgu_blend_plain(flow, inter_flow, mask)
+
+
+def head_vjp(flow: torch.Tensor, x_out: torch.Tensor, g: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d_flow, d_x_out) of one direction of the pair given its output's
+    cotangent: ``sgu_blend_vjp`` with the mask ``sigmoid(x_out[:, 2:3])``,
+    the mask's gradient taken through the sigmoid, ``d_x_out`` in the
+    head's type."""
+    mask = torch.sigmoid(x_out[:, 2:3].float())
+    d_flow, d_iflow, d_mask = _w.sgu_blend_vjp(
+        flow, x_out[:, :2].float(), mask, g)
+    d_logit = d_mask * mask * (1 - mask)
+    return d_flow, torch.cat([d_iflow, d_logit], dim=1).to(x_out.dtype)
+
+
+class SguBlendPairFn(torch.autograd.Function):
+    """``sgu_blend_pair`` with the JAX package's gradient rule."""
+
+    @staticmethod
+    def forward(ctx, flow_1, x_out_1, flow_2, x_out_2):
+        ctx.save_for_backward(flow_1, x_out_1, flow_2, x_out_2)
+        return _sgu_blend_pair(flow_1, x_out_1, flow_2, x_out_2)
+
+    @staticmethod
+    def backward(ctx, g_1, g_2):
+        flow_1, x_out_1, flow_2, x_out_2 = ctx.saved_tensors
+        return (head_vjp(flow_1, x_out_1, g_1)
+                + head_vjp(flow_2, x_out_2, g_2))
+
+
+class SguBlendFn(torch.autograd.Function):
+    """``sgu_blend`` with the JAX package's gradient rule."""
+
+    @staticmethod
+    def forward(ctx, flow, inter_flow, mask):
+        ctx.save_for_backward(flow, inter_flow, mask)
+        return _sgu_blend(flow, inter_flow, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _w.sgu_blend_vjp(*ctx.saved_tensors, g)
+
+
+def sgu_blend_pair(flow_1: torch.Tensor, x_out_1: torch.Tensor,
+                   flow_2: torch.Tensor, x_out_2: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both directions' SGU blend from the raw heads: the kernel (one
+    launch) for CUDA tensors, the plain version for CPU tensors; through
+    ``SguBlendPairFn`` under autograd.  Flows (B, 2, H, W) fp32, heads
+    (B, 3, H, W) fp32 or bf16."""
+    if wants_grad(flow_1, x_out_1, flow_2, x_out_2):
+        return SguBlendPairFn.apply(flow_1, x_out_1, flow_2, x_out_2)
+    return _sgu_blend_pair(flow_1, x_out_1, flow_2, x_out_2)
+
+
+def sgu_blend(flow: torch.Tensor, inter_flow: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """SGU blend of one direction with the mask given: the kernel for
+    CUDA tensors, the plain version for CPU tensors; through
+    ``SguBlendFn`` under autograd.  ``flow``, ``inter_flow`` (B, 2, H, W),
+    ``mask`` (B, 1, H, W)."""
+    if wants_grad(flow, inter_flow, mask):
+        return SguBlendFn.apply(flow, inter_flow, mask)
+    return _sgu_blend(flow, inter_flow, mask)
 
 
 sgu_blend.launches = 0

@@ -13,6 +13,12 @@ The plain version resizes with matrix products; the kernel lerps, and
 rounds each two-tap lerp as a product that accumulates over the source
 index with fused multiply-adds does (torch's CPU product and cuBLAS on
 the H100 both do), so the two agree bit for bit there.
+
+Under autograd ``sgu_final`` goes through ``SguFinalFn``, whose backward
+is the JAX package's rule (``models/upflow.py::_sgu_final_op_bwd``: the
+VJP of ``_sgu_final_xla``), ``sgu_final_vjp``: the blend's gradient at
+full resolution, then the rate scales, the transposed resizes and the
+sigmoid.
 """
 
 from __future__ import annotations
@@ -22,12 +28,13 @@ from typing import Tuple
 import torch
 
 from upflow_pytorch_tpu_torch import _build
+from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FLOAT, INT, PTR, SMS, check_cpu_input, check_cuda_input, count_cuda_call,
-    launch)
+    launch, wants_grad)
 from upflow_pytorch_tpu_torch.ops.kernels.sgu_blend import sgu_blend_plain
 from upflow_pytorch_tpu_torch.ops.resize import (
-    interp_taps, upsample2d_as, upsample2d_flow_as)
+    interp_taps, resize_vjp, upsample2d_as, upsample2d_flow_as)
 
 Size = Tuple[int, int]
 
@@ -43,7 +50,6 @@ def tile_rows(b: int, h: int, w: int) -> int:
         if b * -(-h // rows) * -(-w // TILE_W) >= SMS:
             return rows
     return TILE_ROWS[-1]
-
 
 
 def sgu_final_plain(flow_q: torch.Tensor, x_out: torch.Tensor,
@@ -83,14 +89,61 @@ def sgu_final_cuda(flow_q: torch.Tensor, x_out: torch.Tensor,
     return out
 
 
-def sgu_final(flow_q: torch.Tensor, x_out: torch.Tensor,
-              out_hw: Size) -> torch.Tensor:
-    """Final SGU stage: the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+def _sgu_final(flow_q: torch.Tensor, x_out: torch.Tensor,
+               out_hw: Size) -> torch.Tensor:
     if flow_q.is_cuda:
         return sgu_final_cuda(flow_q, x_out, out_hw)
     check_cpu_input("sgu_final", flow_q)
     return sgu_final_plain(flow_q, x_out, out_hw)
+
+
+def _rate_scale(flow: torch.Tensor, su: float, sv: float) -> torch.Tensor:
+    return torch.stack([flow[:, 0] * su, flow[:, 1] * sv], dim=1)
+
+
+def sgu_final_vjp(flow_q: torch.Tensor, x_out: torch.Tensor, out_hw: Size,
+                  g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d_flow_q, d_x_out) of the final stage given the cotangent ``g`` of
+    its (B, 2, H, W) output: the full-resolution flow, inter-flow and mask
+    recomputed by torch ops, the blend's gradient (``sgu_blend_vjp``),
+    then back through the rate scales, the resizes (``resize_vjp``) and
+    the sigmoid."""
+    hq, wq = flow_q.shape[2:]
+    h, w = int(out_hw[0]), int(out_hw[1])
+    su, sv = w / wq, h / hq
+    sig = torch.sigmoid(x_out[:, 2:3])
+    d_flow, d_iflow, d_mask = _w.sgu_blend_vjp(
+        upsample2d_flow_as(flow_q, (h, w), if_rate=True),
+        upsample2d_flow_as(x_out[:, :2], (h, w), if_rate=True),
+        upsample2d_as(sig, (h, w)), g)
+    d_fq = resize_vjp(_rate_scale(d_flow, su, sv), (hq, wq))
+    d_iq = resize_vjp(_rate_scale(d_iflow, su, sv), (hq, wq))
+    d_logit = resize_vjp(d_mask, (hq, wq)) * sig * (1 - sig)
+    return d_fq, torch.cat([d_iq, d_logit], dim=1)
+
+
+class SguFinalFn(torch.autograd.Function):
+    """``sgu_final`` with the JAX package's gradient rule."""
+
+    @staticmethod
+    def forward(ctx, flow_q, x_out, out_hw):
+        ctx.save_for_backward(flow_q, x_out)
+        ctx.out_hw = out_hw
+        return _sgu_final(flow_q, x_out, out_hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        flow_q, x_out = ctx.saved_tensors
+        return sgu_final_vjp(flow_q, x_out, ctx.out_hw, g) + (None,)
+
+
+def sgu_final(flow_q: torch.Tensor, x_out: torch.Tensor,
+              out_hw: Size) -> torch.Tensor:
+    """Final SGU stage: the kernel for CUDA tensors, the plain version for
+    CPU tensors; through ``SguFinalFn`` under autograd."""
+    if wants_grad(flow_q, x_out):
+        return SguFinalFn.apply(flow_q, x_out, out_hw)
+    return _sgu_final(flow_q, x_out, out_hw)
 
 
 sgu_final.launches = 0

@@ -14,7 +14,8 @@ import torch
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call, launch)
+    INT, PTR, check_cpu_input, check_cuda_input, count_cuda_call, launch,
+    wants_grad)
 
 MAX_CHANNELS = 4  # the kernel's channel limit (csrc/warp.cu)
 
@@ -46,13 +47,32 @@ def warp_cuda(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Unmasked warp: the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+def _warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     if x.is_cuda:
         return warp_cuda(x, flow)
     check_cpu_input("warp", x)
     return warp_plain(x, flow)
+
+
+class WarpFn(torch.autograd.Function):
+    """``warp`` with the JAX package's gradient rule."""
+
+    @staticmethod
+    def forward(ctx, x, flow):
+        ctx.save_for_backward(x, flow)
+        return _warp(x, flow)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _w.warp_vjp(*ctx.saved_tensors, g)
+
+
+def warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Unmasked warp: the kernel for CUDA tensors, the plain version for
+    CPU tensors; through ``WarpFn`` under autograd."""
+    if wants_grad(x, flow):
+        return WarpFn.apply(x, flow)
+    return _warp(x, flow)
 
 
 warp.launches = 0

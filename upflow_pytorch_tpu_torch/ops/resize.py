@@ -1,10 +1,14 @@
-"""Bilinear resize with ``align_corners=True`` semantics, NCHW.
+"""Bilinear resize with ``align_corners=True`` semantics, and the area
+downsample of the smoothness loss, NCHW.
 
 The reference resizes with ``F.interpolate(..., align_corners=True)`` at
 every pyramid level (``upsample2d_as`` / ``upsample2d_flow_as`` /
 ``upsample_flow``).  Here the separable interpolation is two fp32
 products with the (out, in) interpolation matrices that the JAX package
-uses, so both packages give the same numbers.
+uses, so both packages give the same numbers; ``downsample_area`` is the
+same with the area-pool matrices.  ``resize_vjp`` is the transposed
+product, the resize's gradient, for the backward rules of the kernels
+that resize inside them.
 """
 
 from __future__ import annotations
@@ -104,19 +108,60 @@ def interp_taps(out_size: int, in_size: int, device: torch.device
             torch.from_numpy(wt).to(device))
 
 
-def resize_bilinear_align_corners(x: torch.Tensor,
-                                  out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Resize NCHW ``x`` to ``out_hw`` (align_corners=True bilinear)."""
+def _separable(x: torch.Tensor, out_hw, matrix) -> torch.Tensor:
+    """``x`` (B, C, H, W) times ``matrix(oh, h, device)`` along the rows,
+    then ``matrix(ow, w, device)`` along the columns, in fp32, cast back to
+    ``x``'s type."""
     _, _, h, w = x.shape
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (oh, ow) == (h, w):
         return x
     xf = x.float()
     if oh != h:
-        xf = torch.einsum("oh,bchw->bcow", _interp_matrix(oh, h, x.device), xf)
+        xf = torch.einsum("oh,bchw->bcow", matrix(oh, h, x.device), xf)
     if ow != w:
-        xf = torch.einsum("ow,bchw->bcho", _interp_matrix(ow, w, x.device), xf)
+        xf = torch.einsum("ow,bchw->bcho", matrix(ow, w, x.device), xf)
     return xf.to(x.dtype)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor,
+                                  out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Resize NCHW ``x`` to ``out_hw`` (align_corners=True bilinear)."""
+    return _separable(x, out_hw, _interp_matrix)
+
+
+def resize_vjp(g: torch.Tensor, in_hw: Tuple[int, int]) -> torch.Tensor:
+    """The gradient of ``resize_bilinear_align_corners`` from an input of
+    size ``in_hw``, given the cotangent ``g`` of its fp32 output: the
+    transposed products, in the reverse order."""
+    _, _, oh, ow = g.shape
+    h, w = int(in_hw[0]), int(in_hw[1])
+    gf = g.float()
+    if ow != w:
+        gf = torch.einsum("ow,bcho->bchw", _interp_matrix(ow, w, g.device), gf)
+    if oh != h:
+        gf = torch.einsum("oh,bcow->bchw", _interp_matrix(oh, h, g.device), gf)
+    return gf
+
+
+@functools.lru_cache(maxsize=64)
+def _pool_matrix(out_size: int, in_size: int,
+                 device: torch.device) -> torch.Tensor:
+    """(out_size, in_size) area-pool matrix on ``device``, kept there: bin
+    ``o`` averages the inputs [floor(o*in/out), ceil((o+1)*in/out))."""
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    for o in range(out_size):
+        lo = (o * in_size) // out_size
+        hi = -(-((o + 1) * in_size) // out_size)
+        m[o, lo:hi] = 1.0 / (hi - lo)
+    return torch.from_numpy(m).to(device)
+
+
+def downsample_area(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """``F.interpolate(mode='area')`` (adaptive average pooling) of NCHW
+    ``x`` to ``out_hw``, as two fp32 matrix products: the '1/4' smoothness
+    level's image downsample."""
+    return _separable(x, out_hw, _pool_matrix)
 
 
 def upsample2d_as(x: torch.Tensor, target_hw) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Backward warping (grid sample) ops, NCHW.
 
-Two warp semantics of the reference:
+Three warp semantics of the reference:
 
 1. ``flow_warp`` — ``tools.torch_warp``: bilinear sample at ``(x+u, y+v)``
    with zeros outside the image, no validity mask.  Used by the occlusion
@@ -8,9 +8,11 @@ Two warp semantics of the reference:
    flow with its warp.
 2. ``flow_warp_with_mask`` / ``flow_warp_masked`` — ``WarpingLayer_no_div``:
    the same sample times ``mask = (warped all-ones >= threshold)``.
+3. ``boundary_dilated_warp`` — ``tools.boundary_dilated_warp.warp_im``:
+   the photometric loss's warp of the uncropped frame, edges replicated.
 
-Both reproduce the reference's torch ``grid_sample`` arithmetic exactly:
-the fp32 normalise -> unnormalise coordinate roundtrip
+The first two reproduce the reference's torch ``grid_sample`` arithmetic
+exactly: the fp32 normalise -> unnormalise coordinate roundtrip
 (``_torch_grid_roundtrip``), the ``(x0+1)-px`` weights and the analytic
 warped-ones sum (``_analytic_wsum``).  The ``>= 1.0`` mask is chaotic in
 the last fp32 ulp of the flow, so every step here is a single IEEE
@@ -19,6 +21,10 @@ multiply in place of a division.  The CUDA kernels
 (``ops/kernels/feature_warp.py``, ``warp.py``, ``sgu_blend.py`` and
 ``sgu_final.py``) do the same operations in the same order with
 ``__f*_rn`` intrinsics.
+
+``bilinear_sample_vjp``, ``flow_vjp`` and ``warp_vjp`` are the JAX
+package's gradient rule of the sample (scatter-adds for the image, four
+taps for the coordinates), for the kernels' backward rules.
 
 Tensors: images ``(B, C, H, W)``, flows ``(B, 2, H, W)`` with channels
 ``(u, v)``, coordinate planes ``(B, H, W)``.
@@ -114,16 +120,15 @@ def _analytic_wsum(ih: int, iw: int, px: torch.Tensor,
             + wy1 * wx0 * inb(y0 + 1, x0) + wy1 * wx1 * inb(y0 + 1, x0 + 1))
 
 
-def bilinear_sample(x: torch.Tensor, px: torch.Tensor,
-                    py: torch.Tensor) -> torch.Tensor:
-    """Zero-padded bilinear sample of ``x`` (B, C, Hi, Wi) at absolute
-    coords (B, H, W).  Taps are read from a 2-pixel zero border, so every
-    out-of-image tap reads 0; the sum is ``p00*w00 + p01*w01 + p10*w10 +
-    p11*w11``, left to right."""
+def _gather_taps(x: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                 mode: str = "constant"):
+    """The 2x2 taps ``(p00, p01, p10, p11)`` at corners (y0, x0) .. (y0+1,
+    x0+1) of ``x`` (B, C, Hi, Wi), each (B, C, H, W) fp32, read from a
+    2-pixel border (zeros, or with ``mode="replicate"`` the edge pixels),
+    so every corner outside the image reads the border."""
     b, c, ih, iw = x.shape
-    _, h, w = px.shape
-    x0, y0, wx0, wx1, wy0, wy1 = _tap_weights(px, py)
-    xp = torch.nn.functional.pad(x.float(), (2, 2, 2, 2))
+    _, h, w = x0.shape
+    xp = torch.nn.functional.pad(x.float(), (2, 2, 2, 2), mode=mode)
     wp = iw + 4
     sy = (torch.clamp(y0, -2, ih) + 2).long()
     sx = (torch.clamp(x0, -2, iw) + 2).long()
@@ -134,12 +139,122 @@ def bilinear_sample(x: torch.Tensor, px: torch.Tensor,
         return torch.gather(flat, 2, idx.expand(b, c, h * w)
                             ).reshape(b, c, h, w)
 
+    return tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
+
+
+def bilinear_sample(x: torch.Tensor, px: torch.Tensor,
+                    py: torch.Tensor) -> torch.Tensor:
+    """Zero-padded bilinear sample of ``x`` (B, C, Hi, Wi) at absolute
+    coords (B, H, W).  Taps are read from a 2-pixel zero border, so every
+    out-of-image tap reads 0; the sum is ``p00*w00 + p01*w01 + p10*w10 +
+    p11*w11``, left to right."""
+    x0, y0, wx0, wx1, wy0, wy1 = _tap_weights(px, py)
+    p00, p01, p10, p11 = _gather_taps(x, x0, y0)
     w00 = (wy0 * wx0)[:, None]
     w01 = (wy0 * wx1)[:, None]
     w10 = (wy1 * wx0)[:, None]
     w11 = (wy1 * wx1)[:, None]
-    return (tap(0, 0) * w00 + tap(0, 1) * w01 + tap(1, 0) * w10
-            + tap(1, 1) * w11)
+    return p00 * w00 + p01 * w01 + p10 * w10 + p11 * w11
+
+
+def bilinear_sample_vjp(x: torch.Tensor, px: torch.Tensor,
+                        py: torch.Tensor, g: torch.Tensor):
+    """The gradient of ``bilinear_sample(x, px, py)`` given the cotangent
+    ``g`` (B, C, H, W) of its output, as the JAX package's hand-written
+    rule (``ops/warp.py::_bilinear_sample_bwd``) computes it: ``d_x`` by
+    scatter-adding each tap's weighted cotangent into its in-image corner
+    (in ``x``'s type), and the coordinates' ``d_px``, ``d_py`` (B, H, W)
+    from the four taps' differences."""
+    b, c, ih, iw = x.shape
+    _, h, w = px.shape
+    g = g.float()
+    x0, y0, wx0, wx1, wy0, wy1 = _tap_weights(px, py)
+    idx, vals = [], []
+    for yc, xc, wt in ((y0, x0, wy0 * wx0), (y0, x0 + 1, wy0 * wx1),
+                       (y0 + 1, x0, wy1 * wx0), (y0 + 1, x0 + 1, wy1 * wx1)):
+        valid = (xc >= 0) & (xc <= iw - 1) & (yc >= 0) & (yc <= ih - 1)
+        idx.append((torch.clamp(yc, 0, ih - 1) * iw
+                    + torch.clamp(xc, 0, iw - 1)).long().reshape(b, 1, -1))
+        vals.append((wt * valid).reshape(b, 1, -1))
+    gf = g.reshape(b, c, 1, h * w)
+    d_x = g.new_zeros((b, c, ih * iw)).scatter_add_(
+        2, torch.cat(idx, 2).expand(b, c, 4 * h * w),
+        (gf * torch.stack(vals, 2)).reshape(b, c, 4 * h * w))
+    p00, p01, p10, p11 = _gather_taps(x, x0, y0)
+    d_px = (g * (wy0[:, None] * (p01 - p00)
+                 + wy1[:, None] * (p11 - p10))).sum(dim=1)
+    d_py = (g * (wx0[:, None] * (p10 - p00)
+                 + wx1[:, None] * (p11 - p01))).sum(dim=1)
+    return d_x.reshape(b, c, ih, iw).to(x.dtype), d_px, d_py
+
+
+def _grid_roundtrip_vjp(g: torch.Tensor, size: int) -> torch.Tensor:
+    """The gradient of ``_torch_grid_roundtrip`` as JAX's autodiff chains
+    it: ``g * (S-1) / 2``, then ``/ max(S-1, 1) * 2`` (0 where S = 1)."""
+    return g * float(size - 1) / 2.0 / float(max(size - 1, 1)) * 2.0
+
+
+def flow_vjp(d_px: torch.Tensor, d_py: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``abs_coords_torch_grid(flow)`` with respect to the
+    (B, 2, H, W) flow, given the coordinates' cotangents (B, H, W)."""
+    _, h, w = d_px.shape
+    return torch.stack([_grid_roundtrip_vjp(d_px, w),
+                        _grid_roundtrip_vjp(d_py, h)], dim=1)
+
+
+def warp_vjp(x: torch.Tensor, flow: torch.Tensor, g: torch.Tensor):
+    """(d_x, d_flow) of the unmasked warp ``bilinear_sample(x,
+    abs_coords_torch_grid(flow))`` given its output's cotangent ``g``."""
+    px, py = abs_coords_torch_grid(flow)
+    d_x, d_px, d_py = bilinear_sample_vjp(x, px, py, g)
+    return d_x, flow_vjp(d_px, d_py)
+
+
+def sgu_blend_vjp(flow: torch.Tensor, inter_flow: torch.Tensor,
+                  mask: torch.Tensor, g: torch.Tensor):
+    """(d_flow, d_inter_flow, d_mask) of the SGU blend ``warp(flow,
+    inter_flow) * (1 - mask) + flow * mask`` (``_sgu_blend_xla``) given
+    its output's cotangent ``g``; flows (B, 2, H, W), mask (B, 1, H, W).
+    The warp is recomputed from the saved inputs."""
+    g = g.float()
+    px, py = abs_coords_torch_grid(inter_flow)
+    warped = bilinear_sample(flow, px, py)
+    d_warped, d_px, d_py = bilinear_sample_vjp(flow, px, py, g * (1 - mask))
+    d_mask = (g * (flow.float() - warped)).sum(dim=1, keepdim=True)
+    return (d_warped.float() + g * mask, flow_vjp(d_px, d_py), d_mask)
+
+
+def boundary_dilated_warp(img_full: torch.Tensor, flow: torch.Tensor,
+                          start: torch.Tensor) -> torch.Tensor:
+    """``tools.boundary_dilated_warp.warp_im``: samples the uncropped image
+    ``img_full`` (B, C, Hf, Wf) at ``start + grid + flow`` for a flow
+    (B, 2, h, w) on the crop; ``start`` (B, 2) is the crop's (x, y) offset.
+
+    The corner coordinates are clamped to the image and the bilinear
+    weights computed from the clamped corners, over an edge-replicated
+    border: interior samples are plain bilinear, edge samples replicate,
+    and samples at or beyond the high edge (or below zero) cancel to zero.
+    The zero-padded warp kernel does not compute this, so torch ops serve
+    it on every device; autograd scatters the gathered taps' gradient."""
+    b, _, ih, iw = img_full.shape
+    _, _, h, w = flow.shape
+    start = start.reshape(b, 2).to(device=flow.device, dtype=torch.float32)
+    xs = torch.arange(w, dtype=torch.float32, device=flow.device)
+    ys = torch.arange(h, dtype=torch.float32, device=flow.device)
+    px = xs[None, None, :] + flow[:, 0].float() + start[:, 0, None, None]
+    py = ys[None, :, None] + flow[:, 1].float() + start[:, 1, None, None]
+    fx, fy = torch.floor(px), torch.floor(py)
+    x0 = torch.clamp(fx, 0, iw - 1)
+    x1 = torch.clamp(fx + 1.0, 0, iw - 1)
+    y0 = torch.clamp(fy, 0, ih - 1)
+    y1 = torch.clamp(fy + 1.0, 0, ih - 1)
+    p00, p01, p10, p11 = _gather_taps(img_full, fx, fy, mode="replicate")
+    wa = ((x1 - px) * (y1 - py))[:, None]
+    wb = ((x1 - px) * (py - y0))[:, None]
+    wc = ((px - x0) * (y1 - py))[:, None]
+    wd = ((px - x0) * (py - y0))[:, None]
+    out = wa * p00 + wb * p10 + wc * p01 + wd * p11
+    return out.to(img_full.dtype)
 
 
 def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Training-side adapters of the port; for now the evaluation model."""
+"""Training: the step (``step.py``) and the evaluation model
+(``trainer.py``)."""

@@ -1,0 +1,113 @@
+"""The training step, PyTorch/CUDA.
+
+Port of ``upflow_pytorch_tpu.train.step``.  The optimizer is the
+reference recipe's ``Adam(lr, amsgrad=True, weight_decay)``: torch's own,
+whose order (the running maximum of the raw second moment, bias-corrected
+after it; the weight decay added to the gradient) is the one the JAX
+package's ``scale_by_amsgrad_torch`` reproduces.  The learning rate is the
+reference's per-epoch ``ExponentialLR`` as a staircase on the step count,
+``lr * gamma ** (step // batch_per_epoch)`` (``learning_rate``).  With
+``if_froze_pwc`` the PWC parameters (the pyramid, the flow estimator, the
+context network and the 1x1 convs) take no gradient and no update.
+
+``train_step(state, batch)`` runs ``forward_with_loss`` and its backward
+under ``fp32_numerics`` and one optimizer step; the parameters and the
+optimizer's state are updated in place, and the returned state counts the
+step.  The equivariance pass of the JAX package (``eq_loss_weight``) is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
+from upflow_pytorch_tpu_torch.models.upflow import (
+    UPFlowNet, build_model, forward_with_loss, fp32_numerics)
+
+# the modules frozen by if_froze_pwc (the reference's froze_PWC)
+PWC_FROZEN_ROOTS = ("feature_pyramid_extractor", "flow_estimators",
+                    "context_networks", "conv_1x1")
+METRICS = ("photo_loss", "smooth_loss", "census_loss", "msd_loss")
+
+
+class TrainState(NamedTuple):
+    params: Dict[str, nn.Parameter]  # the model's, updated in place
+    opt_state: Dict[Any, Any]  # the optimizer's per-parameter state
+    step: int
+
+
+def pwc_frozen(name: str) -> bool:
+    """Whether ``if_froze_pwc`` freezes the parameter of that name."""
+    return name.split(".")[0] in PWC_FROZEN_ROOTS
+
+
+def learning_rate(conf: TrainerConfig, step: int) -> float:
+    """The learning rate of step ``step`` (counted from 0)."""
+    return conf.lr * conf.scheduler_gamma ** (
+        step // max(conf.batch_per_epoch, 1))
+
+
+def make_optimizer(conf: TrainerConfig,
+                   named_params: Iterable[Tuple[str, torch.Tensor]],
+                   freeze_pwc: bool = False) -> torch.optim.Adam:
+    """Adam with AMSGrad over the named parameters (the frozen ones left
+    out with ``freeze_pwc``); ``set_learning_rate`` applies the schedule,
+    which the optimizer keeps as ``optimizer.trainer_conf``."""
+    params = [p for name, p in named_params
+              if not (freeze_pwc and pwc_frozen(name))]
+    optimizer = torch.optim.Adam(params, lr=conf.lr, amsgrad=True,
+                                 weight_decay=conf.weight_decay)
+    optimizer.trainer_conf = conf
+    return optimizer
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, step: int) -> None:
+    lr = learning_rate(optimizer.trainer_conf, step)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+def create_train_state(model_conf: UPFlowConfig,
+                       trainer_conf: TrainerConfig = TrainerConfig(),
+                       device=None, weights: Optional[str] = None,
+                       seed: Optional[int] = None
+                       ) -> Tuple[UPFlowNet, TrainState, torch.optim.Adam]:
+    """The model on ``device`` (CUDA unless ``"cpu"`` is asked for), from
+    the ``.npz`` snapshot ``weights`` or Kaiming-normal weights drawn from
+    ``seed`` (``trainer_conf.seed`` by default), its optimizer, and the
+    state at step 0."""
+    seed = trainer_conf.seed if seed is None else seed
+    model = build_model(model_conf, device, weights, seed)
+    freeze = model_conf.if_froze_pwc
+    for name, p in model.named_parameters():
+        p.requires_grad_(not (freeze and pwc_frozen(name)))
+    optimizer = make_optimizer(trainer_conf, model.named_parameters(),
+                               freeze)
+    return (model, TrainState(dict(model.named_parameters()),
+                              optimizer.state, 0), optimizer)
+
+
+def make_train_step(model: UPFlowNet, optimizer: torch.optim.Optimizer):
+    """``train_step(state, batch) -> (state, metrics)``: one optimizer step
+    on ``batch`` (``forward_with_loss``'s keys).  ``metrics`` holds the
+    loss terms present (``photo_loss``, ``smooth_loss``, ``census_loss``,
+    ``msd_loss``) and ``total_loss``, as detached 0-dim tensors."""
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        set_learning_rate(optimizer, state.step)
+        model.zero_grad(set_to_none=True)
+        out = forward_with_loss(model, batch)
+        with fp32_numerics():
+            out["total_loss"].backward()
+        optimizer.step()
+        metrics = {k: out[k].detach() for k in METRICS
+                   if out[k] is not None}
+        metrics["total_loss"] = out["total_loss"].detach()
+        return TrainState(state.params, optimizer.state,
+                          state.step + 1), metrics
+
+    return train_step
