@@ -71,10 +71,35 @@ Phases, each of which must pass:
    optimizer, copies, other) and each kernel op's backward rule, and the
    peak memory.  Then 25 fp32 steps from seeded weights (lr 2e-4) on one
    pair must lower the total loss.
+7. The Trainer (``train/trainer.py``), at fp32.  (a) Phase 6's recipe
+   from the checkpoint with the equivariance pass (weight 0.1,
+   occlusion-masked), B=4 256x832 crops of 8 pairs, two steps an epoch,
+   evaluating phase 5's two B=1 375x1242 pairs padded to multiples of 64:
+   run A trains to step 2 (one eval line, one checkpoint), run B resumes
+   it in a fresh ``Trainer`` (step 2, loader cursor (1, 0)) and trains to
+   step 4, run C trains 0 -> 4 in another directory.  B's total and
+   equivariance losses at steps 3 and 4 must be within 1e-4 relative of
+   C's and its parameters' cosine with C's >= 0.99999; every step launches
+   the teacher forward's kernels and the student forward's (no occlusion
+   warp), every term is finite and the equivariance loss positive, no
+   plain version runs on a CUDA tensor.  It prints the step's ms, run C's
+   peak memory, the eval line and one profiled step split by kind
+   (teacher forward, student forward, backward rules, convolutions, ...).
+   (b) C's model exported as a zip and a legacy ``.pth``, each loaded by
+   ``Trainer.load_pretrained`` into a fresh model (every key loaded, none
+   skipped), serves a B=1 375x1242 request with C's flow; at bf16 the
+   first forward after the load packs all 19 kernel-route convs and gives
+   the flow of a bf16 model built from C's weights.  (c) The JAX package's
+   ``tests/test_synthetic_learning.py`` recipe from seeded weights through
+   ``make_train_step``: each kernel of its path is first held against its
+   plain version at every call of a forward at the run's shapes (B=4
+   64x160, levels 1x3 .. 16x40); then 60 steps must take the EPE against
+   the exact flow from above 3x the mean flow to below 1.2 px and below
+   0.25x its start.
 
 The line before the last is the card's name and power limit; the line
 before that holds the kernels' numbers as JSON, and the one before that
-the training step's.  The last line,
+the training step's (with the Trainer's under ``trainer``).  The last line,
 ``{"ok": true, "device": ...}``, is printed only when every check passed;
 any failure exits non-zero without it.
 """
@@ -87,6 +112,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1369,7 +1395,8 @@ def profile_train_step(k, step_fn, state, batch, tag):
     """One training step under torch.profiler: device time split by kind
     and by backward rule.  Every device kernel counts by its name
     (``kernel_kind``), except those that the profiler links to a host op
-    inside a backward rule's range (``backward_ranges``) or the
+    inside a backward rule's range (``backward_ranges``), a forward's range
+    (``forward_ranges``: "teacher forward", "student forward") or the
     optimizer's step, which count there.  Returns (state, split, rules,
     busy ms, wall ms); the split and rules are None when the profiler saw
     no device time."""
@@ -1393,7 +1420,8 @@ def profile_train_step(k, step_fn, state, batch, tag):
         # as a user annotation: a span, not a kernel
         if e.device_type == DeviceType.CUDA and not (
                 getattr(e, "is_user_annotation", False)
-                or e.name.startswith(("upflow_bwd::", "Optimizer."))):
+                or e.name.startswith(("upflow_bwd::", "upflow_fwd::",
+                                      "Optimizer."))):
             us = e.time_range.elapsed_us()
             kinds[kernel_kind(e.name)] += us
             by_name[e.name] = by_name.get(e.name, 0.0) + us
@@ -1404,6 +1432,8 @@ def profile_train_step(k, step_fn, state, batch, tag):
         while parent is not None and scope is None:
             if parent.name.startswith("upflow_bwd::"):
                 scope = parent.name[len("upflow_bwd::"):]
+            elif parent.name.startswith("upflow_fwd::"):
+                scope = parent.name[len("upflow_fwd::"):] + " forward"
             elif parent.name.startswith("Optimizer.step"):
                 scope = "optimizer"
             parent = parent.cpu_parent
@@ -1413,6 +1443,8 @@ def profile_train_step(k, step_fn, state, batch, tag):
             kinds[kernel_kind(kern.name)] -= kern.duration
             if scope == "optimizer":
                 kinds["optimizer"] += kern.duration
+            elif scope.endswith(" forward"):
+                kinds[scope] = kinds.get(scope, 0.0) + kern.duration
             else:
                 kinds["backward rules"] += kern.duration
                 rules[scope] += kern.duration
@@ -1550,12 +1582,463 @@ def phase_train(k):
     return out
 
 
+# phase 7: the Trainer.  7a trains phase 6's recipe from the checkpoint
+# with the equivariance pass (eq_loss_weight 0.1, occlusion-masked) at B=4
+# 256x832 crops of 8 synthetic pairs, evaluating on phase 5's two B=1
+# 375x1242 pairs (padded to multiples of 64) at every two-step epoch: run
+# A to step 2, run B resumes A's checkpoint and goes on to step 4, run C
+# trains 0 -> 4 in another directory.  On the card a backward's sums are
+# not bit-reproducible (scatter-adds, cuDNN), so B's step 3 is held
+# against A's step 3 from the same state (forwards are) and B's
+# parameters against C's by tolerance.
+TRAINER_DATA = dict(n_pairs=8, seed=11, raw_hw=(320, 896), crop_hw=(256, 832))
+TRAINER_CONF = dict(batchsize=4, batch_per_epoch=2, batch_per_print=1,
+                    eq_loss_weight=0.1, eq_loss_use_occ=True, num_workers=2,
+                    eval_pad_to_multiple=64)
+# an equivariance step runs the teacher's forward (forward_with_loss: a
+# forward and the occlusion check) and the student's (a forward on the
+# transformed pair, no occlusion check)
+EQ_LAUNCHES_PER_STEP = {n: c + (0 if n == "warp" else c)
+                        for n, c in SGU_LAUNCHES_PER_FORWARD.items()}
+RESUME_LOSS_BAR, RESUME_COSINE_BAR = 1e-4, 0.99999
+# 7b: a bf16 forward at B=1 375x1242 runs conv3x3_seg in 19 ConvBlocks,
+# each of which packs its weights at the first forward after a load
+BF16_PACKERS = 19
+# 7c: the JAX package's tests/test_synthetic_learning.py, from seeded
+# Kaiming-normal weights: its recipe, data, batch, learning rate, steps and
+# bars (EPE against the exact flow starts above 3x the mean flow, ends
+# below 1.2 px and below 0.25x its start)
+LEARN_KNOBS = dict(if_norm_before_cost_volume=True,
+                   norm_moments_across_channels=False,
+                   norm_moments_across_images=False, if_sgu_upsample=True,
+                   if_use_cor_pytorch=True, photo_loss_census_weight=1.0,
+                   multi_scale_distillation_weight=0.01,
+                   multi_scale_distillation_style="upup",
+                   multi_scale_distillation_occ=True,
+                   if_use_boundary_warp=True)
+LEARN_DATA = dict(n_pairs=8, seed=0, raw_hw=(96, 192), crop_hw=(64, 160))
+LEARN_BATCH, LEARN_STEPS, LEARN_LR, LEARN_EPE_AT = 4, 60, 1e-4, (30, 60)
+# per step of that path (if_use_cor_pytorch: the plain correlation at
+# every level, the feature warp before it at levels 1-4)
+LEARN_LAUNCHES_PER_STEP = dict(SGU_LAUNCHES_PER_FORWARD, correlation=10,
+                               corr_norm=0)
+# kernel -> (the module attribute the model calls, the plain version's,
+# bar on the largest difference: None for bit for bit, else a share of
+# max|plain|, phase 2's bars)
+RECORDED = {"correlation": (("upflow", "correlation"),
+                            ("corr", "correlation_plain"), 1e-5),
+            "feature_warp": (("fw", "feature_warp"),
+                             ("fw", "feature_warp_plain"), None),
+            "warp": (("warp", "warp"), ("warp", "warp_plain"), 1e-6),
+            "sgu_blend": (("sb", "sgu_blend_pair"),
+                          ("sb", "sgu_blend_pair_plain"), None),
+            "sgu_final": (("upflow", "sgu_final"),
+                          ("sf", "sgu_final_plain"), 1e-4)}
+
+
+class PairDataset:
+    """Items of a ``make_dataset`` batch (without its ground truth)."""
+
+    def __init__(self, data):
+        self.data = {key: v for key, v in data.items() if key != "gt_flow"}
+
+    def __len__(self):
+        return len(self.data["im1"])
+
+    def __getitem__(self, i):
+        return {key: v[i] for key, v in self.data.items()}
+
+
+@contextlib.contextmanager
+def forward_ranges(k):
+    """Wraps the train step's two forwards in profiler ranges:
+    ``upflow_fwd::teacher`` (``forward_with_loss``) and
+    ``upflow_fwd::student`` (the equivariance pass)."""
+    saved = (k.step.forward_with_loss, k.step.equivariance_pass)
+
+    def ranged(name, fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function("upflow_fwd::" + name):
+                return fn(*args, **kwargs)
+        return run
+
+    k.step.forward_with_loss = ranged("teacher", saved[0])
+    k.step.equivariance_pass = ranged("student", saved[1])
+    try:
+        yield
+    finally:
+        k.step.forward_with_loss, k.step.equivariance_pass = saved
+
+
+def make_trainer(k, exp_dir, dataset, bench):
+    """A ``Trainer`` of phase 6's recipe with the equivariance pass, from
+    the checkpoint's weights, whose every step is timed and has its
+    launches counted.  Returns the trainer, its untimed step function and
+    the run's record (log lines, steps)."""
+    logs = []
+
+    def log(line):
+        print("  log %s" % line, flush=True)
+        logs.append(line)
+
+    trainer = k.trainer.Trainer(
+        k.UPFlowConfig().updated(TRAIN_KNOBS),
+        k.TrainerConfig(exp_dir=str(exp_dir), **TRAINER_CONF), dataset,
+        bench, log_fn=log, weights=str(NPZ))
+    step_fn = trainer.train_step
+    steps = []
+
+    def timed(state, batch):
+        before = {n: fn.launches for n, fn in k.dispatch.items()}
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        steps.append(dict(
+            step=state.step, ms=(time.perf_counter() - t0) * 1e3,
+            launches={n: fn.launches - before[n]
+                      for n, fn in k.dispatch.items()},
+            metrics={key: float(v) for key, v in metrics.items()}))
+        return state, metrics
+
+    trainer.train_step = timed
+    return trainer, step_fn, dict(logs=logs, steps=steps)
+
+
+def same_state(a, b) -> bool:
+    """Whether two state dicts (nested) hold the same values, tensors bit
+    for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[x], b[x])
+                                             for x in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_state, a, b))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and torch.equal(a, b.to(a.device))
+    return a == b
+
+
+def rel_diff(run_x, run_y, step, key):
+    x = next(s for s in run_x["steps"] if s["step"] == step)["metrics"][key]
+    y = next(s for s in run_y["steps"] if s["step"] == step)["metrics"][key]
+    return abs(x - y) / abs(y)
+
+
+def phase_trainer(k, tmp, fp32_busy):
+    """Phase 7a: train, resume and compare, with the equivariance pass.
+    Run A trains to step 2 (evaluation, checkpoint); run B, a fresh
+    trainer in A's directory, resumes A's checkpoint, which must give A's
+    parameters and optimizer state bit for bit, and trains to step 4; A
+    goes on to step 3 from the same state, the uninterrupted step B's
+    step 3 is held against; run C trains 0 -> 4 in another directory.
+    Returns C's trainer, an eval pair and the trainer JSON object."""
+    data = k.synthetic.make_dataset(**TRAINER_DATA)
+    dataset = PairDataset(data)
+    kw = dict(EVAL_REQUESTS["b1_375x1242_native"][0])
+    pairs = k.synthetic.make_dataset(kw.pop("n_pairs"), **kw)
+    ones = np.ones_like(pairs["gt_flow"][..., :1])
+    bench = k.bench.EvaluationBench([k.bench.EvalSample(
+        pairs["im1"][i:i + 1], pairs["im2"][i:i + 1],
+        pairs["gt_flow"][i:i + 1], ones[i:i + 1], pairs["gt_flow"][i:i + 1],
+        ones[i:i + 1]) for i in range(len(ones))])
+    for fn in k.plain.values():
+        fn.cuda_calls = 0
+    a, _, run_a = make_trainer(k, tmp / "ab", dataset, bench)
+    a.train(2)
+    after_a = k.state_io.latest_step(a.ckpt_dir)
+    b, _, run_b = make_trainer(k, tmp / "ab", dataset, bench)
+    resumed = b.try_resume()
+    start, cursor = b.state.step, b.loader.state()
+    cursor = (cursor["epoch"], cursor["position"])
+    restored = (same_state(a.model.state_dict(), b.model.state_dict()),
+                same_state(a.optimizer.state_dict(),
+                           b.optimizer.state_dict()))
+    a.train(3)
+    b.train(4)
+    a.loader.close()
+    b.loader.close()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer_c, step_fn, run_c = make_trainer(k, tmp / "c", dataset, bench)
+    trainer_c.train(4)
+    trainer_c.loader.close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    plain_calls = {n: fn.cuda_calls for n, fn in k.plain.items()}
+
+    evals = [line for line in run_a["logs"] if line.startswith("eval @")]
+    check(len(evals) == 1 and evals[0].startswith("eval @2: EPE All=")
+          and after_a == 2,
+          "trainer run A: one epoch, one eval line (%s), checkpoint at step "
+          "%s" % (evals, after_a))
+    check(resumed is True and start == 2 and cursor == (1, 0)
+          and restored == (True, True),
+          "trainer run B: try_resume %s at step %d, loader cursor %s (want "
+          "True, 2, (1, 0)); parameters and optimizer state equal to A's at "
+          "step 2 bit for bit: %s" % (resumed, start, cursor, restored))
+    runs = (run_a, run_b, run_c)
+    steps = [s for run in runs for s in run["steps"]]
+    check([s["step"] for s in steps] == [1, 2, 3, 3, 4, 1, 2, 3, 4],
+          "trainer runs A, B, C took steps %s" % [s["step"] for s in steps])
+    bad = [(s["step"], s["launches"]) for s in steps
+           if s["launches"] != EQ_LAUNCHES_PER_STEP]
+    check(not bad, "trainer: every equivariance step launches %s (the "
+          "teacher's forward and the student's; differing: %s)"
+          % (EQ_LAUNCHES_PER_STEP, bad))
+    finite = all(np.isfinite(v) for s in steps for v in s["metrics"].values())
+    check(finite and all(s["metrics"]["eq_loss"] > 0 for s in steps),
+          "trainer: every loss term finite, eq_loss > 0 (eq_loss %s)"
+          % [round(s["metrics"]["eq_loss"], 6) for s in steps])
+    check(all(v == 0 for v in plain_calls.values()),
+          "trainer: no plain version ran on CUDA tensors: %s" % plain_calls)
+    resumed_rel = {key: rel_diff(run_b, run_a, 3, key)
+                   for key in ("total_loss", "eq_loss")}
+    check(max(resumed_rel.values()) <= RESUME_LOSS_BAR,
+          "trainer: resumed B's step 3 against A's uninterrupted step 3 from "
+          "the same state, relative difference %s (<= %g)"
+          % ({key: "%.2e" % v for key, v in resumed_rel.items()},
+             RESUME_LOSS_BAR))
+    pb = torch.cat([p.detach().double().flatten()
+                    for p in b.model.parameters()])
+    pc = torch.cat([p.detach().double().flatten()
+                    for p in trainer_c.model.parameters()])
+    cos = float(pb @ pc / (pb.norm() * pc.norm()))
+    check(cos >= RESUME_COSINE_BAR, "trainer: parameters of B and C after "
+          "step 4, cosine 1 - %.3e (>= %g)" % (1 - cos, RESUME_COSINE_BAR))
+    # two runs' steps differ once a backward has run: scatter-adds and
+    # cuDNN's backward sum in no fixed order, and Adam's first steps
+    # move every weight by about lr whatever its gradient's size
+    spread = {"%s@%d %s" % (key, step, pair): rel_diff(x, y, step, key)
+              for key in ("total_loss", "eq_loss")
+              for pair, x, y, at in (("A-C", run_a, run_c, (1, 2, 3)),
+                                     ("B-C", run_b, run_c, (3, 4)))
+              for step in at}
+    print("  info trainer: relative loss differences between runs (none at "
+          "step 1, where no backward has run yet): %s"
+          % {key: "%.2e" % v for key, v in spread.items()})
+    times = [s["ms"] for run in runs for s in run["steps"][1:]]
+    print("  info trainer: equivariance step %.1f ms median (%.1f-%.1f) "
+          "over %d steps (each run's first left out); peak memory of run C "
+          "%.2f GiB; eval line %s"
+          % (statistics.median(times), min(times), max(times), len(times),
+             peak, evals[0] if evals else None))
+
+    batch = {key: torch.from_numpy(v[:4]).to(DEV)
+             for key, v in data.items() if key != "gt_flow"}
+    with forward_ranges(k):
+        _, split, rules, busy, wall = profile_train_step(
+            k, step_fn, trainer_c.state, batch, "trainer eq")
+    student = None if split is None else split.get("student forward", 0.0)
+    increment = (None if busy is None or fp32_busy is None
+                 else (busy - fp32_busy) / busy)
+    print("  info trainer eq step: student forward %s device ms (%s of "
+          "device time); device time beyond phase 6's fp32 step %s ms (%s)"
+          % (fmt(student), fmt(None if student is None else student / busy),
+             fmt(None if increment is None else busy - fp32_busy),
+             fmt(increment)))
+    out = dict(batch=[4, 256, 832], eq_loss_weight=0.1,
+               step_ms_median=statistics.median(times),
+               step_ms_min=min(times), step_ms_max=max(times),
+               timed_steps=len(times), peak_memory_gib=peak,
+               launches_per_step=EQ_LAUNCHES_PER_STEP,
+               resume_step3_rel_loss=resumed_rel, resume_param_cosine=cos,
+               run_rel_loss_spread=spread,
+               eval_line=evals[0] if evals else None,
+               profiled_step=dict(wall_ms=wall, device_ms=busy,
+                                  split_ms=split, backward_rule_ms=rules),
+               student_forward_share=(None if student is None
+                                      else student / busy),
+               eq_device_share=increment)
+    return trainer_c, (pairs["im1"][:1], pairs["im2"][:1]), out
+
+
+def phase_pth(k, model_c, pair, tmp):
+    """Phase 7b: C's model exported with ``params_to_torch_state_dict`` as
+    a zip and a legacy ``.pth``, each loaded by ``Trainer.load_pretrained``
+    into a fresh model, which must serve C's flow; then at bf16 from the
+    zip file, after a forward with the fresh weights: the first forward
+    after the load repacks every kernel-route conv and gives the flow of a
+    bf16 model built from C's weights (an ``.npz`` snapshot of them)."""
+    sd = k.torch_import.params_to_torch_state_dict(model_c)
+    paths = {"zip": tmp / "c_zip.pth", "legacy": tmp / "c_legacy.pth"}
+    torch.save(sd, paths["zip"])
+    torch.save(sd, paths["legacy"], _use_new_zipfile_serialization=False)
+    want = k.upflow.forward(model_c, *pair)
+    out = {}
+
+    def fresh(knobs, name):
+        trainer = k.trainer.Trainer(
+            k.UPFlowConfig().updated(knobs),
+            k.TrainerConfig(exp_dir=str(tmp / name), **TRAINER_CONF),
+            [], log_fn=lambda line: print("  log %s" % line))
+        trainer.loader.close()
+        return trainer
+
+    for fmt_name, path in paths.items():
+        trainer = fresh(TRAIN_KNOBS, "pth_" + fmt_name)
+        report = trainer.load_pretrained(str(path))
+        got = k.upflow.forward(trainer.model, *pair)
+        differ = sum(int((got[key] != want[key]).sum())
+                     for key in ("flow_f_out", "flow_b_out"))
+        mean = max((got[key] - want[key]).abs().mean().item()
+                   for key in ("flow_f_out", "flow_b_out"))
+        check(len(report["loaded"]) == len(sd) and not report["skipped"],
+              "pth %s: load_pretrained loaded %d of %d keys, skipped %s"
+              % (fmt_name, len(report["loaded"]), len(sd),
+                 report["skipped"]))
+        check(differ == 0 or mean < 1e-6,
+              "pth %s: B=1 375x1242 flow of the loaded model against C's: "
+              "%d values differ, mean |diff| %.3e px%s"
+              % (fmt_name, differ, mean, "" if differ == 0 else
+                 " (not bit-equal: cuDNN's forward is not reproducible "
+                 "here; mean below 1e-6 px)"))
+        out[fmt_name] = dict(loaded=len(report["loaded"]),
+                             skipped=len(report["skipped"]),
+                             values_differ=differ, mean_abs_diff=mean)
+
+    bf16 = dict(TRAIN_KNOBS, compute_dtype="bfloat16")
+    trainer = fresh(bf16, "pth_bf16")
+    k.upflow.forward(trainer.model, *pair)
+    report = trainer.load_pretrained(str(paths["zip"]))
+    packs = k.seg.pack_weight.calls
+    got = k.upflow.forward(trainer.model, *pair)
+    packs = k.seg.pack_weight.calls - packs
+    npz = tmp / "c.npz"
+    k.npz_io.save_params_npz(str(npz), model_c)
+    ref = k.upflow.forward(k.upflow.build_model(
+        k.UPFlowConfig().updated(bf16), weights=str(npz)), *pair)
+    differ = sum(int((got[key] != ref[key]).sum())
+                 for key in ("flow_f_out", "flow_b_out"))
+    drift = (got["flow_f_out"] - want["flow_f_out"]).abs().mean().item()
+    check(len(report["loaded"]) == len(sd) and packs == BF16_PACKERS
+          and differ == 0,
+          "pth bf16: loaded %d keys; the first forward after the load "
+          "packed %d convs (%d); %d flow values differ from a bf16 model "
+          "built from C's weights; bf16 against fp32 flow mean |diff| %.4f "
+          "px" % (len(report["loaded"]), packs, BF16_PACKERS, differ, drift))
+    out["bf16"] = dict(packs=packs, values_differ=differ,
+                       mean_drift_vs_fp32=drift)
+    return out
+
+
+@contextlib.contextmanager
+def recording(k):
+    """Records every call of the kernels of ``RECORDED`` (tensor inputs
+    cloned) while the model runs; yields {kernel: [(args, kwargs)]}."""
+    calls = {name: [] for name in RECORDED}
+    saved = []
+    for name, ((owner, attr), _, _) in RECORDED.items():
+        mod = getattr(k, owner)
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+
+        def spy(*args, name=name, fn=fn, **kwargs):
+            calls[name].append(([a.detach().clone() if torch.is_tensor(a)
+                                 else a for a in args], kwargs))
+            return fn(*args, **kwargs)
+
+        # the kernel's launch path counts on the module attribute, now the
+        # spy: a copy of the counters takes this comparison's launches
+        spy.__dict__.update(vars(fn))
+        setattr(mod, attr, spy)
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def phase_learn(k):
+    """Phase 7c: every kernel of the learning run's path held against its
+    plain version at the run's level shapes, then the JAX package's
+    synthetic-learning recipe trained through ``make_train_step``.
+    Returns the EPE curve."""
+    data = k.synthetic.make_dataset(**LEARN_DATA)
+    gt = data.pop("gt_flow")
+    data = {key: torch.from_numpy(v).to(DEV) for key, v in data.items()}
+    conf = k.UPFlowConfig().updated(LEARN_KNOBS)
+    model, state, opt = k.step.create_train_state(
+        conf, k.TrainerConfig(lr=LEARN_LR), seed=0)
+
+    with recording(k) as calls:
+        k.upflow.forward(model, data["im1"][:LEARN_BATCH],
+                         data["im2"][:LEARN_BATCH])
+    for name, ((owner, attr), (p_owner, p_attr), bar) in RECORDED.items():
+        kernel = getattr(getattr(k, owner), attr)
+        plain = getattr(getattr(k, p_owner), p_attr)
+        shapes, errs, failed = [], [], []
+        for args, kwargs in calls[name]:
+            got, ref = kernel(*args, **kwargs), plain(*args, **kwargs)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err = max((g.float() - r.float()).abs().max().item()
+                      for g, r in zip(got, ref))
+            scale = max(r.float().abs().max().item() for r in ref)
+            shapes.append(tuple(args[0].shape))
+            errs.append(err)
+            if not (all(torch.equal(g, r) for g, r in zip(got, ref))
+                    if bar is None else err <= bar * scale):
+                failed.append((shapes[-1], err))
+        check(len(shapes) == LEARN_LAUNCHES_PER_STEP[name] and not failed,
+              "learning path: %s against its plain version at all %d calls "
+              "of a forward (%s), shapes %s: max abs err %.3e; failing %s"
+              % (name, len(shapes), "bit for bit" if bar is None
+                 else "bar %g x max|out|" % bar, sorted(set(shapes)),
+                 max(errs, default=0.0), failed))
+    for fn in k.plain.values():
+        fn.cuda_calls = 0
+
+    step_fn = k.step.make_train_step(model, opt)
+
+    def eval_epe():
+        es = [k.synthetic.epe(k.upflow.forward(
+            model, data["im1"][i:i + LEARN_BATCH],
+            data["im2"][i:i + LEARN_BATCH])["flow_f_out"].cpu().numpy(),
+            gt[i:i + LEARN_BATCH])
+            for i in range(0, len(gt), LEARN_BATCH)]
+        return float(np.mean(es))
+
+    gt_mag = float(np.linalg.norm(gt, axis=-1).mean())
+    curve = [(0, eval_epe())]
+    rng = np.random.RandomState(1)
+    bad = []
+    t0 = time.perf_counter()
+    for i in range(1, LEARN_STEPS + 1):
+        idx = torch.from_numpy(rng.choice(len(gt), LEARN_BATCH,
+                                          replace=False)).to(DEV)
+        before = {n: fn.launches for n, fn in k.dispatch.items()}
+        state, metrics = step_fn(state, {key: v[idx]
+                                         for key, v in data.items()})
+        delta = {n: fn.launches - before[n] for n, fn in k.dispatch.items()}
+        if delta != LEARN_LAUNCHES_PER_STEP or not np.isfinite(
+                float(metrics["total_loss"])):
+            bad.append((i, delta, float(metrics["total_loss"])))
+        if i in LEARN_EPE_AT:
+            curve.append((i, eval_epe()))
+    seconds = time.perf_counter() - t0
+    plain_calls = sum(fn.cuda_calls for fn in k.plain.values())
+    check(not bad and plain_calls == 0,
+          "learning: every step launches %s with a finite loss, no plain "
+          "version on CUDA tensors (%d calls; differing steps %s)"
+          % (LEARN_LAUNCHES_PER_STEP, plain_calls, bad[:3]))
+    e0, e1 = curve[0][1], curve[-1][1]
+    print("  info learning: EPE against the exact flow %s (mean flow %.2f "
+          "px); %d steps in %.1f s"
+          % (", ".join("step %d %.3f" % c for c in curve), gt_mag,
+             LEARN_STEPS, seconds))
+    check(e0 > 3.0 * gt_mag and e1 < 1.2 and e1 < 0.25 * e0,
+          "learning: EPE %.3f -> %.3f px (start > 3 x %.2f, end < 1.2 and "
+          "< 0.25 x start)" % (e0, e1, gt_mag))
+    return dict(epe=curve, gt_mean_px=gt_mag, steps=LEARN_STEPS,
+                seconds=seconds, batch=[LEARN_BATCH, 64, 160])
+
+
 class Port:
     """The port's modules, imported once the card is known to be there."""
 
     def __init__(self):
         sys.path.insert(0, str(ROOT))
         from upflow_pytorch_tpu_torch import _build
+        from upflow_pytorch_tpu_torch.checkpoint import (
+            npz_io, state_io, torch_import)
         from upflow_pytorch_tpu_torch.config import UPFlowConfig
         from upflow_pytorch_tpu_torch.data import synthetic
         from upflow_pytorch_tpu_torch.eval import bench
@@ -1579,6 +2062,8 @@ class Port:
             warp_ops, cn, corr, fw, warp)
         self.sb, self.sf, self.conv_ops, self.seg = sb, sf, conv_ops, seg
         self.synthetic, self.bench, self.trainer = synthetic, bench, trainer
+        self.npz_io, self.state_io, self.torch_import = (
+            npz_io, state_io, torch_import)
         self.dispatch = {"correlation": corr.correlation,
                          "feature_warp": fw.feature_warp,
                          "corr_norm": cn.corr_norm, "warp": warp.warp,
@@ -1707,6 +2192,14 @@ def main() -> int:
     del models, pairs
     print("phase 6: train", flush=True)
     train = phase_train(k)
+    print("phase 7: the Trainer", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer_c, pair, train["trainer"] = phase_trainer(
+            k, Path(tmp), train["fp32"]["profiled_step"]["device_ms"])
+        train["trainer"]["pth"] = phase_pth(k, trainer_c.model, pair,
+                                            Path(tmp))
+        del trainer_c
+    train["trainer"]["learning"] = phase_learn(k)
 
     print(json.dumps({"forward_ms": timing,
                       "device_kernels_per_forward": kernels_per_forward}))

@@ -175,10 +175,15 @@ def test_port_imports_no_jax_at_run_time():
 
 
 def test_port_sources_import_no_jax():
-    """No import statement of the port or of chip_smoke.py names JAX,
-    flax or the JAX package."""
+    """No import statement of the port, of chip_smoke.py or of the port's
+    scripts names JAX, flax or the JAX package; the one exception is
+    scripts/torch_eval_jax_reference.py, which runs the JAX package to
+    write the reference EPE that chip_smoke.py reads."""
     files = sorted((ROOT / "upflow_pytorch_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert ROOT / "scripts" / "torch_train_synthetic.py" in scripts
+    files += [p for p in scripts if p.name != "torch_eval_jax_reference.py"]
     banned = ("jax", "jaxlib", "flax", "upflow_pytorch_tpu")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

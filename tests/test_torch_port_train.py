@@ -302,8 +302,10 @@ def test_create_train_state_needs_a_gpu(monkeypatch):
 
 
 def test_trainer_config_mirrors_jax():
-    """The port's ``TrainerConfig`` keeps the JAX package's names and
-    defaults for every field it has."""
+    """The port's ``TrainerConfig`` has every field of the JAX package's,
+    with the same names and defaults."""
     jdefaults = JaxTrainerConfig()
+    assert ({f.name for f in dataclasses.fields(TrainerConfig)}
+            == {f.name for f in dataclasses.fields(JaxTrainerConfig)})
     for f in dataclasses.fields(TrainerConfig):
         assert getattr(TrainerConfig(), f.name) == getattr(jdefaults, f.name)

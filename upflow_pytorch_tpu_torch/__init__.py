@@ -3,5 +3,7 @@
 A port of ``upflow_pytorch_tpu`` (JAX) that imports neither JAX nor that
 package.  Entry points: ``models.upflow.build_model`` and
 ``models.upflow.forward`` (inference), ``train.step.create_train_state``
-and ``train.step.make_train_step`` (training).
+and ``train.step.make_train_step`` (one training step), and
+``train.trainer.Trainer`` (the training loop with evaluation,
+checkpoints, resume and the ``.pth`` import).
 """

@@ -1,1 +1,2 @@
-"""Weight loading: ``.npz`` snapshots of the JAX package -> state dicts."""
+"""Weights and checkpoints: ``.npz`` snapshots shared with the JAX
+package, the reference's ``.pth`` import and training checkpoints."""

@@ -1,9 +1,9 @@
-"""Flax parameter paths -> the port's state-dict keys.
+"""Flax parameter paths <-> the port's state-dict keys.
 
 The port's module names follow the reference torch state-dict keys
 (``feature_pyramid_extractor.convs.L.j.0``, ``flow_estimators.convN.0``,
 ``context_networks.convs.i.0``, ``conv_1x1.i.0``), so the mapping is the
-reference key map plus HWIO -> OIHW kernels.
+reference key map plus HWIO <-> OIHW kernels.
 """
 
 from __future__ import annotations
@@ -35,6 +35,48 @@ def torch_key_for_flax_path(path: Tuple[str, ...]) -> Optional[str]:
     if root == "sgu_output_conv":
         return "sgi_model.upsample_output_conv.%d.0" % int(path[1][4:])
     return None
+
+
+def flax_path_for_torch_key(key: str) -> Optional[Tuple[str, ...]]:
+    """The flax module path of a reference module prefix (the inverse of
+    ``torch_key_for_flax_path``); None for a prefix it does not map."""
+    parts = key.split(".")
+    if len(parts) < 3:
+        return None
+    if parts[0] == "feature_pyramid_extractor" and len(parts) > 3:
+        return ("feature_pyramid_extractor",
+                "level%s_conv%s" % (parts[2], parts[3]), "conv")
+    if parts[0] == "flow_estimators":
+        return ("flow_estimators", parts[1], "conv")
+    if parts[0] == "context_networks":
+        return ("context_networks", "conv" + parts[2], "conv")
+    if parts[0] == "conv_1x1":
+        return ("conv_1x1_" + parts[1], "conv")
+    if parts[:2] == ["sgi_model", "dense_estimator_mask"]:
+        return ("sgu_dense_estimator", "dense", parts[2], "conv")
+    if parts[:2] == ["sgi_model", "upsample_output_conv"]:
+        return ("sgu_output_conv", "conv" + parts[2], "conv")
+    return None
+
+
+def torch_to_flax_flat(state_dict: Dict[str, torch.Tensor]
+                       ) -> Dict[str, np.ndarray]:
+    """Reference torch keys -> '/'-joined flax leaves under ``params/``
+    (the layout of ``load_npz_flat``), kernels in HWIO; raises
+    ``KeyError`` for a key it does not map."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in state_dict.items():
+        prefix, leaf = key.rsplit(".", 1)
+        path = flax_path_for_torch_key(prefix)
+        if path is None or leaf not in ("weight", "bias"):
+            raise KeyError("no flax path for %s" % key)
+        value = value.detach().cpu().numpy()
+        if leaf == "weight":
+            out["/".join(("params",) + path + ("kernel",))] = \
+                value.transpose(2, 3, 1, 0)
+        else:
+            out["/".join(("params",) + path + ("bias",))] = value
+    return out
 
 
 def flax_flat_to_torch(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:

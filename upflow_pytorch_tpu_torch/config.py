@@ -4,13 +4,13 @@ The same knob surface as ``upflow_pytorch_tpu.config.UPFlowConfig``: the 22
 knobs of the reference ``UPFlow_net.config`` with their defaults, the
 extensions below them, and the ``updated`` / ``get_name`` helpers of the
 reference ``tools.abstract_config``; and ``TrainerConfig``, the trainer's
-knobs that the training step reads.
+knobs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 class ConfigBase:
@@ -104,13 +104,38 @@ class UPFlowConfig(ConfigBase):
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig(ConfigBase):
-    """The knobs of the reference ``Trainer.Config`` that the training step
-    reads, with their defaults: Adam (AMSGrad) with ``lr`` and L2
-    ``weight_decay``, the learning rate multiplied by ``scheduler_gamma``
-    every ``batch_per_epoch`` steps, and the seed of the initial weights."""
+    """The reference ``Trainer.Config`` knobs with the JAX package's names
+    and defaults: the run's directory, batch, loader threads, epochs and
+    logging period; Adam (AMSGrad) with ``lr`` and L2 ``weight_decay``,
+    the learning rate multiplied by ``scheduler_gamma`` every
+    ``batch_per_epoch`` steps; the seed of the initial weights and of the
+    loader's order; the in-training evaluation's edge padding; and the
+    equivariance pass (``eq_loss_weight`` 0 = off).
 
+    ``data_axis`` is the number of data-parallel devices.  The port runs
+    on one card until multi-GPU training is ported (slice 11), so any
+    other value raises ``NotImplementedError``."""
+
+    exp_dir: str = "./demo_exp"
+    batchsize: int = 2
+    num_workers: int = 4
+    n_epoch: int = 1000
     batch_per_epoch: int = 500
+    batch_per_print: int = 20
     lr: float = 1e-4
     weight_decay: float = 1e-4
     scheduler_gamma: float = 1.0
+    data_axis: int = 1
     seed: int = 0
+    eval_pad_to_multiple: Optional[int] = 64
+    eq_loss_weight: float = 0.0
+    eq_loss_use_occ: bool = True
+    # 'L1': the reference's masked L1; 'abs_robust': the robust penalty
+    eq_loss_type: str = "abs_robust"
+
+    def __post_init__(self):
+        if self.data_axis != 1:
+            raise NotImplementedError(
+                "data_axis=%d: multi-GPU training is not ported yet (slice "
+                "11); the port trains on one card, data_axis=1"
+                % self.data_axis)

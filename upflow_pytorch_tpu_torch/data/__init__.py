@@ -1,1 +1,2 @@
-"""Data of the port: synthetic pairs with exact ground-truth flow."""
+"""Data of the port: synthetic pairs with exact ground-truth flow, the
+per-item random draws and the resumable batch loader."""

@@ -1,2 +1,2 @@
-"""Training: the step (``step.py``) and the evaluation model
-(``trainer.py``)."""
+"""Training: the step (``step.py``) and the trainer with its evaluation
+model (``trainer.py``)."""

@@ -13,8 +13,11 @@ context network and the 1x1 convs) take no gradient and no update.
 ``train_step(state, batch)`` runs ``forward_with_loss`` and its backward
 under ``fp32_numerics`` and one optimizer step; the parameters and the
 optimizer's state are updated in place, and the returned state counts the
-step.  The equivariance pass of the JAX package (``eq_loss_weight``) is
-not ported yet.
+step.  With ``eq_loss_weight > 0`` the step adds the equivariance pass
+(``losses/equivariance.py``): a student forward on an affine transform of
+the pair, held against the detached teacher outputs of the step's own
+forward, its transforms drawn from the step count
+(``equivariance.step_generator``), so a resumed run draws the same ones.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 import torch.nn as nn
 
 from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
+from upflow_pytorch_tpu_torch.losses.equivariance import (
+    equivariance_pass, step_generator)
 from upflow_pytorch_tpu_torch.models.upflow import (
     UPFlowNet, build_model, forward_with_loss, fp32_numerics)
 
@@ -91,22 +96,33 @@ def create_train_state(model_conf: UPFlowConfig,
                               optimizer.state, 0), optimizer)
 
 
-def make_train_step(model: UPFlowNet, optimizer: torch.optim.Optimizer):
+def make_train_step(model: UPFlowNet, optimizer: torch.optim.Optimizer,
+                    eq_loss_weight: float = 0.0,
+                    eq_loss_use_occ: bool = True,
+                    eq_loss_type: str = "abs_robust"):
     """``train_step(state, batch) -> (state, metrics)``: one optimizer step
     on ``batch`` (``forward_with_loss``'s keys).  ``metrics`` holds the
     loss terms present (``photo_loss``, ``smooth_loss``, ``census_loss``,
-    ``msd_loss``) and ``total_loss``, as detached 0-dim tensors."""
+    ``msd_loss``, and ``eq_loss`` with ``eq_loss_weight > 0``) and
+    ``total_loss``, as detached 0-dim tensors."""
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         set_learning_rate(optimizer, state.step)
         model.zero_grad(set_to_none=True)
         out = forward_with_loss(model, batch)
-        with fp32_numerics():
-            out["total_loss"].backward()
-        optimizer.step()
         metrics = {k: out[k].detach() for k in METRICS
                    if out[k] is not None}
-        metrics["total_loss"] = out["total_loss"].detach()
+        total = out["total_loss"]
+        if eq_loss_weight > 0:
+            eq = eq_loss_weight * equivariance_pass(
+                model, batch, out, step_generator(state.step),
+                use_occ=eq_loss_use_occ, loss_type=eq_loss_type)
+            metrics["eq_loss"] = eq.detach()
+            total = total + eq
+        with fp32_numerics():
+            total.backward()
+        optimizer.step()
+        metrics["total_loss"] = total.detach()
         return TrainState(state.params, optimizer.state,
                           state.step + 1), metrics
 

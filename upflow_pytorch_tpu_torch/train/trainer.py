@@ -1,21 +1,45 @@
-"""Training harness of the port; for now its evaluation adapter.
+"""Training harness: the trainer and its evaluation adapter.
 
-``NetEvalModel`` is the port of
-``upflow_pytorch_tpu/train/trainer.py::NetEvalModel``: the network seen
-through the ``EvaluationBench`` contract (the reference's ``Eval_model``,
-``scripts/simple_train.py:56-79``).  The trainer itself comes with the
-training slice.
+Port of ``upflow_pytorch_tpu/train/trainer.py``, the re-design of the
+reference's ``Trainer`` and ``Loss_manager`` (``scripts/simple_train.py``):
+an epoch loop over ``train/step.py``'s step with the per-epoch learning
+rate, running loss meters, evaluation at every epoch's end through
+``NetEvalModel`` and the ``EvaluationBench``, and step-tagged checkpoints
+(``checkpoint/state_io.py``) of the model, the optimizer's state, the step
+and the loader's cursor, from which ``try_resume`` continues a run, which
+the reference cannot do.  The JAX trainer's mesh calls (``replicate``,
+``shard_batch``) have no counterpart: the port trains on one card.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+import os
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
-from upflow_pytorch_tpu_torch.eval.bench import AbsTestModel
+from upflow_pytorch_tpu_torch.checkpoint.state_io import (
+    latest_step, restore_checkpoint, save_checkpoint)
+from upflow_pytorch_tpu_torch.checkpoint.torch_import import (
+    load_pretrained_params)
+from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
+from upflow_pytorch_tpu_torch.data.pipeline import DataLoader
+from upflow_pytorch_tpu_torch.eval.bench import AbsTestModel, EvaluationBench
 from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet, forward
+from upflow_pytorch_tpu_torch.train.step import (
+    TrainState, create_train_state, make_train_step)
+from upflow_pytorch_tpu_torch.utils.meters import AvgMeterGroup
+from upflow_pytorch_tpu_torch.utils.timer import TimeClock
+
+_LOSS_SHORT_NAMES = {
+    "photo_loss": "ph",
+    "smooth_loss": "sm",
+    "census_loss": "cen",
+    "msd_loss": "msd",
+    "eq_loss": "eq",
+    "total_loss": "loss",
+}
 
 
 class NetEvalModel(AbsTestModel):
@@ -58,3 +82,124 @@ class NetEvalModel(AbsTestModel):
 
     def eval_save_result(self, save_name, predflow, *args, **kwargs):
         pass
+
+
+class Trainer:
+    """The training loop over ``train_dataset`` (``__len__`` and
+    ``__getitem__``, or ``item(index, epoch=)``), with ``eval_bench`` run
+    at every epoch's end.  The model is built by ``create_train_state`` on
+    ``device`` (the card unless ``"cpu"`` is asked for), from Kaiming-
+    normal weights drawn from ``trainer_conf.seed`` or the ``.npz``
+    snapshot ``weights``; batches reach it through the loader's device
+    copy."""
+
+    def __init__(self, model_conf: UPFlowConfig, trainer_conf: TrainerConfig,
+                 train_dataset, eval_bench: Optional[EvaluationBench] = None,
+                 log_fn: Callable[[str], None] = print, device=None,
+                 weights: Optional[str] = None):
+        self.model_conf = model_conf
+        self.conf = trainer_conf
+        self.log = log_fn
+        os.makedirs(trainer_conf.exp_dir, exist_ok=True)
+
+        self.model, self.state, self.optimizer = create_train_state(
+            model_conf, trainer_conf, device=device, weights=weights)
+        self.device = next(self.model.parameters()).device
+        self.train_step = make_train_step(
+            self.model, self.optimizer,
+            eq_loss_weight=trainer_conf.eq_loss_weight,
+            eq_loss_use_occ=trainer_conf.eq_loss_use_occ,
+            eq_loss_type=trainer_conf.eq_loss_type)
+        self.loader = DataLoader(
+            train_dataset, batch_size=trainer_conf.batchsize,
+            num_workers=trainer_conf.num_workers, shuffle=True,
+            drop_last=True, seed=trainer_conf.seed, device=self.device)
+        self.eval_bench = eval_bench
+        self.meters = AvgMeterGroup()
+        self.best_metric = float("inf")
+        # one adapter over the trained model itself: its parameters are
+        # updated in place, so evaluation always sees the current ones
+        self._eval_model = NetEvalModel(
+            self.model, pad_to_multiple=trainer_conf.eval_pad_to_multiple)
+
+    # --- checkpoint/resume -------------------------------------------------
+    @property
+    def ckpt_dir(self) -> str:
+        return os.path.join(self.conf.exp_dir, "ckpts")
+
+    def save(self, step: int):
+        payload = {"model": self.model.state_dict(),
+                   "optimizer": self.optimizer.state_dict(),
+                   "step": self.state.step,
+                   "loader": self.loader.state()}
+        save_checkpoint(self.ckpt_dir, step, payload)
+
+    def try_resume(self) -> bool:
+        """Restores the newest checkpoint (parameters, optimizer state,
+        step, loader cursor), before ``train``; False when there is
+        none."""
+        step = latest_step(self.ckpt_dir)
+        if step is None:
+            return False
+        payload = restore_checkpoint(self.ckpt_dir, step,
+                                     map_location=self.device)
+        self.model.load_state_dict(payload["model"])
+        self.optimizer.load_state_dict(payload["optimizer"])
+        self.state = TrainState(self.state.params, self.optimizer.state,
+                                int(payload["step"]))
+        self.loader.set_cursor(int(payload["loader"]["epoch"]),
+                               int(payload["loader"]["position"]))
+        self.log("resumed from step %d" % step)
+        return True
+
+    def load_pretrained(self, pth_path: str) -> Dict[str, List[str]]:
+        """Merges a reference ``.pth`` state dict into the model (relaxed,
+        ``checkpoint/torch_import.py``) and returns the merge's report."""
+        report = load_pretrained_params(pth_path, self.model)
+        self.log("loaded %d keys from %s" % (len(report["loaded"]), pth_path))
+        return report
+
+    # --- loops --------------------------------------------------------------
+    def train(self, total_steps: Optional[int] = None) -> TrainState:
+        """Trains from the state's step up to ``total_steps`` (by default
+        ``n_epoch * batch_per_epoch``)."""
+        total = (total_steps if total_steps is not None
+                 else self.conf.n_epoch * self.conf.batch_per_epoch)
+        timer = TimeClock()
+        timer.start()
+        it = iter(self.loader)
+        for i in range(self.state.step, total):
+            batch = next(it)
+            self.state, metrics = self.train_step(self.state, batch)
+            for name, val in metrics.items():
+                self.meters.update(name, float(val), self.conf.batchsize,
+                                   _LOSS_SHORT_NAMES.get(name))
+            step = i + 1
+            if step % self.conf.batch_per_print == 0:
+                self.log("step %d | %s" % (step,
+                                           self.meters.print_all_losses()))
+            if step % self.conf.batch_per_epoch == 0:
+                timer.end()
+                self.log("=== epoch %d done in %.2fs"
+                         % (step // self.conf.batch_per_epoch,
+                            timer.get_during()))
+                self.evaluate_and_checkpoint(step)
+                self.meters.reset()
+                timer.start()
+        return self.state
+
+    def evaluate_and_checkpoint(self, step: int):
+        if self.eval_bench is not None:
+            res = self.eval_bench(self._eval_model)
+            # padded-bucket metrics are approximate near the padded border
+            # (tests/test_eval_padding.py); acceptance runs evaluate at
+            # native size (eval_pad_to_multiple=None)
+            approx = (" (pad=%d buckets, approximate)"
+                      % self._eval_model.pad_to_multiple
+                      if self._eval_model.pad_to_multiple else "")
+            self.log("eval @%d: EPE All=%.2f F1=%.2f Noc=%.2f Occ=%.2f%s"
+                     % (step, res.epe_all, res.f1, res.epe_noc, res.epe_occ,
+                        approx))
+            if res.epe_all < self.best_metric:
+                self.best_metric = res.epe_all
+        self.save(step)
