@@ -96,6 +96,33 @@ Phases, each of which must pass:
    64x160, levels 1x3 .. 16x40); then 60 steps must take the EPE against
    the exact flow from above 3x the mean flow to below 1.2 px and below
    0.25x its start.
+8. The KITTI and Sintel data path (``scripts/torch_synthetic_trees.py``
+   writes KITTI 2015, KITTI 2012, multiview and Sintel trees from seed 0;
+   their frames and flows are exact).  (a) Every kernel of the CLI path
+   against its plain version under phase 2's bars at the decode-level
+   shapes of B=1 376x1241, 370x1224, 374x1238 and 436x1024 and B=4
+   384x768 (the three cost-volume kernels also at bf16); ``conv3x3_seg``
+   at every bf16 conv shape of those pyramids on its own staging route
+   and, where that is TMA, on the cp.async route too, each shape's route
+   printed, and a bf16 forward at each size launching it as the shapes
+   say.  (b) The native PNG decoder's state (``native: built`` and its
+   path, or its build error); built, it decodes every PNG of the trees
+   as the Python codec does, bit for bit, and both are timed on a
+   375x1242 PNG whose rows use filters 1-4.  (c)
+   ``scripts/torch_kitti_eval.py`` with a ``.pth`` of the checkpoint on
+   the KITTI 2015 tree at native size and padded to multiples of 64
+   (EPE-all and EPE-noc within 0.02 px of the JAX package's,
+   ``upflow_pytorch_tpu_torch/eval/jax_dataset_reference.json``, EPE-occ
+   within 0.1 px, F1 within 0.5 points), the 2012 pair and the 2015 test
+   split; launches counted per lane, ms a pair per frame size, every
+   ``--save-dir`` PNG equal to its prediction.  (d)
+   ``scripts/torch_train_kitti.py`` from the ``.pth`` at B=4: an epoch of
+   8 steps ending with an evaluation and a checkpoint, then ``--resume``
+   for 2 more; step ms, the loader's share of a step and the device's
+   busy share.  (e) ``SintelEvalDataset`` (final pass) through the bench
+   against the JAX package's under (c)'s bars, then
+   ``scripts/torch_train_sintel.py --crop 384 768 --batch 4``.  (f)
+   ``demo.demo()`` on the card.  Each step prints one JSON line.
 
 The line before the last is the card's name and power limit; the line
 before that holds the kernels' numbers as JSON, and the one before that
@@ -110,10 +137,12 @@ import contextlib
 import json
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -348,9 +377,10 @@ def grid_sample(x, grid):
                          align_corners=True)
 
 
-def conv_shapes():
-    """Every conv3x3_seg call of one bf16 SGU forward at B=4, 384x1280, and
-    two ragged ones of 375x1242 (B=1): (what, b, h, w, cin, cout,
+def conv_shapes(b=MAIN_B, hw=(MAIN_H, MAIN_W), ragged=True):
+    """Every conv3x3_seg call of one bf16 SGU forward at ``b`` x ``hw``
+    (B=4, 384x1280 by default), and with ``ragged`` two ragged ones of
+    375x1242 (B=1): (what, b, h, w, cin, cout,
     dilation, relu, calls per forward, buffer).  ``buffer`` is
     (channels, start) of the dense buffer whose range [start, start + cin)
     is the conv's input and [start - cout, start) its output slot, or None
@@ -366,30 +396,49 @@ def conv_shapes():
         out.append(("%s head" % tag, b, h, w, feat, head, 1, False,
                     per_forward, (feat + extra, 0)))
 
-    levels = pyramid_hw(MAIN_H, MAIN_W)
+    levels = pyramid_hw(*hw)
     for level in (3, 4):
         h, w = levels[level]
         tag = "L%d" % level
-        stack("estimator " + tag, MAIN_B, h, w, 563, (128, 128, 96, 64, 32),
-              2, 2, 2)
+        stack("estimator " + tag, b, h, w, 563, (128, 128, 96, 64, 32), 2,
+              2, 2)
         cin = 565
         for i, (f, d) in enumerate(zip((128, 128, 128, 96, 64, 32),
                                        (1, 2, 4, 8, 16, 1))):
-            out.append(("context %s conv%d" % (tag, i), MAIN_B, h, w, cin, f,
+            out.append(("context %s conv%d" % (tag, i), b, h, w, cin, f,
                         d, True, 2, (565, 0) if i == 0 else None))
             cin = f
         # the SGU estimator runs at level 3, and at 96 x 320 for level 4
         # and for the final stage
-        stack("sgu " + tag, MAIN_B, h, w, 184, (32, 32, 32, 16, 8), 3,
+        stack("sgu " + tag, b, h, w, 184, (32, 32, 32, 16, 8), 3,
               2 if level == 3 else 4, 0)
     h, w = levels[3]
-    out.append(("pyramid level2_conv1", MAIN_B, h, w, 64, 64, 1, True, 2,
-                None))
+    out.append(("pyramid level2_conv1", b, h, w, 64, 64, 1, True, 2, None))
+    if not ragged:
+        return out
     h, w = pyramid_hw(375, 1242)[4]
     out.append(("ragged estimator conv1", 1, h, w, 115, 128, 1, True, 0,
                 (565, 448)))
     out.append(("ragged context conv4", 1, h, w, 96, 64, 16, True, 0, None))
     return out
+
+
+def conv_agreement(got, ref):
+    """conv3x3_seg's bar: within 1 bf16 ulp of the plain value, or, where
+    |plain| < 1e-3 of max|plain| (sums that cancel), within 1e-5 of
+    max|plain|.  Returns |got - ref| and (ok, a description)."""
+    scale = ref.abs().max().item()
+    diff = (got - ref).abs()
+    mag = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
+    ulps = diff / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    ok = (ulps <= 1.0) | ((ref.abs() < 1e-3 * scale)
+                          & (diff <= 1e-5 * scale))
+    big = ref.abs() >= 1e-3 * scale
+    return diff, (bool(ok.all()) and bool(torch.isfinite(got).all()),
+                  "%.2e of values differ from the plain version, max %.2f "
+                  "bf16 ulp where |plain| >= 1e-3 max, %d outside the bar"
+                  % ((diff > 0).float().mean().item(),
+                     ulps[big].max().item(), int((~ok).sum().item())))
 
 
 def phase_kernels(k):
@@ -817,9 +866,8 @@ def phase_kernels(k):
             print("  info %s: device %s ms" % (what, fmt(dev)))
 
     # kernel 6: conv3x3_seg at every conv shape of the bf16 forward, reading
-    # and writing channel ranges of a dense buffer where the model does.
-    # Bar: within 1 bf16 ulp of the plain value, or, where |plain| < 1e-3
-    # of max|plain| (sums that cancel), within 1e-5 of max|plain|.
+    # and writing channel ranges of a dense buffer where the model does,
+    # under conv_agreement's bar
     total = 0
     for what, b, h, w, cin, cout, d, relu, per_forward, buf in conv_shapes():
         total += per_forward
@@ -846,20 +894,9 @@ def phase_kernels(k):
               "conv3x3_seg %s staged by the %s route (launches %s)"
               % (what, route, ran))
         ref = k.seg.conv3x3_seg_plain(x, weight, bias, d, relu).float()
-        scale = ref.abs().max().item()
-        diff = (got - ref).abs()
-        mag = torch.maximum(got.abs(), ref.abs()).clamp_min(2.0 ** -126)
-        ulps = diff / torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        ok = (ulps <= 1.0) | ((ref.abs() < 1e-3 * scale)
-                              & (diff <= 1e-5 * scale))
-        big = ref.abs() >= 1e-3 * scale
-        check(bool(ok.all()) and bool(torch.isfinite(got).all()),
-              "conv3x3_seg %s (%d, %d->%d, %dx%d, d=%d): %.2e of values "
-              "differ from the plain version, max %.2f bf16 ulp where "
-              "|plain| >= 1e-3 max, %d outside the bar"
-              % (what, b, cin, cout, h, w, d,
-                 (diff > 0).float().mean().item(),
-                 ulps[big].max().item(), int((~ok).sum().item())))
+        diff, stats = conv_agreement(got, ref)
+        check(stats[0], "conv3x3_seg %s (%d, %d->%d, %dx%d, d=%d): %s"
+              % ((what, b, cin, cout, h, w, d) + stats[1:]))
         wb, bb = weight.bfloat16(), bias.bfloat16()
         px = b * h * w
         # timed as the model calls it (weights packed once), and packing
@@ -2031,6 +2068,685 @@ def phase_learn(k):
                 seconds=seconds, batch=[LEARN_BATCH, 64, 160])
 
 
+# --- phase 8: the KITTI and Sintel data path -------------------------------
+# 8a: the decode-level shapes that the datasets' other frame sizes bring:
+# KITTI 2015's 376x1241 (odd full-resolution width), 370x1224 and 374x1238
+# (odd widths 153, 77, 155) at B=1, Sintel's 436x1024 frame (odd heights
+# 109, 55, 7) at B=1 and its 384x768 training crop at B=4
+SHAPE_SIZES = ((1, 376, 1241), (1, 370, 1224), (1, 374, 1238),
+               (1, 436, 1024), (4, 384, 768))
+# the trees of scripts/torch_synthetic_trees.py, from the seed that
+# upflow_pytorch_tpu_torch/eval/jax_dataset_reference.json was made with
+TREE_SEED = 0
+DATASET_REFERENCE = ROOT / "upflow_pytorch_tpu_torch" / "eval" / \
+    "jax_dataset_reference.json"
+# the port's bench against the JAX package's on the trees: EPE-all and
+# EPE-noc in px, EPE-occ (over the few out-of-frame pixels) in px, F1 in
+# points (phase 5 saw F1 0.12 points apart at 375x1242, so a wider bar)
+DATASET_BARS = {"epe_all": 0.02, "epe_noc": 0.02, "epe_occ": 0.1,
+                "f1": 0.5}
+# 8d: one epoch of KITTI_STEPS steps (evaluation and checkpoint at its
+# end), then RESUME_STEPS more after --resume; 8e: SINTEL_STEPS steps
+KITTI_STEPS, RESUME_STEPS, SINTEL_STEPS = 8, 2, 3
+KITTI_PROFILED = (2, 4)  # 8d's steps under the profiler
+FRAMES_A_STEP = 8  # a B=4 step reads two frames an item
+
+
+def encode_filtered_png(path, img, filters=(1, 2, 3, 4)):
+    """A PNG of the uint8 (H, W, 3) ``img`` whose row y is filtered by
+    ``filters[y % len(filters)]`` (1 Sub, 2 Up, 3 Average, 4 Paeth), which
+    the port's ``write_png`` never writes; KITTI's own PNGs use them."""
+    h, w, c = img.shape
+    rows = img.reshape(h, w * c).astype(np.int32)
+    out = []
+    for y in range(h):
+        line = rows[y]
+        up = rows[y - 1] if y else np.zeros_like(line)
+        left = np.concatenate([np.zeros(c, np.int32), line[:-c]])
+        upleft = np.concatenate([np.zeros(c, np.int32), up[:-c]])
+        f = filters[y % len(filters)]
+        if f == 1:
+            pred = left
+        elif f == 2:
+            pred = up
+        elif f == 3:
+            pred = (left + up) // 2
+        else:
+            p = left + up - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, upleft))
+        out.append(bytes([f]) + ((line - pred) & 0xFF).astype(np.uint8)
+                   .tobytes())
+
+    def chunk(ctype, body):
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n")
+        fh.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        fh.write(chunk(b"IDAT", zlib.compress(b"".join(out), 6)))
+        fh.write(chunk(b"IEND", b""))
+
+
+def launches_from_zero(k):
+    for fn in k.dispatch.values():
+        fn.launches = 0
+    for fn in k.plain.values():
+        fn.cuda_calls = 0
+
+
+def launch_counts(k):
+    """(kernel launches, plain-version calls on CUDA tensors) since
+    ``launches_from_zero``."""
+    torch.cuda.synchronize()
+    return ({n: fn.launches for n, fn in k.dispatch.items()},
+            sum(fn.cuda_calls for fn in k.plain.values()))
+
+
+def phase_shapes(k):
+    """Phase 8a: every kernel of the CLI path against its plain version at
+    the decode-level shapes of ``SHAPE_SIZES`` under phase 2's bars:
+    correlation (every level), feature_warp, corr_norm (levels 1-4) at
+    fp32 and bf16, sgu_blend (levels 1-4, three inter-flow tiers) and the
+    image warp and sgu_final at full resolution at fp32; conv3x3_seg at
+    every conv shape of the bf16 forward, on its own staging route and,
+    where that is TMA, also on the cp.async route (the input one bf16
+    element off a 16-byte boundary).  A bf16 forward at each size must
+    launch conv3x3_seg as often as those shapes say."""
+    rng = np.random.RandomState(8)
+    gen = torch.Generator(device=DEV).manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    held = {}
+
+    def hold(name, ok, what):
+        check(ok, "8a " + what)
+        held[name] = held.get(name, 0) + 1
+
+    def close(got, ref, share):
+        err = (got.float() - ref.float()).abs().max().item()
+        bar = share * ref.float().abs().max().item()
+        return err, bar
+
+    bf16_model = k.upflow.build_model(k.UPFlowConfig().updated(BF16_KNOBS),
+                                      weights=str(NPZ))
+    out = {}
+    for b, h, w in SHAPE_SIZES:
+        size = "B=%d %dx%d" % (b, h, w)
+        levels = pyramid_hw(h, w)
+        for level, (lh, lw) in enumerate(levels):
+            c = PYRAMID_CHS[level]
+            amp = max(2.0, min(40.0, lw / 4))
+            f1 = randn(b, c, lh, lw)
+            f2 = randn(b, c, lh, lw) * 2 + 0.5
+            x32 = randn(b, 32, lh, lw) * 2 + 0.5
+            flow = make_flow(rng, b, lh, lw, amp)
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype)[6:]
+                a1, a2 = f1.to(dtype), f2.to(dtype)
+                got = k.corr.correlation(a1, a2)
+                again = k.corr.correlation(a1, a2)
+                err, bar = close(got, k.corr.correlation_plain(a1, a2), 1e-5)
+                route = k.corr.staging_route(lw, a1.element_size(),
+                                             a1.data_ptr(), a2.data_ptr())
+                hold("correlation", err <= bar and torch.equal(got, again),
+                     "%s correlation %s L%d %s (%s staging): max abs err "
+                     "%.3e (bar %.3e), a second call the same bits"
+                     % (size, dn, level, (b, c, lh, lw), route, err, bar))
+                if level == 0:
+                    continue
+                for what, x in (("cost volume", a2), ("SGU", x32.to(dtype))):
+                    warped, mask = k.fw.feature_warp(x, flow, 1.0,
+                                                     with_mask=True)
+                    ref, ref_mask = k.fw.feature_warp_plain(x, flow, 1.0,
+                                                            with_mask=True)
+                    differ = int((warped != ref).sum().item())
+                    flips = int((mask != ref_mask).sum().item())
+                    share = mask.mean().item()
+                    hold("feature_warp", differ == 0 and flips == 0
+                         and 0.0 < share < 1.0,
+                         "%s feature_warp %s %s L%d %s, flow +-%g px: %d "
+                         "values and %d mask bits differ, valid share %.4f"
+                         % (size, dn, what, level, tuple(x.shape), amp,
+                            differ, flips, share))
+                    if what == "SGU":
+                        continue
+                    aff = k.cn.affine_pair(*k.cn.moments(a1, False),
+                                           *k.cn.moments(warped, False),
+                                           NORM_KW)
+                    got = k.cn.corr_norm(a1, warped, aff, 0.1)
+                    again = k.cn.corr_norm(a1, warped, aff, 0.1)
+                    err, bar = close(got, k.cn.corr_norm_plain(
+                        a1, warped, aff, 0.1), 1e-5)
+                    route = k.cn.staging_route(lw, a1.element_size(),
+                                               a1.data_ptr(),
+                                               warped.data_ptr())
+                    hold("corr_norm", err <= bar and torch.equal(got, again),
+                         "%s corr_norm %s L%d %s (%s staging): max abs err "
+                         "%.3e (bar %.3e), a second call the same bits"
+                         % (size, dn, level, (b, c, lh, lw), route, err,
+                            bar))
+            if level == 0:
+                continue
+            flows = [flow, make_flow(rng, b, lh, lw, amp)]
+            pix, rows_, blocks = k.sb.launch_config(2, b, lh, lw)
+            for tier, (amp_u, amp_v) in (("fused", (1.5, 1.5)),
+                                         ("medium", (30.0, 15.0)),
+                                         ("beyond", (300.0, 300.0))):
+                heads = [torch.cat([
+                    (randn(b, 1, lh, lw).clamp(-3, 3) / 3) * amp_u,
+                    (randn(b, 1, lh, lw).clamp(-3, 3) / 3) * amp_v,
+                    randn(b, 1, lh, lw) * 3], dim=1) for _ in range(2)]
+                args = (flows[0], heads[0], flows[1], heads[1])
+                got = k.sb.sgu_blend_pair(*args)
+                ref = k.sb.sgu_blend_pair_plain(*args)
+                differ, ulps = ulp_report(got, ref)
+                masks = [torch.sigmoid(x[:, 2:3]) for x in heads]
+                one = [k.sb.sgu_blend(fl, x[:, :2].contiguous(), m)
+                       for fl, x, m in zip(flows, heads, masks)]
+                one_differ, _ = ulp_report(one, ref)
+                hold("sgu_blend", differ == 0 and one_differ == 0,
+                     "%s sgu_blend L%d %s both directions (%d pixels a "
+                     "thread, %d-row blocks, %d blocks), inter-flow "
+                     "+-%g/+-%g px: %d values differ (max %d ulp), one "
+                     "direction %d" % (size, level, (b, 3, lh, lw), pix,
+                                       rows_, blocks, amp_u, amp_v, differ,
+                                       ulps, one_differ))
+        # the occlusion check's image warp and the final SGU stage at full
+        # resolution
+        flow_src = make_flow(rng, b, h, w, 40.0)
+        flow = make_flow(rng, b, h, w, 40.0)
+        got = k.warp.warp(flow_src, flow)
+        ref = k.warp.warp_plain(flow_src, flow)
+        err = (got - ref).abs().max().item()
+        hold("warp", err <= 1e-6,
+             "%s warp %s, flow +-40 px: max abs err %.3e, %d of %d values "
+             "differ" % (size, tuple(flow_src.shape), err,
+                         int((got != ref).sum().item()), got.numel()))
+        hq, wq = levels[4]
+        flow_q = make_flow(rng, b, hq, wq, 10.0)
+        for amp in (0.4, 9.0, 75.0):
+            x_out = torch.cat([randn(b, 2, hq, wq).clamp(-3, 3) / 3 * amp,
+                               randn(b, 1, hq, wq) * 3], dim=1)
+            got = k.sf.sgu_final(flow_q, x_out, (h, w))
+            ref = k.sf.sgu_final_plain(flow_q, x_out, (h, w))
+            err = (got - ref).abs().max().item()
+            hold("sgu_final", tuple(got.shape) == (b, 2, h, w)
+                 and err <= 1e-4,
+                 "%s sgu_final %s -> %s (tile %dx%d, %s stores), "
+                 "inter-flow +-%g px: max abs err %.3e px (<= 1e-4)"
+                 % (size, tuple(x_out.shape), (b, 2, h, w),
+                    k.sf.tile_rows(b, h, w), k.sf.TILE_W,
+                    "16-byte" if w % 4 == 0 else "4-byte", amp, err))
+        # conv3x3_seg at every conv shape of the bf16 forward at this size
+        routes = {"tma": 0, "cp.async": 0}
+        for what, cb, ch, cw, cin, cout, d, relu, per_forward, buf in \
+                conv_shapes(b, (h, w), ragged=False):
+            weight = randn(cout, cin, 3, 3) * (2.0 / (9 * cin)) ** 0.5
+            bias = randn(cout) * 0.1
+            for offset in (0, 1):
+                chans = cin if buf is None else buf[0]
+                flat = torch.empty(cb * chans * ch * cw + offset,
+                                   dtype=torch.bfloat16, device=DEV)
+                full = flat[offset:].view(cb, chans, ch, cw)
+                full.copy_(randn(cb, chans, ch, cw))
+                if buf is None:
+                    x = full
+                    dst = torch.empty((cb, cout, ch, cw),
+                                      dtype=torch.bfloat16, device=DEV)
+                else:
+                    x = full[:, buf[1]:buf[1] + cin]
+                    dst = (full[:, buf[1] - cout:buf[1]] if buf[1] >= cout
+                           else torch.empty((cb, cout, ch, cw),
+                                            dtype=torch.bfloat16,
+                                            device=DEV))
+                route = k.seg.staging_route(cw, x.stride(0), x.data_ptr())
+                if offset == 0:
+                    routes[route] += per_forward
+                before = dict(k.seg.conv3x3_seg.route_launches)
+                ref = k.seg.conv3x3_seg_plain(x, weight, bias, d,
+                                              relu).float()
+                got = k.seg.conv3x3_seg(x, weight, bias, d, relu,
+                                        out=dst).float()
+                ran = {r: n - before[r]
+                       for r, n in k.seg.conv3x3_seg.route_launches.items()}
+                _, stats = conv_agreement(got, ref)
+                hold("conv3x3_seg", stats[0] and ran[route] == 1
+                     and sum(ran.values()) == 1,
+                     "%s conv3x3_seg %s (%d, %d->%d, %dx%d, d=%d), %s route%s "
+                     "(launches %s): %s"
+                     % (size, what, cb, cin, cout, ch, cw, d, route,
+                        " (forced, input 2 bytes off)" if offset else "",
+                        ran, stats[1]))
+                if offset == 0 and route != "tma":
+                    break
+        # a bf16 forward at this size launches conv3x3_seg where the shapes
+        # say, by these routes
+        im1, im2 = textured_pair(b, h, w, seed=b * h + w)
+        launches_from_zero(k)
+        before = dict(k.seg.conv3x3_seg.route_launches)
+        k.upflow.forward(bf16_model, im1, im2)
+        got, _ = launch_counts(k)
+        ran = {r: n - before[r]
+               for r, n in k.seg.conv3x3_seg.route_launches.items()}
+        want = sum(routes.values())
+        check(got["conv3x3_seg"] == want and ran == routes,
+              "8a %s bf16 forward: conv3x3_seg launched %d times by route "
+              "%s (the shapes above: %d, %s)"
+              % (size, got["conv3x3_seg"], ran, want, routes))
+        out[size] = dict(conv3x3_seg_route_launches=ran,
+                         levels=["%dx%d" % hw for hw in levels])
+        print("  info 8a %s: decode levels %s, conv3x3_seg routes of a bf16 "
+              "forward %s" % (size, out[size]["levels"], ran), flush=True)
+    del bf16_model
+    return dict(sizes=out, shapes_held=held)
+
+
+def phase_native(k, root, tmp):
+    """Phase 8b: the native decoder's state, every PNG of the trees decoded
+    by it and by the Python codec (bit for bit), and one 375x1242 RGB PNG
+    whose rows use filters 1-4 timed through each."""
+    nat = k.native
+    built = nat.available()
+    if built:
+        print("  native: built %s" % nat.library_path())
+    else:
+        print("  native: not built: %s" % nat.build_error())
+    out = dict(built=built, build_error=nat.build_error(),
+               library=str(nat.library_path()) if built else None)
+    pngs = sorted(Path(root).rglob("*.png"))
+    if built:
+        differ = []
+        for p in pngs:
+            got, ref = nat.decode_png(str(p)), k.flow_io.read_png(str(p))
+            if got.dtype != ref.dtype or not np.array_equal(got, ref):
+                differ.append(p.name)
+            if p.parent.name in ("flow_occ", "flow_noc"):
+                got, ref = (nat.decode_flow_png(str(p)),
+                            k.flow_io.read_flow_png(str(p)))
+                if not all(np.array_equal(g, r) for g, r in zip(got, ref)):
+                    differ.append(p.name + " (flow)")
+        check(not differ, "8b native decode of the trees' %d PNGs equals the "
+              "Python codec's bit for bit (differing: %s)"
+              % (len(pngs), differ[:5]))
+        out["pngs_compared"] = len(pngs)
+    frame = next(p for p in pngs if p.parent.name == "image_2")
+    img = k.flow_io.read_png(str(frame))
+    filtered = tmp / "filtered_rows.png"
+    encode_filtered_png(str(filtered), img)
+    times = {}
+    decoders = {"python": k.flow_io.read_png}
+    if built:
+        decoders["native"] = nat.decode_png
+    for name, fn in decoders.items():
+        runs = 1 if name == "python" else 11
+        ms = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            got = fn(str(filtered))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(got, img), "8b %s decoder: the PNG with filters "
+              "1-4 decodes to the frame" % name)
+        times[name] = statistics.median(ms)
+        print("  info 8b %s decoder, %dx%d RGB PNG with filters 1-4: %.2f ms "
+              "a frame (median of %d), %.1f frames a second, %.1f ms of "
+              "decode for the %d frames of a B=4 step on one thread"
+              % (name, img.shape[0], img.shape[1], times[name], runs,
+                 1e3 / times[name], FRAMES_A_STEP * times[name],
+                 FRAMES_A_STEP))
+    out["filtered_png_ms"] = times
+    out["frame"] = list(img.shape)
+    return out
+
+
+@contextlib.contextmanager
+def timed_eval_forward(k):
+    """Times each ``NetEvalModel.eval_forward`` (its result is a host
+    array, so the card has finished) and keeps its prediction; yields
+    the list of (frame (h, w), ms, prediction)."""
+    calls = []
+    orig = k.trainer.NetEvalModel.eval_forward
+
+    def timed(self, im1, im2, *args):
+        t0 = time.perf_counter()
+        flow = orig(self, im1, im2, *args)
+        calls.append((tuple(im1.shape[1:3]),
+                      (time.perf_counter() - t0) * 1e3, flow))
+        return flow
+
+    k.trainer.NetEvalModel.eval_forward = timed
+    try:
+        yield calls
+    finally:
+        k.trainer.NetEvalModel.eval_forward = orig
+
+
+def per_size_ms(calls):
+    """{"HxW": {"first": ms, "later": [ms, ...]}} in call order."""
+    out = {}
+    for hw, ms, _ in calls:
+        key = "%dx%d" % hw
+        if key not in out:
+            out[key] = {"first": ms, "later": []}
+        else:
+            out[key]["later"].append(ms)
+    return out
+
+
+def against_reference(what, res, ref, gate):
+    """Prints (and with ``gate`` checks) a bench result against the JAX
+    package's under ``DATASET_BARS``; returns the differences."""
+    diffs = {m: getattr(res, m) - ref[m] for m in DATASET_BARS}
+    line = ", ".join("%s %.4f (JAX %.4f, %+.4f, bar %g)"
+                     % (m, getattr(res, m), ref[m], d, DATASET_BARS[m])
+                     for m, d in diffs.items())
+    finite = all(np.isfinite(v) for v in res)
+    if gate:
+        check(finite and all(abs(d) <= DATASET_BARS[m]
+                             for m, d in diffs.items()), "%s: %s"
+              % (what, line))
+    else:
+        check(finite, "%s: finite; %s" % (what, line))
+    return diffs
+
+
+def phase_kitti_eval(k, root, tmp, pth, ref):
+    """Phase 8c: ``scripts/torch_kitti_eval.py`` on the KITTI trees with
+    the ``.pth``: the 2015 training split at native size and padded to
+    multiples of 64, each held to the JAX package's bench, the 2012 pair,
+    and the 2015 test split (no metrics); each lane writes its flows with
+    ``--save-dir``, which must equal the predictions as ``write_flow_png``
+    writes them.  Launches counted from 0 a lane."""
+    # lane, its flags, and whether its result is held to the JAX
+    # package's (True), printed beside it (False) or absent (None: the
+    # test split)
+    lanes = (("kitti2015_native", [], True),
+             ("kitti2015_pad64", ["--pad-multiple", "64"], True),
+             ("kitti2012_native", ["--split", "2012_train"], False),
+             ("kitti2015_test", ["--split", "2015_test"], None))
+    out = {}
+    for lane, extra, gate in lanes:
+        save = tmp / ("save_" + lane)
+        argv = ["--data-root", str(root), "--ckpt", str(pth),
+                "--save-dir", str(save)] + extra
+        launches_from_zero(k)
+        with timed_eval_forward(k) as calls:
+            res = k.cli["kitti_eval"].main(argv)
+        got, plain_calls = launch_counts(k)
+        pairs = len(calls)
+        want = {n: c * pairs for n, c in SGU_LAUNCHES_PER_FORWARD.items()}
+        check(pairs > 0 and got == want and plain_calls == 0,
+              "8c %s: %d pairs launched %s, %d plain calls on CUDA tensors"
+              % (lane, pairs, got, plain_calls))
+        files = list(save.iterdir())
+        if gate is None:
+            order = sorted(files)
+        else:
+            order = sorted(files, key=lambda p: int(p.stem.split("__")[-1]))
+        same = 0
+        for path, (_, _, pred) in zip(order, calls):
+            k.flow_io.write_flow_png(str(tmp / "want.png"), pred[0])
+            same += path.read_bytes() == (tmp / "want.png").read_bytes()
+        check(len(files) == pairs and same == pairs,
+              "8c %s: --save-dir wrote %d PNGs for %d pairs, %d equal to the "
+              "prediction as write_flow_png writes it"
+              % (lane, len(files), pairs, same))
+        sizes = per_size_ms(calls)
+        print("  info 8c %s: ms a pair by frame size (first call, later "
+              "calls): %s" % (lane, {s: (round(v["first"], 1),
+                                         [round(x, 1) for x in v["later"]])
+                                     for s, v in sizes.items()}))
+        entry = dict(pairs=pairs, launches=got, ms_a_pair=sizes)
+        if gate is None:
+            check(res is None, "8c %s: the test split prints no metrics"
+                  % lane)
+        else:
+            entry["result"] = res._asdict()
+            entry["minus_jax"] = against_reference(
+                "8c %s against the JAX package's bench" % lane, res,
+                ref["lanes"][lane], gate)
+        out[lane] = entry
+    return out
+
+
+@contextlib.contextmanager
+def watched_training(k, profile_steps=None):
+    """Records each training step that a ``Trainer`` built inside the block
+    takes (ms up to the device's end, kernel launches, loss terms) and the
+    time each ``DataLoader.__next__`` waited; with ``profile_steps`` =
+    (first, last), profiles those steps and the loader waits between them
+    and records the device's busy share of that window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = dict(steps=[], waits=[], busy=None,
+               profiled=(set(range(profile_steps[0], profile_steps[1] + 1))
+                         if profile_steps else set()))
+    prof = {}
+    orig_make, orig_next = (k.trainer.make_train_step,
+                            k.pipeline.DataLoader.__next__)
+
+    def make(*args, **kwargs):
+        step_fn = orig_make(*args, **kwargs)
+
+        def step(state, batch):
+            n = len(rec["steps"]) + 1
+            if profile_steps and n == profile_steps[0]:
+                prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                prof["p"].__enter__()
+                prof["t0"] = time.perf_counter()
+            before = {m: fn.launches for m, fn in k.dispatch.items()}
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            rec["steps"].append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                launches={m: fn.launches - before[m]
+                          for m, fn in k.dispatch.items()},
+                metrics={key: float(v) for key, v in metrics.items()}))
+            if profile_steps and n == profile_steps[1]:
+                wall = (time.perf_counter() - prof["t0"]) * 1e3
+                prof["p"].__exit__(None, None, None)
+                busy = sum(e.time_range.elapsed_us()
+                           for e in prof["p"].events()
+                           if e.device_type == DeviceType.CUDA
+                           and not getattr(e, "is_user_annotation", False)
+                           ) / 1e3
+                rec["busy"] = dict(steps=list(profile_steps), wall_ms=wall,
+                                   device_ms=busy,
+                                   share=busy / wall if busy else None)
+            return state, metrics
+
+        return step
+
+    def next_(self):
+        t0 = time.perf_counter()
+        batch = orig_next(self)
+        rec["waits"].append((time.perf_counter() - t0) * 1e3)
+        return batch
+
+    k.trainer.make_train_step = make
+    k.pipeline.DataLoader.__next__ = next_
+    try:
+        yield rec
+    finally:
+        k.trainer.make_train_step = orig_make
+        k.pipeline.DataLoader.__next__ = orig_next
+
+
+def step_summary(what, runs):
+    """Step ms (median and range) and the loader's share of each step
+    (its wait before the step over both), each run's first step and its
+    profiled steps left out, and the profiled window's device busy
+    share."""
+    ms, shares = [], []
+    for rec in runs:
+        for i, (s, w) in enumerate(zip(rec["steps"], rec["waits"])):
+            if i and i + 1 not in rec["profiled"]:
+                ms.append(s["ms"])
+                shares.append(w / (w + s["ms"]))
+    busy = next((rec["busy"] for rec in runs if rec["busy"]), None)
+    out = dict(steps=sum(len(rec["steps"]) for rec in runs), timed=len(ms),
+               step_ms_median=statistics.median(ms), step_ms_min=min(ms),
+               step_ms_max=max(ms),
+               loader_wait_share_median=statistics.median(shares),
+               loader_wait_share_max=max(shares),
+               first_step_ms=[rec["steps"][0]["ms"] for rec in runs],
+               first_wait_ms=[rec["waits"][0] for rec in runs], busy=busy)
+    print("  info %s: %.1f ms median (%.1f-%.1f) over %d steps, loader wait "
+          "%.2f%% of a step median (max %.2f%%); first steps %s ms after "
+          "waits of %s ms; device busy %s"
+          % (what, out["step_ms_median"], out["step_ms_min"],
+             out["step_ms_max"], len(ms),
+             100 * out["loader_wait_share_median"],
+             100 * out["loader_wait_share_max"],
+             [round(x, 1) for x in out["first_step_ms"]],
+             [round(x, 1) for x in out["first_wait_ms"]],
+             "n/a" if busy is None or busy["share"] is None else
+             "%.1f of %.1f ms (%.1f%%) over steps %d-%d under the profiler"
+             % (busy["device_ms"], busy["wall_ms"], 100 * busy["share"],
+                *busy["steps"])))
+    return out
+
+
+def phase_kitti_train(k, root, tmp, pth):
+    """Phase 8d: ``scripts/torch_train_kitti.py`` from the ``.pth`` at
+    B=4 on the multiview tree, one epoch of ``KITTI_STEPS`` steps ending
+    with an evaluation on the KITTI 2015 tree and a checkpoint, then
+    ``--resume`` for ``RESUME_STEPS`` more: every step launches the
+    forward's kernels, every loss term is finite, the resumed run starts
+    at the checkpoint's step."""
+    cli = k.cli["train_kitti"]
+    base = ["--mv-root", str(root), "--eval-root", str(root), "--exp-dir",
+            str(tmp / "kitti_exp"), "--batch", "4", "--batch-per-epoch",
+            str(KITTI_STEPS)]
+    launches_from_zero(k)
+    with watched_training(k, KITTI_PROFILED) as run1:
+        first = cli.main(base + ["--pretrained", str(pth), "--steps",
+                                 str(KITTI_STEPS)])
+    got1, plain1 = launch_counts(k)
+    saved = k.state_io.latest_step(first.ckpt_dir)
+    launches_from_zero(k)
+    with watched_training(k) as run2:
+        second = cli.main(base + ["--resume", "--steps",
+                                  str(KITTI_STEPS + RESUME_STEPS)])
+    got2, plain2 = launch_counts(k)
+    evals = len(k.kitti.scan_eval_files(str(root), "2015_train"))
+    want1 = {n: c * (KITTI_STEPS + evals)
+             for n, c in SGU_LAUNCHES_PER_FORWARD.items()}
+    want2 = {n: c * RESUME_STEPS for n, c in SGU_LAUNCHES_PER_FORWARD.items()}
+    check(got1 == want1 and got2 == want2 and plain1 == plain2 == 0,
+          "8d launches: run 1 (%d steps and %d eval pairs) %s, resumed run "
+          "(%d steps) %s; plain calls on CUDA tensors %d, %d"
+          % (KITTI_STEPS, evals, got1, RESUME_STEPS, got2, plain1, plain2))
+    steps = run1["steps"] + run2["steps"]
+    finite = all(np.isfinite(v) for s in steps for v in s["metrics"].values())
+    check(saved == KITTI_STEPS and len(run1["steps"]) == KITTI_STEPS
+          and len(run2["steps"]) == RESUME_STEPS
+          and second.state.step == KITTI_STEPS + RESUME_STEPS and finite,
+          "8d: checkpoint at step %s, run 1 took %d steps, the resumed run "
+          "%d to step %d; every loss term finite (total %s)"
+          % (saved, len(run1["steps"]), len(run2["steps"]),
+             second.state.step,
+             [round(s["metrics"]["total_loss"], 4) for s in steps]))
+    out = step_summary("8d KITTI B=4 256x832 step", (run1, run2))
+    out["total_loss"] = [s["metrics"]["total_loss"] for s in steps]
+    return out
+
+
+def phase_sintel(k, root, tmp, pth, ref):
+    """Phase 8e: ``SintelEvalDataset`` (final pass, 436x1024) through the
+    port's bench, held to the JAX package's; then
+    ``scripts/torch_train_sintel.py`` at ``--crop 384 768 --batch 4``."""
+    model = k.upflow.build_model(k.cli["kitti_eval"].EVAL_CONF)
+    k.torch_import.load_pretrained_params(str(pth), model)
+    dataset = k.sintel.SintelEvalDataset(str(root), "final")
+    launches_from_zero(k)
+    with timed_eval_forward(k) as calls:
+        res = k.bench.EvaluationBench(dataset)(k.trainer.NetEvalModel(model))
+    got, plain_calls = launch_counts(k)
+    want = {n: c * len(dataset) for n, c in SGU_LAUNCHES_PER_FORWARD.items()}
+    check(got == want and plain_calls == 0,
+          "8e Sintel final: %d pairs launched %s, %d plain calls on CUDA "
+          "tensors" % (len(dataset), got, plain_calls))
+    del model
+    out = dict(result=res._asdict(), ms_a_pair=per_size_ms(calls))
+    out["minus_jax"] = against_reference(
+        "8e Sintel final 436x1024 against the JAX package's bench", res,
+        ref["lanes"]["sintel_final_native"], True)
+    print("  info 8e Sintel ms a pair: %s" % {
+        s: (round(v["first"], 1), [round(x, 1) for x in v["later"]])
+        for s, v in out["ms_a_pair"].items()})
+    launches_from_zero(k)
+    with watched_training(k) as run:
+        trainer = k.cli["train_sintel"].main([
+            "--root", str(root), "--exp-dir", str(tmp / "sintel_exp"),
+            "--crop", "384", "768", "--batch", "4", "--steps",
+            str(SINTEL_STEPS), "--pretrained", str(pth)])
+    got, plain_calls = launch_counts(k)
+    want = {n: c * SINTEL_STEPS for n, c in SGU_LAUNCHES_PER_FORWARD.items()}
+    finite = all(np.isfinite(v) for s in run["steps"]
+                 for v in s["metrics"].values())
+    check(trainer.state.step == SINTEL_STEPS and got == want
+          and plain_calls == 0 and finite,
+          "8e Sintel training at B=4 384x768: %d steps launched %s, %d plain "
+          "calls on CUDA tensors, every loss term finite (total %s)"
+          % (trainer.state.step, got, plain_calls,
+             [round(s["metrics"]["total_loss"], 4) for s in run["steps"]]))
+    out["train"] = step_summary("8e Sintel B=4 384x768 step", (run,))
+    return out
+
+
+def phase_demo(k):
+    """Phase 8f: ``demo.demo()`` on the card."""
+    t0 = time.perf_counter()
+    res = k.demo.demo()
+    ms = (time.perf_counter() - t0) * 1e3
+    keys = ("flow_f_out", "flow_b_out", "occ_fw", "occ_bw", "im1_warp",
+            "im2_warp")
+    ok = (all(res[key].is_cuda and bool(torch.isfinite(res[key]).all())
+              for key in keys)
+          and all(np.isfinite(float(res[key])) for key in (
+              "smooth_loss", "photo_loss", "census_loss", "msd_loss",
+              "total_loss")))
+    check(ok, "8f demo on %s: every output finite, total loss %.4f, %.0f ms"
+          % (res["flow_f_out"].device, float(res["total_loss"]), ms))
+    return dict(ms=ms, total_loss=float(res["total_loss"]))
+
+
+def phase_data(k, tmp):
+    """Phase 8: the trees, then 8b-8f; prints one JSON line a step."""
+    ref = json.loads(DATASET_REFERENCE.read_text())
+    print("  info JAX reference: %s (%s)" % (ref["source"], ref["command"]))
+    check(ref["seed"] == TREE_SEED, "8: the reference was made from the "
+          "trees' seed %d" % TREE_SEED)
+    root = tmp / "trees"
+    t0 = time.perf_counter()
+    splits = k.cli["trees"].write_trees(str(root), TREE_SEED)
+    print("  info trees written in %.1f s: %s"
+          % (time.perf_counter() - t0, {n: len(s) for n, s in splits.items()}))
+    pth = tmp / "synthetic_trained.pth"
+    model = k.upflow.build_model(k.cli["kitti_eval"].EVAL_CONF,
+                                 weights=str(NPZ))
+    torch.save(k.torch_import.params_to_torch_state_dict(model), pth)
+    del model
+    for name, fn in (("8b", lambda: phase_native(k, root, tmp)),
+                     ("8c", lambda: phase_kitti_eval(k, root, tmp, pth, ref)),
+                     ("8d", lambda: phase_kitti_train(k, root, tmp, pth)),
+                     ("8e", lambda: phase_sintel(k, root, tmp, pth, ref)),
+                     ("8f", lambda: phase_demo(k))):
+        t0 = time.perf_counter()
+        print("phase %s" % name, flush=True)
+        res = fn()
+        res["seconds"] = time.perf_counter() - t0
+        print(json.dumps({"phase_" + name: res}), flush=True)
+
+
 class Port:
     """The port's modules, imported once the card is known to be there."""
 
@@ -2054,6 +2770,14 @@ class Port:
         from upflow_pytorch_tpu_torch.ops.kernels import warp
         from upflow_pytorch_tpu_torch.train import step, trainer
         from upflow_pytorch_tpu_torch.config import TrainerConfig
+        from upflow_pytorch_tpu_torch import demo
+        from upflow_pytorch_tpu_torch.data import (
+            flow_io, kitti, native, pipeline, sintel)
+        sys.path.insert(0, str(ROOT / "scripts"))
+        import torch_kitti_eval
+        import torch_synthetic_trees
+        import torch_train_kitti
+        import torch_train_sintel
 
         self.build, self.UPFlowConfig = _build, UPFlowConfig
         self.step, self.TrainerConfig = step, TrainerConfig
@@ -2064,6 +2788,13 @@ class Port:
         self.synthetic, self.bench, self.trainer = synthetic, bench, trainer
         self.npz_io, self.state_io, self.torch_import = (
             npz_io, state_io, torch_import)
+        self.flow_io, self.native, self.pipeline = flow_io, native, pipeline
+        self.kitti, self.sintel, self.demo = kitti, sintel, demo
+        # the port's dataset CLIs and the synthetic trees' writer
+        self.cli = {"kitti_eval": torch_kitti_eval,
+                    "train_kitti": torch_train_kitti,
+                    "train_sintel": torch_train_sintel,
+                    "trees": torch_synthetic_trees}
         self.dispatch = {"correlation": corr.correlation,
                          "feature_warp": fw.feature_warp,
                          "corr_norm": cn.corr_norm, "warp": warp.warp,
@@ -2200,6 +2931,14 @@ def main() -> int:
                                             Path(tmp))
         del trainer_c
     train["trainer"]["learning"] = phase_learn(k)
+    print("phase 8: KITTI and Sintel data, the native decoder, the CLIs",
+          flush=True)
+    t0 = time.perf_counter()
+    print("phase 8a", flush=True)
+    print(json.dumps({"phase_8a": phase_shapes(k)}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_data(k, Path(tmp))
+    print("  info phase 8 took %.1f s" % (time.perf_counter() - t0))
 
     print(json.dumps({"forward_ms": timing,
                       "device_kernels_per_forward": kernels_per_forward}))

@@ -176,14 +176,22 @@ def test_port_imports_no_jax_at_run_time():
 
 def test_port_sources_import_no_jax():
     """No import statement of the port, of chip_smoke.py or of the port's
-    scripts names JAX, flax or the JAX package; the one exception is
-    scripts/torch_eval_jax_reference.py, which runs the JAX package to
-    write the reference EPE that chip_smoke.py reads."""
+    scripts names JAX, flax or the JAX package; the exceptions are the two
+    scripts that run the JAX package to write the references that
+    chip_smoke.py reads: torch_eval_jax_reference.py and
+    torch_kitti_jax_reference.py."""
     files = sorted((ROOT / "upflow_pytorch_tpu_torch").rglob("*.py"))
+    for name in ("demo", "data/native", "data/kitti", "data/sintel",
+                 "data/image_io", "data/flow_io", "utils/debug",
+                 "utils/profiling", "utils/misc", "utils/viz"):
+        assert ROOT / "upflow_pytorch_tpu_torch" / (name + ".py") in files
     files.append(ROOT / "chip_smoke.py")
     scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
-    assert ROOT / "scripts" / "torch_train_synthetic.py" in scripts
-    files += [p for p in scripts if p.name != "torch_eval_jax_reference.py"]
+    for name in ("train_synthetic", "kitti_eval", "train_kitti",
+                 "train_sintel", "synthetic_trees"):
+        assert ROOT / "scripts" / ("torch_%s.py" % name) in scripts
+    files += [p for p in scripts if p.name not in (
+        "torch_eval_jax_reference.py", "torch_kitti_jax_reference.py")]
     banned = ("jax", "jaxlib", "flax", "upflow_pytorch_tpu")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
