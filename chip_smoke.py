@@ -123,10 +123,32 @@ Phases, each of which must pass:
    against the JAX package's under (c)'s bars, then
    ``scripts/torch_train_sintel.py --crop 384 768 --batch 4``.  (f)
    ``demo.demo()`` on the card.  Each step prints one JSON line.
+9. Data parallelism (``parallel/``) on the one card.  (a) A one-rank
+   NCCL group on cuda:0 runs phase 6's step from the checkpoint at B=4
+   256x832 through ``make_sharded_train_step``, at fp32 and bf16: its
+   loss equals ``make_train_step``'s bit for bit, its parameters reach
+   cosine >= 0.99999 with the single process's, every kernel of the path
+   launches (``conv3x3_seg`` at bf16) and no plain version runs on a CUDA
+   tensor; the two steps are then timed in turns and profiled once each.
+   (b) Two processes on cuda:0 over gloo (NCCL takes one rank a device),
+   each this script with ``--parallel-rank R INIT OUT``, at B=2 each of
+   that batch, fp32, at mask threshold 1.0, at 0.9999, and at 0.9999 with
+   the equivariance pass (weight 0.1): the global loss within 1e-3
+   relative of one process at B=4, and at 0.9999 every loss term within
+   1e-5 and the gradient's cosine >= 0.9999; the ranks' losses,
+   gradients and parameters equal bit for bit,
+   every kernel of the path launched on both.  (c)
+   ``scripts/torch_train_kitti.py`` in torchrun's one-rank environment
+   (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_*) for 2 steps: it joins a NCCL
+   group of one, launches every kernel of the path and leaves the group.
+   Each step's ms is printed beside phase 6's with the card's name and
+   power limit.
 
 The line before the last is the card's name and power limit; the line
 before that holds the kernels' numbers as JSON, and the one before that
-the training step's (with the Trainer's under ``trainer``).  The last line,
+the training step's (with the Trainer's under ``trainer``); the kernels'
+line also holds each kernel's launches in phase 9a's sharded step.  The
+last line,
 ``{"ok": true, "device": ...}``, is printed only when every check passed;
 any failure exits non-zero without it.
 """
@@ -134,8 +156,11 @@ any failure exits non-zero without it.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import json
+import os
 import re
+import socket
 import statistics
 import struct
 import subprocess
@@ -2745,6 +2770,369 @@ def phase_data(k, tmp):
         res = fn()
         res["seconds"] = time.perf_counter() - t0
         print(json.dumps({"phase_" + name: res}), flush=True)
+    return root, pth
+
+
+# phase 9: data parallelism (parallel/) on the one card.  9a: a one-rank
+# NCCL group runs phase 6's step at both precisions against the single
+# process's; 9b: two processes on the card over gloo (NCCL takes one rank
+# a device) at B=2 each against one process at B=4, at the reference's
+# threshold, at 0.9999, and at 0.9999 with the equivariance pass; 9c: the
+# KITTI training CLI as torchrun starts it, one rank over NCCL.
+PARALLEL_LOSS_BAR = 1e-3
+# every loss term at threshold 0.9999, the CPU test's bar
+# (tests/test_torch_port_parallel.py::ROBUST_LOSS_BAR)
+PARALLEL_ROBUST_LOSS_BAR = 1e-5
+PARALLEL_PARAM_COSINE_BAR = 0.99999
+PARALLEL_GRAD_COSINE_BAR = 0.9999
+PARALLEL_TIMED_STEPS = 3
+# name: (mask threshold, eq_loss_weight, kernel launches of one step)
+PARALLEL_JOBS = {"threshold 1.0": (1.0, 0.0, SGU_LAUNCHES_PER_FORWARD),
+                 "threshold 0.9999": (RELAXED_THRESHOLD, 0.0,
+                                      SGU_LAUNCHES_PER_FORWARD),
+                 "threshold 0.9999, eq 0.1": (RELAXED_THRESHOLD, 0.1,
+                                              EQ_LAUNCHES_PER_STEP)}
+PARALLEL_RANK_TIMEOUT = 600  # seconds
+CLI_PARALLEL_STEPS = 2
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().double().reshape(-1) for t in tensors])
+
+
+def named(model, what: str):
+    """The model's parameters (or their gradients) in name order."""
+    return [getattr(p, what) if what else p
+            for _, p in sorted(model.named_parameters())]
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def single_step(k, conf, batch, threshold=1.0, eq_weight=0.0):
+    """One ``make_train_step`` step of one process from the checkpoint:
+    (loss terms, parameters before, after, gradients), flat on the
+    card."""
+    k.warp_ops.MASK_THRESHOLD = threshold
+    try:
+        model, state, opt = k.step.create_train_state(
+            conf, k.TrainerConfig(), weights=str(NPZ))
+        before = flat(named(model, ""))
+        _, metrics = k.step.make_train_step(
+            model, opt, eq_loss_weight=eq_weight)(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        k.warp_ops.MASK_THRESHOLD = 1.0
+    return ({key: v.item() for key, v in metrics.items()}, before,
+            flat(named(model, "")), flat(named(model, "grad")))
+
+
+def phase_one_rank(k, phase6):
+    """Phase 9a: a one-rank NCCL group on cuda:0 runs phase 6's recipe at
+    B=4 256x832 at fp32 and bf16: its loss equals ``make_train_step``'s
+    bit for bit, its updated parameters reach cosine >=
+    ``PARALLEL_PARAM_COSINE_BAR`` with the single process's, every kernel
+    of the path launches and no plain version runs on a CUDA tensor.  Then
+    both steps are timed in turns and each is profiled once."""
+    pm = k.pmesh
+    pm.init_distributed(rank=0, world_size=1, init_method="tcp://127.0.0.1:"
+                        "%d" % free_port(), device="cuda:0",
+                        timeout=datetime.timedelta(minutes=2))
+    out = {}
+    try:
+        mesh = pm.make_mesh()
+        backend = torch.distributed.get_backend()
+        check(backend == "nccl" and mesh.size == 1
+              and mesh.device == torch.device("cuda", 0),
+              "9a: a one-rank group over %s on %s" % (backend, mesh.device))
+        batch = train_batch(k)
+        for tag, (knobs, _, per_step, _, _) in TRAIN_PATHS.items():
+            conf = k.UPFlowConfig().updated(knobs)
+            runs = {}
+            for name in ("single", "one-rank"):
+                model, state, opt = k.step.create_train_state(
+                    conf, k.TrainerConfig(), weights=str(NPZ))
+                if name == "single":
+                    step_fn = k.step.make_train_step(model, opt)
+                else:
+                    pm.replicate(mesh, model, opt)
+                    step_fn = k.pstep.make_sharded_train_step(model, opt,
+                                                              mesh)
+                before = flat(named(model, ""))
+                # the path's run: every count 0 just before, read after
+                launches_from_zero(k)
+                state, metrics = step_fn(state, batch)
+                got, plain_calls = launch_counts(k)
+                runs[name] = dict(step=step_fn, state=state, times=[],
+                                  loss=metrics["total_loss"].item(),
+                                  params=flat(named(model, "")),
+                                  before=before, got=got, plain=plain_calls)
+            ref, one = runs["single"], runs["one-rank"]
+            cos = cosine(one["params"], ref["params"])
+            update_cos = cosine(one["params"] - one["before"],
+                                ref["params"] - ref["before"])
+            check(one["loss"] == ref["loss"], "9a %s: the one-rank step's "
+                  "loss %r equals make_train_step's %r bit for bit"
+                  % (tag, one["loss"], ref["loss"]))
+            check(cos >= PARALLEL_PARAM_COSINE_BAR,
+                  "9a %s: updated parameters' cosine with the single "
+                  "process's %.9f (>= %g; the update's %.7f)"
+                  % (tag, cos, PARALLEL_PARAM_COSINE_BAR, update_cos))
+            check(one["got"] == per_step and one["plain"] == 0,
+                  "9a %s: the step launched %s, %d plain calls on CUDA "
+                  "tensors" % (tag, one["got"], one["plain"]))
+            losses = []
+            for _ in range(PARALLEL_TIMED_STEPS):  # in turns
+                for run in runs.values():
+                    t0 = time.perf_counter()
+                    run["state"], metrics = run["step"](run["state"], batch)
+                    torch.cuda.synchronize()
+                    run["times"].append((time.perf_counter() - t0) * 1e3)
+                    losses.append(metrics["total_loss"].item())
+            check(all(np.isfinite(losses)), "9a %s: %d timed steps of each, "
+                  "in turns, every loss finite" % (tag, PARALLEL_TIMED_STEPS))
+            ms = {name: statistics.median(run["times"])
+                  for name, run in runs.items()}
+            print("  info 9a %s: in turns over %d steps, one-rank NCCL step "
+                  "%.1f ms median (%.1f-%.1f), single process %.1f ms "
+                  "(%.1f-%.1f); phase 6's %.1f ms (%s)"
+                  % (tag, PARALLEL_TIMED_STEPS, ms["one-rank"],
+                     min(one["times"]), max(one["times"]), ms["single"],
+                     min(ref["times"]), max(ref["times"]),
+                     phase6[tag]["step_ms_median"], nvidia_smi_line()))
+            profiled = {}
+            for name, run in runs.items():
+                _, split, _, busy, wall = profile_train_step(
+                    k, run["step"], run["state"], batch,
+                    "9a %s %s" % (tag, name))
+                profiled[name] = dict(wall_ms=wall, device_ms=busy,
+                                      split_ms=split)
+            out[tag] = dict(loss=one["loss"], single_loss=ref["loss"],
+                            param_cosine=cos, update_cosine=update_cos,
+                            launches=one["got"],
+                            step_ms={n: r["times"] for n, r in runs.items()},
+                            step_ms_median=ms, profiled=profiled,
+                            phase6_step_ms_median=phase6[tag][
+                                "step_ms_median"])
+            del runs
+    finally:
+        pm.close_distributed()
+    return out
+
+
+def parallel_rank(rank: int, init_method: str, out: str) -> int:
+    """One rank of phase 9b (``chip_smoke.py --parallel-rank R INIT
+    OUT``): phase 6's fp32 recipe from the checkpoint at B=2, its half of
+    the B=4 batch, for each of ``PARALLEL_JOBS``, over gloo on cuda:0;
+    the results go to ``OUT`` (``torch.save``)."""
+    k = Port()
+    k.build.build()
+    k.pmesh.init_distributed(rank=rank, world_size=2, local_rank=0,
+                             init_method=init_method, backend="gloo",
+                             device="cuda:0",
+                             timeout=datetime.timedelta(minutes=5))
+    res = {}
+    try:
+        mesh = k.pmesh.make_mesh(data=2)
+        conf = k.UPFlowConfig().updated(TRAIN_KNOBS)
+        local = k.pmesh.shard_batch(mesh, train_batch(k))
+        for name, (threshold, eq_weight, _) in PARALLEL_JOBS.items():
+            k.warp_ops.MASK_THRESHOLD = threshold
+            model, state, opt = k.step.create_train_state(
+                conf, k.TrainerConfig(), weights=str(NPZ))
+            k.pmesh.replicate(mesh, model, opt)
+            step_fn = k.pstep.make_sharded_train_step(
+                model, opt, mesh, eq_loss_weight=eq_weight)
+            launches_from_zero(k)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, local)
+            torch.cuda.synchronize()
+            ms = [(time.perf_counter() - t0) * 1e3]
+            got, plain_calls = launch_counts(k)
+            res[name] = dict(
+                metrics={key: v.item() for key, v in metrics.items()},
+                params=flat(named(model, "")).cpu(),
+                grads=flat(named(model, "grad")).cpu(), launches=got,
+                plain_calls=plain_calls,
+                backend=torch.distributed.get_backend(),
+                device=str(mesh.device))
+            if name == "threshold 1.0":  # a step after the first
+                t0 = time.perf_counter()
+                step_fn(state, local)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            res[name]["ms"] = ms
+            k.warp_ops.MASK_THRESHOLD = 1.0
+            del model, state, opt, step_fn
+        torch.save(res, out)
+    finally:
+        k.pmesh.close_distributed()
+    return 0
+
+
+def phase_two_ranks(k, tmp):
+    """Phase 9b: two processes on the one card over gloo, each at B=2 of
+    phase 6's B=4 batch, against one process at B=4: the global loss
+    within ``PARALLEL_LOSS_BAR`` relative; at threshold 0.9999 (with and
+    without the equivariance pass) every loss term within
+    ``PARALLEL_ROBUST_LOSS_BAR`` and the gradient's cosine >=
+    ``PARALLEL_GRAD_COSINE_BAR``; both ranks bit-equal (loss, gradients,
+    parameters), every kernel of the path launched on both, no plain
+    version on a CUDA tensor."""
+    conf = k.UPFlowConfig().updated(TRAIN_KNOBS)
+    batch = train_batch(k)
+    refs = {}
+    for name, (threshold, eq_weight, _) in PARALLEL_JOBS.items():
+        terms, _, _, grads = single_step(k, conf, batch, threshold,
+                                         eq_weight)
+        refs[name] = (terms, grads.cpu())
+    del batch
+    torch.cuda.empty_cache()
+    init = "file://" + str(tmp / "parallel_store")
+    outs = [tmp / ("parallel_rank%d.pt" % r) for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
+         str(r), init, str(outs[r])], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=PARALLEL_RANK_TIMEOUT)[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    ok = all(p.returncode == 0 for p in procs)
+    check(ok, "9b: both ranks exited 0 in %.1f s (exit codes %s)"
+          % (seconds, [p.returncode for p in procs]))
+    if not ok:
+        for r, log in enumerate(logs):
+            print("  rank %d output:\n%s" % (r, log[-4000:]))
+        return dict(seconds=seconds)
+    ranks = [torch.load(path) for path in outs]
+    out = dict(seconds=seconds)
+    for name, (threshold, eq_weight, per_step) in PARALLEL_JOBS.items():
+        r0, r1 = (r[name] for r in ranks)
+        single, single_grads = refs[name]
+        loss = r0["metrics"]["total_loss"]
+        rels = {key: abs(r0["metrics"][key] - v) / max(abs(v), 1e-30)
+                for key, v in single.items()}
+        rel = rels["total_loss"]
+        grad_cos = cosine(r0["grads"], single_grads)
+        what = "9b %s: 2 gloo ranks at B=2" % name
+        check(r0["backend"] == r1["backend"] == "gloo"
+              and r0["device"] == r1["device"] == "cuda:0",
+              "%s: over %s on %s" % (what, r0["backend"], r0["device"]))
+        check(r0["metrics"] == r1["metrics"]
+              and torch.equal(r0["params"], r1["params"])
+              and torch.equal(r0["grads"], r1["grads"]),
+              "%s: the ranks' loss terms, gradients and parameters are "
+              "equal bit for bit" % what)
+        check(rel <= PARALLEL_LOSS_BAR, "%s: global loss %.7f against one "
+              "process at B=4 %.7f, %.2e relative (<= %g)"
+              % (what, loss, single["total_loss"], rel, PARALLEL_LOSS_BAR))
+        if threshold != 1.0:
+            check(sorted(rels) == sorted(r0["metrics"])
+                  and max(rels.values()) <= PARALLEL_ROBUST_LOSS_BAR,
+                  "%s: every loss term against one process's, at most "
+                  "%.2e relative (<= %g; %s)"
+                  % (what, max(rels.values()), PARALLEL_ROBUST_LOSS_BAR,
+                     ", ".join("%s %.2e" % kv
+                               for kv in sorted(rels.items()))))
+            check(grad_cos >= PARALLEL_GRAD_COSINE_BAR,
+                  "%s: gradient cosine with one process's %.9f (>= %g)"
+                  % (what, grad_cos, PARALLEL_GRAD_COSINE_BAR))
+        check(all(r["launches"] == per_step and r["plain_calls"] == 0
+                  for r in (r0, r1)),
+              "%s: each rank launched %s, plain calls on CUDA tensors %s"
+              % (what, [r["launches"] for r in (r0, r1)],
+                 [r["plain_calls"] for r in (r0, r1)]))
+        print("  info %s: step ms %s on rank 0, %s on rank 1 (%s)"
+              % (what, [round(x, 1) for x in r0["ms"]],
+                 [round(x, 1) for x in r1["ms"]], nvidia_smi_line()))
+        out[name] = dict(loss=loss, single_loss=single["total_loss"],
+                         rel=rel, term_rel=rels,
+                         grad_cosine=grad_cos, launches=r0["launches"],
+                         step_ms=[r0["ms"], r1["ms"]])
+    return out
+
+
+def phase_cli_ranks(k, root, tmp, pth):
+    """Phase 9c: ``scripts/torch_train_kitti.py`` in the environment
+    torchrun gives one rank (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_*):
+    the CLI joins a one-rank NCCL group, trains ``CLI_PARALLEL_STEPS``
+    steps from the ``.pth`` at B=4 through the sharded step, launching
+    every kernel of the path, and leaves the group."""
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    saved = {key: os.environ.get(key) for key in env}
+    backends = []
+    orig_init = k.pmesh.dist.init_process_group
+
+    def init(backend, *args, **kwargs):
+        backends.append(backend)
+        return orig_init(backend, *args, **kwargs)
+
+    os.environ.update(env)
+    k.pmesh.dist.init_process_group = init
+    try:
+        launches_from_zero(k)
+        with watched_training(k) as run:
+            trainer = k.cli["train_kitti"].main([
+                "--mv-root", str(root), "--exp-dir", str(tmp / "kitti_nccl"),
+                "--batch", "4", "--steps", str(CLI_PARALLEL_STEPS),
+                "--pretrained", str(pth)])
+        got, plain_calls = launch_counts(k)
+    finally:
+        k.pmesh.dist.init_process_group = orig_init
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    want = {n: c * CLI_PARALLEL_STEPS
+            for n, c in SGU_LAUNCHES_PER_FORWARD.items()}
+    finite = all(np.isfinite(v) for s in run["steps"]
+                 for v in s["metrics"].values())
+    check(backends == ["nccl"] and trainer.mesh is not None
+          and trainer.mesh.size == 1
+          and not torch.distributed.is_initialized(),
+          "9c: the KITTI CLI under torchrun's one-rank environment joined "
+          "a %s group of %s and left it"
+          % (backends, trainer.mesh and trainer.mesh.size))
+    check(trainer.state.step == CLI_PARALLEL_STEPS and got == want
+          and plain_calls == 0 and finite,
+          "9c: %d steps launched %s, %d plain calls on CUDA tensors, every "
+          "loss term finite (total %s)"
+          % (trainer.state.step, got, plain_calls,
+             [round(s["metrics"]["total_loss"], 4) for s in run["steps"]]))
+    ms = [s["ms"] for s in run["steps"]]
+    print("  info 9c KITTI CLI, one NCCL rank, B=4 256x832: step ms %s (%s)"
+          % ([round(x, 1) for x in ms], nvidia_smi_line()))
+    return dict(step_ms=ms, launches=got)
+
+
+def phase_parallel(k, root, tmp, pth, phase6):
+    """Phase 9: 9a, 9b and 9c; prints one JSON line."""
+    out = {}
+    for name, fn in (("9a", lambda: phase_one_rank(k, phase6)),
+                     ("9b", lambda: phase_two_ranks(k, tmp)),
+                     ("9c", lambda: phase_cli_ranks(k, root, tmp, pth))):
+        t0 = time.perf_counter()
+        print("phase %s" % name, flush=True)
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase_9": out}), flush=True)
+    return out
 
 
 class Port:
@@ -2768,6 +3156,8 @@ class Port:
         from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as sb
         from upflow_pytorch_tpu_torch.ops.kernels import sgu_final as sf
         from upflow_pytorch_tpu_torch.ops.kernels import warp
+        from upflow_pytorch_tpu_torch.parallel import mesh as pmesh
+        from upflow_pytorch_tpu_torch.parallel import step as pstep
         from upflow_pytorch_tpu_torch.train import step, trainer
         from upflow_pytorch_tpu_torch.config import TrainerConfig
         from upflow_pytorch_tpu_torch import demo
@@ -2782,6 +3172,7 @@ class Port:
         self.build, self.UPFlowConfig = _build, UPFlowConfig
         self.step, self.TrainerConfig = step, TrainerConfig
         self.upflow = upflow
+        self.pmesh, self.pstep = pmesh, pstep
         self.warp_ops, self.cn, self.corr, self.fw, self.warp = (
             warp_ops, cn, corr, fw, warp)
         self.sb, self.sf, self.conv_ops, self.seg = sb, sf, conv_ops, seg
@@ -2843,13 +3234,15 @@ BF16_ROWS = ("conv3x3_seg", "correlation_bf16", "feature_warp_bf16",
              "corr_norm_bf16", "sgu_blend_bf16")
 
 
-def kernels_line(rows, launches):
+def kernels_line(rows, launches, one_rank):
     """One entry per kernel and row; times are per forward at B=4,
     384x1280 on the SGU path (the bf16 rows on the bf16 SGU path): the sum
     over the kernel's calls in one forward (two directions per level);
     ``warp_window`` (row 5) is per call.  ``ms`` is CUDA-event time per
     call, ``device_ms`` the profiler's device time of the same calls.
-    ``launches`` counts the run of that path (``path``)."""
+    ``launches`` counts the run of that path (``path``);
+    ``sharded_step_launches`` phase 9a's one-rank sharded step at that
+    path's precision."""
     out = []
     for name, shapes in rows.items():
         def total(key):
@@ -2864,6 +3257,9 @@ def kernels_line(rows, launches):
             name=name, route="cuda", source=SOURCES[name][0],
             replaces=SOURCES[name][1], path=path,
             launches=launches[path][SERVED_BY.get(name, name)],
+            sharded_step_launches=one_rank[
+                "bf16" if path == "sgu-bf16" else "fp32"]["launches"][
+                    SERVED_BY.get(name, name)],
             max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=total("ms"),
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
@@ -2874,7 +3270,7 @@ def kernels_line(rows, launches):
     return {"kernels": out}
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the "
               "GPU", file=sys.stderr)
@@ -2883,6 +3279,8 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository (the "
               "package and assets/ are missing)", file=sys.stderr)
         return 2
+    if argv[:1] == ["--parallel-rank"]:  # one rank of phase 9b
+        return parallel_rank(int(argv[1]), argv[2], argv[3])
     k = Port()
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -2937,13 +3335,17 @@ def main() -> int:
     print("phase 8a", flush=True)
     print(json.dumps({"phase_8a": phase_shapes(k)}), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_data(k, Path(tmp))
-    print("  info phase 8 took %.1f s" % (time.perf_counter() - t0))
+        root, pth = phase_data(k, Path(tmp))
+        print("  info phase 8 took %.1f s" % (time.perf_counter() - t0))
+        print("phase 9: data parallelism on the card", flush=True)
+        t0 = time.perf_counter()
+        parallel = phase_parallel(k, root, Path(tmp), pth, train)
+        print("  info phase 9 took %.1f s" % (time.perf_counter() - t0))
 
     print(json.dumps({"forward_ms": timing,
                       "device_kernels_per_forward": kernels_per_forward}))
     print(json.dumps({"train": train}))
-    print(json.dumps(kernels_line(rows, launches)))
+    print(json.dumps(kernels_line(rows, launches, parallel["9a"])))
     print(smi)
     if failures:
         print("chip_smoke: %d check(s) failed:\n  %s"
@@ -2956,4 +3358,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -7,13 +7,16 @@ The port's counterpart of ``scripts/train_kitti.py``, with its recipe
 smoothness, census, pyramid distillation, SGU upsampling, analytic
 occlusion masks; Adam (AMSGrad) with weight decay 1e-4) and flags, plus
 ``--batch-per-epoch`` (steps between the evaluation and checkpoint at an
-epoch's end) and ``--device``.  ``--data-axis`` other than 1 raises until
-multi-GPU training is ported.  Runs on the GPU unless ``--device cpu`` is
-given.
+epoch's end) and ``--device``.  Runs on the GPU unless ``--device cpu`` is
+given.  ``--data-axis N`` trains on N cards, one process each, started by
+``torchrun``; ``--batch`` is the global batch.  With ``--device cpu`` the
+N processes reduce over gloo.
 
 Usage:
     python scripts/torch_train_kitti.py --mv-root /path/to/KITTI_mv \\
         --eval-root /path/to/KITTI_data --exp-dir ./exp1
+    torchrun --nproc_per_node 8 scripts/torch_train_kitti.py \\
+        --mv-root /path/to/KITTI_mv --data-axis 8 --batch 16
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.data.kitti import (
     KittiFlowEvalDataset, KittiMultiviewDataset)
 from upflow_pytorch_tpu_torch.eval.bench import EvaluationBench
+from upflow_pytorch_tpu_torch.parallel.mesh import (
+    close_distributed, init_distributed)
 from upflow_pytorch_tpu_torch.train.trainer import Trainer
 
 TRAIN_CONF = UPFlowConfig().updated(dict(
@@ -61,8 +66,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                     help="steps an epoch; each epoch ends with an "
                          "evaluation and a checkpoint")
     ap.add_argument("--data-axis", type=int, default=1,
-                    help="data-parallel devices (only 1 until multi-GPU "
-                         "training is ported)")
+                    help="data-parallel ranks, one card each; start the "
+                         "script with torchrun --nproc_per_node N")
     ap.add_argument("--pretrained", default=None, help=".pth to warm-start")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--no-sgu", action="store_true",
@@ -84,16 +89,23 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     if args.eval_root:
         bench = EvaluationBench(KittiFlowEvalDataset(args.eval_root,
                                                      "2015_train"))
-    trainer = Trainer(model_conf, trainer_conf, train_set, bench,
-                      device=args.device)
+    # under torchrun (WORLD_SIZE set) every run joins the group, even of 1
+    joined = args.data_axis > 1 or "WORLD_SIZE" in os.environ
+    device = init_distributed(device=args.device) if joined else args.device
     try:
-        if args.pretrained:
-            trainer.load_pretrained(args.pretrained)
-        if args.resume:
-            trainer.try_resume()
-        trainer.train(total_steps=args.steps)
+        trainer = Trainer(model_conf, trainer_conf, train_set, bench,
+                          device=device)
+        try:
+            if args.pretrained:
+                trainer.load_pretrained(args.pretrained)
+            if args.resume:
+                trainer.try_resume()
+            trainer.train(total_steps=args.steps)
+        finally:
+            trainer.loader.close()
     finally:
-        trainer.loader.close()
+        if joined:
+            close_distributed()
     return trainer
 
 

@@ -178,8 +178,9 @@ def test_train_sintel_cli_steps(setup, tmp_path, capsys):
                                  "demo"])
 def test_entry_points_need_the_card(setup, cli, monkeypatch, tmp_path):
     """Without a card and without ``--device cpu`` every entry point
-    raises; ``--data-axis`` other than 1 raises until multi-GPU training
-    is ported."""
+    raises; ``--data-axis`` above 1 raises outside torchrun (no process
+    group to join; the two-rank run is in
+    ``test_torch_port_parallel.py``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     root = setup["root"]
     argv = {"kitti_eval": (torch_kitti_eval.main, ["--data-root", root]),
@@ -192,7 +193,9 @@ def test_entry_points_need_the_card(setup, cli, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(args)
     if cli.startswith("train"):
-        with pytest.raises(NotImplementedError, match="slice 11"):
+        for key in ("RANK", "WORLD_SIZE"):
+            monkeypatch.delenv(key, raising=False)
+        with pytest.raises(RuntimeError, match="torchrun"):
             main(args + ["--data-axis", "2", "--device", "cpu"])
 
 

@@ -176,14 +176,17 @@ def test_port_imports_no_jax_at_run_time():
 
 def test_port_sources_import_no_jax():
     """No import statement of the port, of chip_smoke.py or of the port's
-    scripts names JAX, flax or the JAX package; the exceptions are the two
-    scripts that run the JAX package to write the references that
-    chip_smoke.py reads: torch_eval_jax_reference.py and
-    torch_kitti_jax_reference.py."""
+    scripts names JAX, flax or the JAX package; the exceptions are the
+    scripts that run the JAX package as a reference: the two that write
+    the files chip_smoke.py reads, torch_eval_jax_reference.py and
+    torch_kitti_jax_reference.py, and torch_kitti_finetune_jax_reference.py,
+    which holds the KITTI fine-tune against the JAX package's."""
     files = sorted((ROOT / "upflow_pytorch_tpu_torch").rglob("*.py"))
     for name in ("demo", "data/native", "data/kitti", "data/sintel",
                  "data/image_io", "data/flow_io", "utils/debug",
-                 "utils/profiling", "utils/misc", "utils/viz"):
+                 "utils/profiling", "utils/misc", "utils/viz",
+                 "parallel/mesh", "parallel/reduce", "parallel/step",
+                 "parallel/dryrun"):
         assert ROOT / "upflow_pytorch_tpu_torch" / (name + ".py") in files
     files.append(ROOT / "chip_smoke.py")
     scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
@@ -191,7 +194,8 @@ def test_port_sources_import_no_jax():
                  "train_sintel", "synthetic_trees"):
         assert ROOT / "scripts" / ("torch_%s.py" % name) in scripts
     files += [p for p in scripts if p.name not in (
-        "torch_eval_jax_reference.py", "torch_kitti_jax_reference.py")]
+        "torch_eval_jax_reference.py", "torch_kitti_jax_reference.py",
+        "torch_kitti_finetune_jax_reference.py")]
     banned = ("jax", "jaxlib", "flax", "upflow_pytorch_tpu")
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -4,7 +4,9 @@ checkpoint, resume in a fresh trainer, go on), a resumed run against an
 uninterrupted one bit for bit (the loader is keyed on ``(seed, epoch,
 index)``, the equivariance draw on the step, and CPU sums are ordered),
 the equivariance pass's student forward pinning full-fp32 matrix
-products, ``data_axis`` refused, and ``load_pretrained``'s report.  The
+products, ``data_axis`` above 1 refused without a process group (the
+data-parallel Trainer runs in ``test_torch_port_parallel.py``), and
+``load_pretrained``'s report.  The
 equivariance step's numbers against JAX's ``loss_fn`` are held in
 ``test_torch_port_equivariance.py``, beside the pass, in one JAX
 compile.
@@ -173,11 +175,18 @@ def test_eq_student_forward_pins_full_fp32_matmuls(monkeypatch):
     assert torch.equal(got, want)
 
 
-def test_data_axis_other_than_one_raises():
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        TrainerConfig(data_axis=2)
-    with pytest.raises(NotImplementedError):
+def test_data_axis_other_than_one_raises(tmp_path):
+    """``data_axis`` splits the global batch over a process group's ranks:
+    a batch that does not split raises, and so does a Trainer with
+    ``data_axis > 1`` in a process that joined no group."""
+    conf = TrainerConfig(exp_dir=str(tmp_path), data_axis=2)
+    assert conf.batchsize == 2
+    with pytest.raises(ValueError, match="split evenly"):
         TrainerConfig().updated(dict(data_axis=4))
+    with pytest.raises(ValueError, match="split evenly"):
+        TrainerConfig(data_axis=0)
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        Trainer(CONF, conf, SyntheticDataset(), device="cpu")
 
 
 def test_trainer_needs_a_gpu_unless_asked(monkeypatch, tmp_path):

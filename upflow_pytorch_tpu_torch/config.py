@@ -112,9 +112,11 @@ class TrainerConfig(ConfigBase):
     loader's order; the in-training evaluation's edge padding; and the
     equivariance pass (``eq_loss_weight`` 0 = off).
 
-    ``data_axis`` is the number of data-parallel devices.  The port runs
-    on one card until multi-GPU training is ported (slice 11), so any
-    other value raises ``NotImplementedError``."""
+    ``data_axis`` is the number of data-parallel ranks, one card each
+    (``parallel/``); ``batchsize`` is the global batch, split evenly over
+    them, so it must be a multiple of ``data_axis``.  Above 1 the
+    ``Trainer`` needs a process group of that size
+    (``parallel/mesh.py::init_distributed``, e.g. under ``torchrun``)."""
 
     exp_dir: str = "./demo_exp"
     batchsize: int = 2
@@ -134,8 +136,7 @@ class TrainerConfig(ConfigBase):
     eq_loss_type: str = "abs_robust"
 
     def __post_init__(self):
-        if self.data_axis != 1:
-            raise NotImplementedError(
-                "data_axis=%d: multi-GPU training is not ported yet (slice "
-                "11); the port trains on one card, data_axis=1"
-                % self.data_axis)
+        if self.data_axis < 1 or self.batchsize % self.data_axis:
+            raise ValueError(
+                "batchsize=%d is the global batch: it must split evenly "
+                "over data_axis=%d ranks" % (self.batchsize, self.data_axis))

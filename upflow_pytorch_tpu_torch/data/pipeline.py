@@ -19,6 +19,14 @@ previous step and the caching allocator never reuses them early.  With a
 CPU ``device`` the batch is ``torch.from_numpy`` of the stacked arrays;
 with ``device=None`` (and no ``post_fn``) it stays numpy, as the JAX
 loader's does.
+
+With ``shard=(rank, ranks)`` (the sharded training step of
+``parallel/``) every rank walks the same epoch order and cursor over
+global batches of ``batch_size`` items, and decodes only its contiguous
+``batch_size / ranks`` of each: the rank's slice of the global batch, as
+each JAX process feeds its addressable part of a global array.  ``state()``
+and ``set_cursor`` count global batches, so a checkpoint resumes on any
+rank.
 """
 
 from __future__ import annotations
@@ -26,10 +34,12 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from upflow_pytorch_tpu_torch.parallel.mesh import batch_rows
 
 
 def _stack_batch(items):
@@ -59,7 +69,12 @@ class DataLoader:
                  prefetch: int = 2, device=None, epoch: int = 0,
                  position: int = 0,
                  post_fn: Optional[Callable[[Dict[str, np.ndarray]],
-                                            Any]] = None):
+                                            Any]] = None,
+                 shard: Tuple[int, int] = (0, 1)):
+        self._rows = batch_rows(batch_size, *shard)
+        if shard[1] > 1 and not drop_last:
+            raise ValueError("a sharded loader drops the last partial "
+                             "batch (drop_last=True)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -169,7 +184,7 @@ class DataLoader:
                     return
                 epoch, pos = self.epoch, self.position
                 lo = pos * self.batch_size
-                idx = order[lo:lo + self.batch_size]
+                idx = order[lo:lo + self.batch_size][self._rows]
                 items = list(self._pool.map(
                     lambda i: self._get_item(epoch, i), idx))
                 event = None

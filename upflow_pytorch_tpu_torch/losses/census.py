@@ -1,7 +1,9 @@
 """Census loss, NCHW.
 
 Port of ``upflow_pytorch_tpu.losses.census``: the reference's
-``census_loss_torch`` and ``photo_loss_function``.
+``census_loss_torch`` and ``photo_loss_function``.  The masked ratios
+take their denominators over the global batch inside the sharded step
+(``parallel/reduce.py``).
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ import torch
 
 from upflow_pytorch_tpu_torch.ops.census import (
     census_border_mask, census_hamming_distance, ternary_transform)
+from upflow_pytorch_tpu_torch.parallel.reduce import (
+    global_mean, global_sum, rank_share)
 
 
 def photo_loss_function(diff: torch.Tensor, mask: torch.Tensor, q: float,
@@ -21,15 +25,15 @@ def photo_loss_function(diff: torch.Tensor, mask: torch.Tensor, q: float,
         if if_use_occ:
             p = (diff ** 2 + 1e-6) ** q * mask
             if average:
-                return p.mean() / (mask.mean() * 2 + 1e-6)
-            return p.sum() / (mask.sum() * 2 + 1e-6)
+                return p.mean() / (global_mean(mask.mean()) * 2 + 1e-6)
+            return rank_share(p.sum()) / (global_sum(mask.sum()) * 2 + 1e-6)
         p = (diff ** 2 + 1e-8) ** q
-        return p.mean() if average else p.sum()
+        return p.mean() if average else rank_share(p.sum())
     if if_use_occ:
         d = (torch.abs(diff) + 0.01) ** q * mask
-        return d.sum() / (mask.sum() * 2 + 1e-6)
+        return rank_share(d.sum()) / (global_sum(mask.sum()) * 2 + 1e-6)
     d = (torch.abs(diff) + 0.01) ** q
-    return d.mean() if average else d.sum()
+    return d.mean() if average else rank_share(d.sum())
 
 
 def census_loss(img1: torch.Tensor, img1_warp: torch.Tensor,

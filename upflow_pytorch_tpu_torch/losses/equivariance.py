@@ -20,13 +20,16 @@ y)``, ``+ c``, ``+ t * (w, h)``), so the in-frame mask's ``wsum >= 1.0``,
 which flips on the last bit, gives JAX's bits.
 
 The draws come from a ``torch.Generator`` on the CPU: the same on the CPU
-and on the card, and not those of ``jax.random``.
+and on the card, and not those of ``jax.random``.  A rank of the sharded
+step draws the transforms of the whole global batch and keeps its own
+rows (``mesh.rows``), so N ranks draw what one process draws; the loss's
+normaliser is summed over the ranks there (``parallel/reduce.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +37,8 @@ import torch
 from upflow_pytorch_tpu_torch.models.upflow import (
     UPFlowNet, _as_nchw, fp32_numerics)
 from upflow_pytorch_tpu_torch.ops.warp import _analytic_wsum, bilinear_sample
+from upflow_pytorch_tpu_torch.parallel.mesh import Mesh
+from upflow_pytorch_tpu_torch.parallel.reduce import global_sum, rank_share
 
 # the step's draws: random_affine(step_generator(step), B)
 EQ_SEED = 17
@@ -58,9 +63,11 @@ def random_affine(generator: torch.Generator, batch: int,
                   zoom: Tuple[float, float] = (1.0, 1.5),
                   squeeze: Tuple[float, float] = (0.86, 1.16),
                   rotate_deg: float = 10.0, trans_frac: float = 0.1,
-                  hflip_prob: float = 0.5) -> AffineParams:
-    """Samples the transforms (the ARFlow ranges of the reference's
-    sp_config) on the CPU, fp32."""
+                  hflip_prob: float = 0.5,
+                  rows: slice = slice(None)) -> AffineParams:
+    """Samples the transforms of ``batch`` items (the ARFlow ranges of the
+    reference's sp_config) on the CPU, fp32, and returns those of
+    ``rows``."""
 
     def uniform(shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=generator)
@@ -78,7 +85,7 @@ def random_affine(generator: torch.Generator, batch: int,
     sy = 1.0 / (z / s)
     lin = torch.stack([torch.stack([cos * sx, -sin * sy], dim=-1),
                        torch.stack([sin * sx, cos * sy], dim=-1)], dim=-2)
-    return AffineParams(lin=lin, trans=t)
+    return AffineParams(lin=lin[rows], trans=t[rows])
 
 
 def _affine_coords(params: AffineParams, b: int, h: int, w: int,
@@ -153,24 +160,30 @@ def equivariance_loss(student_flow: torch.Tensor, teacher_flow: torch.Tensor,
         diff = err
     else:
         raise ValueError("wrong equivariance loss_type: %s" % loss_type)
-    return torch.sum(diff * mask) / (torch.sum(mask) * 2 + 1e-6)
+    return (rank_share(torch.sum(diff * mask))
+            / (global_sum(torch.sum(mask)) * 2 + 1e-6))
 
 
 def equivariance_pass(model: UPFlowNet, batch: Dict[str, Any],
                       teacher_out: Dict[str, torch.Tensor],
                       generator: torch.Generator, use_occ: bool = True,
-                      loss_type: str = "abs_robust") -> torch.Tensor:
+                      loss_type: str = "abs_robust",
+                      mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The whole pass: draw the transforms, transform the pair and the
     teacher's flows (``forward_with_loss``'s NHWC ``flow_f_out``,
     ``flow_b_out``, ``occ_fw``, ``occ_bw``, detached here), run the
     student forward on the transformed pair under ``fp32_numerics`` and
     penalise the disagreement.  Returns the scalar loss, differentiable
-    with respect to the model's parameters."""
+    with respect to the model's parameters.  With a ``mesh`` the batch is
+    this rank's slice of a global batch ``mesh.size`` times as large, whose
+    draws are made and sliced (``mesh.rows``)."""
     device = next(model.parameters()).device
     im1 = _as_nchw(batch["im1"], device)
     im2 = _as_nchw(batch["im2"], device)
     b, _, h, w = im1.shape
-    params = random_affine(generator, b)
+    size = b if mesh is None else b * mesh.size
+    params = random_affine(
+        generator, size, rows=slice(None) if mesh is None else mesh.rows(size))
     teacher = {k: teacher_out[k].detach().permute(0, 3, 1, 2)
                for k in ("flow_f_out", "flow_b_out", "occ_fw", "occ_bw")}
     im1_t, m1 = transform_image(im1, params)

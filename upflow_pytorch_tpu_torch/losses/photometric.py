@@ -1,7 +1,9 @@
 """Photometric losses, NCHW.
 
 Port of ``upflow_pytorch_tpu.losses.photometric``: the reference's
-``photo_loss_multi_type`` and its UFlow-derived ``weighted_ssim``.
+``photo_loss_multi_type`` and its UFlow-derived ``weighted_ssim``.  The
+masked ratio takes its denominator over the global batch inside the
+sharded step (``parallel/reduce.py``).
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from upflow_pytorch_tpu_torch.parallel.reduce import global_sum, rank_share
 
 
 def _avg_pool3x3_valid(x: torch.Tensor) -> torch.Tensor:
@@ -72,5 +76,6 @@ def photo_loss_multi_type(x: torch.Tensor, y: torch.Tensor,
     else:
         raise ValueError("wrong photo_loss type: %s" % photo_loss_type)
     if photo_loss_use_occ:
-        return (loss_diff * occ_weight).sum() / (occ_weight.sum() + 1e-6)
+        return (rank_share((loss_diff * occ_weight).sum())
+                / (global_sum(occ_weight.sum()) + 1e-6))
     return loss_diff.mean()

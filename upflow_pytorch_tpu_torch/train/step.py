@@ -18,10 +18,20 @@ step.  With ``eq_loss_weight > 0`` the step adds the equivariance pass
 the pair, held against the detached teacher outputs of the step's own
 forward, its transforms drawn from the step count
 (``equivariance.step_generator``), so a resumed run draws the same ones.
+
+With a ``mesh`` (``parallel/step.py::make_sharded_train_step``) the batch
+is this rank's slice of the global batch and the step computes what one
+process computes on the global batch, as the JAX package's GSPMD step
+does: the loss's normalisers are summed over the ranks
+(``parallel/reduce.py``), the equivariance transforms are drawn at the
+global batch's size and sliced, the gradients are averaged over the ranks
+in one flat all-reduce before the optimizer's step, and the metrics are
+averaged, so every rank reports the global loss.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Iterable, NamedTuple, Optional, Tuple
 
 import torch
@@ -32,6 +42,8 @@ from upflow_pytorch_tpu_torch.losses.equivariance import (
     equivariance_pass, step_generator)
 from upflow_pytorch_tpu_torch.models.upflow import (
     UPFlowNet, build_model, forward_with_loss, fp32_numerics)
+from upflow_pytorch_tpu_torch.parallel.reduce import (
+    average_gradients, average_metrics, global_normalisers)
 
 # the modules frozen by if_froze_pwc (the reference's froze_PWC)
 PWC_FROZEN_ROOTS = ("feature_pyramid_extractor", "flow_estimators",
@@ -99,30 +111,40 @@ def create_train_state(model_conf: UPFlowConfig,
 def make_train_step(model: UPFlowNet, optimizer: torch.optim.Optimizer,
                     eq_loss_weight: float = 0.0,
                     eq_loss_use_occ: bool = True,
-                    eq_loss_type: str = "abs_robust"):
+                    eq_loss_type: str = "abs_robust", mesh=None):
     """``train_step(state, batch) -> (state, metrics)``: one optimizer step
     on ``batch`` (``forward_with_loss``'s keys).  ``metrics`` holds the
     loss terms present (``photo_loss``, ``smooth_loss``, ``census_loss``,
     ``msd_loss``, and ``eq_loss`` with ``eq_loss_weight > 0``) and
-    ``total_loss``, as detached 0-dim tensors."""
+    ``total_loss``, as detached 0-dim tensors.  With ``mesh``
+    (``parallel/mesh.py``) ``batch`` is this rank's slice of the global
+    batch and the metrics are the global batch's."""
+    trainable = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         set_learning_rate(optimizer, state.step)
         model.zero_grad(set_to_none=True)
-        out = forward_with_loss(model, batch)
-        metrics = {k: out[k].detach() for k in METRICS
-                   if out[k] is not None}
-        total = out["total_loss"]
-        if eq_loss_weight > 0:
-            eq = eq_loss_weight * equivariance_pass(
-                model, batch, out, step_generator(state.step),
-                use_occ=eq_loss_use_occ, loss_type=eq_loss_type)
-            metrics["eq_loss"] = eq.detach()
-            total = total + eq
+        with (contextlib.nullcontext() if mesh is None
+              else global_normalisers(mesh)):
+            out = forward_with_loss(model, batch)
+            metrics = {k: out[k].detach() for k in METRICS
+                       if out[k] is not None}
+            total = out["total_loss"]
+            if eq_loss_weight > 0:
+                eq = eq_loss_weight * equivariance_pass(
+                    model, batch, out, step_generator(state.step),
+                    use_occ=eq_loss_use_occ, loss_type=eq_loss_type,
+                    mesh=mesh)
+                metrics["eq_loss"] = eq.detach()
+                total = total + eq
         with fp32_numerics():
             total.backward()
+        if mesh is not None:
+            average_gradients(mesh, trainable)
         optimizer.step()
         metrics["total_loss"] = total.detach()
+        if mesh is not None:
+            metrics = average_metrics(mesh, metrics)
         return TrainState(state.params, optimizer.state,
                           state.step + 1), metrics
 

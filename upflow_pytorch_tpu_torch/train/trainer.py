@@ -7,8 +7,16 @@ rate, running loss meters, evaluation at every epoch's end through
 ``NetEvalModel`` and the ``EvaluationBench``, and step-tagged checkpoints
 (``checkpoint/state_io.py``) of the model, the optimizer's state, the step
 and the loader's cursor, from which ``try_resume`` continues a run, which
-the reference cannot do.  The JAX trainer's mesh calls (``replicate``,
-``shard_batch``) have no counterpart: the port trains on one card.
+the reference cannot do.
+
+With ``data_axis > 1``, or whenever a process group is initialised (one
+process a card, e.g. under ``torchrun``; ``parallel/mesh.py``), the
+trainer does what the JAX trainer's mesh calls do: it builds the mesh
+over the group (whose size must equal ``data_axis``), replicates rank 0's
+state, trains with the sharded step (``parallel/step.py``) on a loader
+that decodes only this rank's slice of each global batch, and lets rank 0
+alone log, evaluate and write checkpoints, the others waiting at a
+barrier; ``try_resume`` restores the newest checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from upflow_pytorch_tpu_torch.checkpoint.state_io import (
     latest_step, restore_checkpoint, save_checkpoint)
@@ -27,6 +36,7 @@ from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.data.pipeline import DataLoader
 from upflow_pytorch_tpu_torch.eval.bench import AbsTestModel, EvaluationBench
 from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet, forward
+from upflow_pytorch_tpu_torch.parallel.mesh import make_mesh, replicate
 from upflow_pytorch_tpu_torch.train.step import (
     TrainState, create_train_state, make_train_step)
 from upflow_pytorch_tpu_torch.utils.meters import AvgMeterGroup
@@ -91,7 +101,8 @@ class Trainer:
     ``device`` (the card unless ``"cpu"`` is asked for), from Kaiming-
     normal weights drawn from ``trainer_conf.seed`` or the ``.npz``
     snapshot ``weights``; batches reach it through the loader's device
-    copy."""
+    copy.  Under a process group the card is the current CUDA device, the
+    one ``parallel/mesh.py::init_distributed`` sets (``make_mesh``)."""
 
     def __init__(self, model_conf: UPFlowConfig, trainer_conf: TrainerConfig,
                  train_dataset, eval_bench: Optional[EvaluationBench] = None,
@@ -99,21 +110,29 @@ class Trainer:
                  weights: Optional[str] = None):
         self.model_conf = model_conf
         self.conf = trainer_conf
-        self.log = log_fn
+        self.mesh = None
+        shard = (0, 1)
+        if trainer_conf.data_axis > 1 or dist.is_initialized():
+            self.mesh = make_mesh(data=trainer_conf.data_axis, device=device)
+            device, shard = self.mesh.device, (self.mesh.rank, self.mesh.size)
+        self.log = log_fn if self.is_writer else (lambda line: None)
         os.makedirs(trainer_conf.exp_dir, exist_ok=True)
 
         self.model, self.state, self.optimizer = create_train_state(
             model_conf, trainer_conf, device=device, weights=weights)
         self.device = next(self.model.parameters()).device
+        if self.mesh is not None:
+            replicate(self.mesh, self.model, self.optimizer)
         self.train_step = make_train_step(
             self.model, self.optimizer,
             eq_loss_weight=trainer_conf.eq_loss_weight,
             eq_loss_use_occ=trainer_conf.eq_loss_use_occ,
-            eq_loss_type=trainer_conf.eq_loss_type)
+            eq_loss_type=trainer_conf.eq_loss_type, mesh=self.mesh)
         self.loader = DataLoader(
             train_dataset, batch_size=trainer_conf.batchsize,
             num_workers=trainer_conf.num_workers, shuffle=True,
-            drop_last=True, seed=trainer_conf.seed, device=self.device)
+            drop_last=True, seed=trainer_conf.seed, device=self.device,
+            shard=shard)
         self.eval_bench = eval_bench
         self.meters = AvgMeterGroup()
         self.best_metric = float("inf")
@@ -121,6 +140,12 @@ class Trainer:
         # updated in place, so evaluation always sees the current ones
         self._eval_model = NetEvalModel(
             self.model, pad_to_multiple=trainer_conf.eval_pad_to_multiple)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process logs, evaluates and writes checkpoints:
+        the only one, or rank 0 of the group."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # --- checkpoint/resume -------------------------------------------------
     @property
@@ -136,8 +161,8 @@ class Trainer:
 
     def try_resume(self) -> bool:
         """Restores the newest checkpoint (parameters, optimizer state,
-        step, loader cursor), before ``train``; False when there is
-        none."""
+        step, loader cursor), before ``train``, on every rank; False when
+        there is none."""
         step = latest_step(self.ckpt_dir)
         if step is None:
             return False
@@ -156,6 +181,8 @@ class Trainer:
         """Merges a reference ``.pth`` state dict into the model (relaxed,
         ``checkpoint/torch_import.py``) and returns the merge's report."""
         report = load_pretrained_params(pth_path, self.model)
+        if self.mesh is not None:
+            replicate(self.mesh, self.model)
         self.log("loaded %d keys from %s" % (len(report["loaded"]), pth_path))
         return report
 
@@ -189,6 +216,12 @@ class Trainer:
         return self.state
 
     def evaluate_and_checkpoint(self, step: int):
+        if self.is_writer:
+            self._evaluate_and_save(step)
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _evaluate_and_save(self, step: int):
         if self.eval_bench is not None:
             res = self.eval_bench(self._eval_model)
             # padded-bucket metrics are approximate near the padded border
