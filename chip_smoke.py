@@ -143,12 +143,39 @@ Phases, each of which must pass:
    group of one, launches every kernel of the path and leaves the group.
    Each step's ms is printed beside phase 6's with the card's name and
    power limit.
+10. Width sharding (``parallel/spatial.py``) on the one card.  (a) The
+   four warp kernels (``feature_warp`` at fp32 and bf16, ``warp``,
+   ``sgu_blend`` from fp32 and bf16 heads, ``sgu_final``) at every rank's
+   columns of 2 and of 3 ranks (an offset ``x0`` and a narrower output)
+   at the decode-level shapes of B=1 375x1242 and B=2 384x1280, mask
+   threshold 1.0: bit for bit against their plain versions at the same
+   columns, mask bits included (``sgu_final`` within phase 2's 1e-4 px),
+   and bit for bit against the columns of the whole frame's launch; the
+   correlation, corr_norm and ``conv3x3_seg`` on every rank's column
+   windows of 2 and 3 ranks, against their plain versions and the whole
+   frame's columns under phase 2's bars.  (b)
+   Two processes on cuda:0 over gloo, each this script with
+   ``--spatial-rank R 2 INIT OUT``, a ('data', 'spatial') = (1, 2) mesh:
+   ``make_sharded_eval_step(spatial=True)`` on B=1 375x1242 and B=2
+   384x1280 at fp32 and bf16 with SGU, held against one process's
+   ``forward`` at threshold 0.9999 under the AGREEMENT bars; the ranks'
+   outputs equal bit for bit, each rank launching the path's kernels as
+   often as one process does and no plain version on a CUDA tensor; each
+   rank's forward wall and the bytes it all-reduced a forward are
+   printed; every window shape the ranks launch must be one that (a)
+   held; per fp32 request each rank traces where its forward first parts
+   from the whole forward's (``trace_difference``).  (c) One fp32
+   request, B=1 384x1280, over three ranks (every level splits
+   unevenly), under the same checks.  (d)
+   ``dryrun_multigpu(2)`` in (b)'s group: the step's loss on both ranks
+   and the width-sharded rehearsal's line.
 
 The line before the last is the card's name and power limit; the line
 before that holds the kernels' numbers as JSON, and the one before that
 the training step's (with the Trainer's under ``trainer``); the kernels'
-line also holds each kernel's launches in phase 9a's sharded step.  The
-last line,
+line also holds each kernel's launches in phase 9a's sharded step, and
+in phase 10b's width-sharded forward, and the cases phase 10a held it
+at on a rank's columns.  The last line,
 ``{"ok": true, "device": ...}``, is printed only when every check passed;
 any failure exits non-zero without it.
 """
@@ -3135,6 +3162,607 @@ def phase_parallel(k, root, tmp, pth, phase6):
     return out
 
 
+# phase 10: width sharding (parallel/spatial.py) on the one card.  10a:
+# the four warp kernels at column offsets (each rank's columns of 2 and of
+# 3 ranks) at the decode-level shapes of the 10b requests, and the other
+# three kernels on the windows the sharded forward gives them; 10b: two gloo
+# ranks on cuda:0 (NCCL takes one rank a device) run the SGU eval at fp32
+# and bf16 with the width split over 'spatial', against one process at
+# threshold 0.9999 under the AGREEMENT bars; 10c: one fp32 request over
+# three ranks, whose widths split unevenly at every level; 10d:
+# dryrun_multigpu(2) with its width-sharded rehearsal, in 10b's group.
+SPATIAL_REQUESTS = [("b1_375x1242", 1, 375, 1242, 21),
+                    ("b2_384x1280", 2, 384, 1280, 22)]
+SPATIAL_UNEVEN = ("b1_384x1280", 1, 384, 1280, 23)  # 1280 / 3 .. 20 / 3
+SPATIAL_PATHS = {"sgu": (SGU_KNOBS, SGU_LAUNCHES_PER_FORWARD),
+                 "sgu-bf16": (BF16_KNOBS, BF16_LAUNCHES_PER_FORWARD)}
+SPATIAL_RANK_TIMEOUT = 600  # seconds
+# 10a's windows of the other three kernels: the frames of 10b (two and
+# three ranks) and 10c's (three ranks)
+WINDOW_FRAMES = (((1, 375, 1242), (2, 3)), ((2, 384, 1280), (2, 3)),
+                 ((1, 384, 1280), (3,)))
+# the rank processes wrap these launchers of the kernels that run on
+# windows, to record the shapes they launch
+WINDOW_LAUNCHERS = (("corr", "correlation_cuda", "correlation"),
+                    ("cn", "corr_norm_cuda", "corr_norm"),
+                    ("seg", "conv3x3_seg_cuda", "conv3x3_seg"))
+
+
+def split_cols(w: int):
+    """Every rank's columns of a map ``w`` wide over 2 and over 3 ranks."""
+    return [(s * w // n, (s + 1) * w // n) for n in (2, 3) for s in range(n)]
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    word = torch.int16 if a.element_size() == 2 else torch.int32
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(word),
+                            b.contiguous().view(word)))
+
+
+def window_key(name, x, *extra):
+    """How 10a and the rank processes name a launch on a window: the
+    kernel, the map's type and shape, and for the conv its Cout and
+    dilation."""
+    return (name, str(x.dtype)[6:], tuple(x.shape)) + tuple(extra)
+
+
+def zero_window(x, lo, hi):
+    """Columns [lo, hi) of ``x``, zero outside it (``WidthShard.window``'s
+    zero fill)."""
+    out = x.new_zeros(tuple(x.shape[:-1]) + (hi - lo,))
+    a, b = max(lo, 0), min(hi, x.shape[-1])
+    out[..., a - lo:b - lo] = x[..., a:b]
+    return out
+
+
+def phase_offsets(k):
+    """Phase 10a: each warp kernel at every rank's columns of 2 and of 3
+    ranks (x0 and a narrower output), at the decode-level shapes of B=1
+    375x1242 and B=2 384x1280 (full resolution for the occlusion warp and
+    the final stage), mask threshold 1.0: bit for bit against its plain
+    version at the same columns, mask bits included (the final stage
+    within phase 2's 1e-4 px), and bit for bit against the columns of the
+    whole frame's launch.  Then ``phase_windows``.  Returns the cases held
+    per kernel row and the window shapes held."""
+    rng = np.random.RandomState(41)
+    held = {name: 0 for name in list(LAUNCHES_PER_FORWARD) + list(SERVED_BY)}
+
+    def rand(*shape, amp=1.0):
+        return torch.from_numpy(((rng.rand(*shape) - 0.5) * 2 * amp).astype(
+            np.float32)).to(DEV)
+
+    def hold(name, what, cases):
+        ok = all(cases)
+        held[name] += len(cases)
+        check(ok, "10a %s %s: %d of %d column ranges bit for bit against "
+              "the plain version and the whole frame's columns"
+              % (name, what, sum(cases), len(cases)))
+
+    for b, h, w in ((1, 375, 1242), (2, 384, 1280)):
+        for level, (hl, wl) in enumerate(pyramid_hw(h, w)):
+            if level == 0:
+                continue
+            amp = max(2.0, min(40.0, wl / 4))
+            flows = [make_flow(rng, b, hl, wl, amp) for _ in range(2)]
+            for c, dtype in ((PYRAMID_CHS[level], torch.float32),
+                             (32, torch.float32),
+                             (PYRAMID_CHS[level], torch.bfloat16)):
+                x = rand(b, c, hl, wl).to(dtype)
+                whole, whole_mask = k.fw.feature_warp(x, flows[0], 1.0,
+                                                      with_mask=True)
+                cases = []
+                for lo, hi in split_cols(wl):
+                    fl = flows[0][..., lo:hi].contiguous()
+                    got, mask = k.fw.feature_warp(x, fl, 1.0, with_mask=True,
+                                                  x0=lo)
+                    ref, ref_mask = k.fw.feature_warp_plain(
+                        x, fl, 1.0, with_mask=True, x0=lo)
+                    cases.append(
+                        same_bits(got, ref) and same_bits(mask, ref_mask)
+                        and same_bits(got, whole[..., lo:hi])
+                        and same_bits(mask, whole_mask[..., lo:hi]))
+                hold("feature_warp" + ("_bf16" if dtype == torch.bfloat16
+                                       else ""),
+                     "%s L%d %s" % (str(dtype)[6:], level, (b, c, hl, wl)),
+                     cases)
+            for dtype in (torch.float32, torch.bfloat16):
+                heads = [torch.cat([rand(b, 2, hl, wl, amp=15.0),
+                                    rand(b, 1, hl, wl, amp=6.0)],
+                                   dim=1).to(dtype) for _ in range(2)]
+                whole = k.sb.sgu_blend_pair(flows[0], heads[0], flows[1],
+                                            heads[1])
+                cases = []
+                for lo, hi in split_cols(wl):
+                    args = (flows[0], heads[0][..., lo:hi].contiguous(),
+                            flows[1], heads[1][..., lo:hi].contiguous())
+                    got = k.sb.sgu_blend_pair(*args, x0=lo)
+                    ref = k.sb.sgu_blend_pair_plain(*args, x0=lo)
+                    cases.append(all(
+                        same_bits(g, r) and same_bits(g, f[..., lo:hi])
+                        for g, r, f in zip(got, ref, whole)))
+                hold("sgu_blend" + ("_bf16" if dtype == torch.bfloat16
+                                    else ""),
+                     "%s heads L%d %s" % (str(dtype)[6:], level,
+                                          (b, 3, hl, wl)), cases)
+        flows = [make_flow(rng, b, h, w, 20.0) for _ in range(2)]
+        # row 5's magnitudes (|u| <= 119, |v| <= 39 px), as phase 2 has them
+        wide = torch.cat([make_flow(rng, b, h, w, amp)[:, :1]
+                          for amp in (119.0, 39.0)], dim=1)
+        wide[:, 0].clamp_(-119.0, 119.0)
+        wide[:, 1].clamp_(-39.0, 39.0)
+        for row, flow in (("warp", flows[0]), ("warp_window", wide)):
+            whole = k.warp.warp(flows[1], flow)
+            cases = []
+            for lo, hi in split_cols(w):
+                fl = flow[..., lo:hi].contiguous()
+                got = k.warp.warp(flows[1], fl, lo)
+                cases.append(
+                    same_bits(got, k.warp.warp_plain(flows[1], fl, lo))
+                    and same_bits(got, whole[..., lo:hi]))
+            hold(row, "occlusion warp %s" % ((b, 2, h, w),), cases)
+        hq, wq = pyramid_hw(h, w)[4]
+        flow_q = make_flow(rng, b, hq, wq, 10.0)
+        x_out = torch.cat([rand(b, 2, hq, wq, amp=9.0),
+                           rand(b, 1, hq, wq, amp=3.0)], dim=1)
+        whole = k.sf.sgu_final(flow_q, x_out, (h, w))
+        cases, err = [], 0.0
+        for lo, hi in split_cols(w):
+            got = k.sf.sgu_final(flow_q, x_out, (h, w), lo, hi - lo)
+            ref = k.sf.sgu_final_plain(flow_q, x_out, (h, w), lo, hi - lo)
+            err = max(err, (got - ref).abs().max().item())
+            cases.append(same_bits(got, whole[..., lo:hi])
+                         and (got - ref).abs().max().item() <= 1e-4)
+        held["sgu_final"] += len(cases)
+        check(all(cases), "10a sgu_final %s -> %s: %d of %d column ranges "
+              "bit for bit against the whole frame's columns, max abs err "
+              "against the plain version %.3e px (<= 1e-4)"
+              % (tuple(x_out.shape), (b, 2, h, w), sum(cases), len(cases),
+                 err))
+    return held, phase_windows(k, held)
+
+
+def phase_windows(k, held):
+    """Phase 10a, the kernels that run on windows and are cropped:
+    correlation (decode level 0, ``[lo - 4, hi + 4)`` zero-filled, the
+    first map's halo zeros), corr_norm (levels 1-4, ``[lo - 4, hi + 4)``
+    clipped to the frame, the affine of the frame's moments) at fp32 and
+    bf16, and conv3x3_seg (every kernel-route conv of the bf16 forward,
+    ``[lo - d, hi + d)`` zero-filled), at every rank's columns of
+    ``WINDOW_FRAMES``, each on the grid of the frame's width as the
+    sharded forward launches it.  Each is held against its plain version
+    on the window and, cropped to the rank's columns, against the whole
+    frame's launch, both under phase 2's bars (1e-5 x max|out|;
+    ``conv_agreement``); the cases equal bit for bit are counted.  Adds
+    the cases to ``held`` and returns the window shapes held
+    (``window_key``)."""
+    gen = torch.Generator(device=DEV).manual_seed(43)
+    shapes, bits = set(), {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    def corr_bar(got, ref):
+        err = (got - ref).abs().max().item()
+        return err <= 1e-5 * ref.abs().max().item(), err
+
+    def hold(row, what, cases):
+        """cases: (ok against plain, ok against the whole frame, bit for
+        bit against it, max abs err against the whole frame)."""
+        held[row] += len(cases)
+        same = sum(c[2] for c in cases)
+        total, eq = bits.get(row, (0, 0))
+        bits[row] = (total + len(cases), eq + same)
+        check(all(c[0] and c[1] for c in cases),
+              "10a %s %s: %d of %d windows within phase 2's bar of the plain "
+              "version and of the whole frame's columns (%d bit for bit, max "
+              "abs err against the whole frame %.3e)"
+              % (row, what, sum(c[0] and c[1] for c in cases), len(cases),
+                 same, max(c[3] for c in cases)))
+
+    for (b, h, w), ranks in WINDOW_FRAMES:
+        for level, (hl, wl) in enumerate(pyramid_hw(h, w)):
+            c = PYRAMID_CHS[level]
+            cols = [(s * wl // n, (s + 1) * wl // n)
+                    for n in ranks for s in range(n)]
+            f1, f2 = randn(b, c, hl, wl), randn(b, c, hl, wl) * 2 + 0.5
+            aff = k.cn.affine_pair(*k.cn.moments(f1, False),
+                                   *k.cn.moments(f2, False), NORM_KW)
+            for dtype, suffix in ((torch.float32, ""),
+                                  (torch.bfloat16, "_bf16")):
+                a1, a2 = f1.to(dtype), f2.to(dtype)
+                cases = []
+                if level == 0:
+                    whole = k.corr.correlation(a1, a2)
+                    for lo, hi in cols:
+                        w1 = torch.nn.functional.pad(a1[..., lo:hi], (4, 4))
+                        w2 = zero_window(a2, lo - 4, hi + 4)
+                        got = k.corr.correlation(w1, w2, 4, wl)
+                        ref = k.corr.correlation_plain(w1, w2)
+                        crop = got[..., 4:got.shape[3] - 4]
+                        shapes.add(window_key("correlation", w1))
+                        ok_whole, err = corr_bar(crop, whole[..., lo:hi])
+                        cases.append((corr_bar(got, ref)[0], ok_whole,
+                                      same_bits(crop, whole[..., lo:hi]),
+                                      err))
+                    row = "correlation" + suffix
+                else:
+                    whole = k.cn.corr_norm(a1, a2, aff, 0.1)
+                    for lo, hi in cols:
+                        a, e = max(lo - 4, 0), min(hi + 4, wl)
+                        w1 = a1[..., a:e].contiguous()
+                        w2 = a2[..., a:e].contiguous()
+                        got = k.cn.corr_norm(w1, w2, aff, 0.1, wl)
+                        ref = k.cn.corr_norm_plain(w1, w2, aff, 0.1)
+                        crop = got[..., lo - a:hi - a]
+                        shapes.add(window_key("corr_norm", w1))
+                        ok_whole, err = corr_bar(crop, whole[..., lo:hi])
+                        cases.append((corr_bar(got, ref)[0], ok_whole,
+                                      same_bits(crop, whole[..., lo:hi]),
+                                      err))
+                    row = "corr_norm" + suffix
+                hold(row, "%s L%d %s, %d windows of %s"
+                     % (str(dtype)[6:], level, (b, c, hl, wl), len(cols),
+                        ranks), cases)
+        for what, _, hc, wc, cin, cout, d, relu, per_forward, _ in \
+                conv_shapes(b, (h, w), ragged=False):
+            if per_forward == 0:
+                continue
+            x = randn(b, cin, hc, wc).bfloat16()
+            weight = randn(cout, cin, 3, 3) * (2.0 / (9 * cin)) ** 0.5
+            bias = randn(cout) * 0.1
+            whole = k.seg.conv3x3_seg(x, weight, bias, d, relu).float()
+            cases = []
+            for lo, hi in [(s * wc // n, (s + 1) * wc // n)
+                           for n in ranks for s in range(n)]:
+                xw = zero_window(x, lo - d, hi + d)
+                got = k.seg.conv3x3_seg(xw, weight, bias, d, relu).float()
+                ref = k.seg.conv3x3_seg_plain(xw, weight, bias, d,
+                                              relu).float()
+                crop = got[..., d:got.shape[3] - d]
+                shapes.add(window_key("conv3x3_seg", xw, cout, d))
+                diff, stats = conv_agreement(crop, whole[..., lo:hi])
+                cases.append((conv_agreement(got, ref)[1][0], stats[0],
+                              same_bits(crop, whole[..., lo:hi]),
+                              diff.max().item()))
+            hold("conv3x3_seg", "%s (%d, %d->%d, %dx%d, d=%d), %d windows "
+                 "of %s" % (what, b, cin, cout, hc, wc, d, len(cases),
+                            ranks), cases)
+    for row, (total, eq) in sorted(bits.items()):
+        print("  info 10a %s on windows: %d of %d cropped windows equal the "
+              "whole frame's columns bit for bit" % (row, eq, total))
+    return shapes
+
+
+@contextlib.contextmanager
+def recording_windows(k, shapes):
+    """Adds to ``shapes`` the ``window_key`` of every launch of the kernels
+    that run on windows (``WINDOW_LAUNCHERS``) inside the block."""
+    saved = []
+    for mod, fn, name in WINDOW_LAUNCHERS:
+        module = getattr(k, mod)
+        launcher = getattr(module, fn)
+
+        def wrapped(x, *args, _launcher=launcher, _name=name, **kw):
+            extra = (args[0].shape[0], args[2]) if _name == "conv3x3_seg" \
+                else ()
+            shapes.add(window_key(_name, x, *extra))
+            return _launcher(x, *args, **kw)
+
+        saved.append((module, fn, launcher))
+        setattr(module, fn, wrapped)
+    try:
+        yield
+    finally:
+        for module, fn, launcher in saved:
+            setattr(module, fn, launcher)
+
+
+# the model's ops whose outputs the trace compares (module, name), besides
+# every ConvBlock
+TRACED_OPS = (("upflow", "normalize_features"), ("upflow", "_correlation"),
+              ("upflow", "upsample2d_flow_as"), ("cn", "moments"),
+              ("upflow", "warp_norm_corr"), ("warp_ops", "flow_warp_masked"),
+              ("warp_ops", "sgu_blend_pair"), ("upflow", "sgu_final"),
+              ("upflow", "occ_check"))
+
+
+def trace_difference(k, model, im1, im2, shard):
+    """Where a width-sharded forward first parts from one process's: the
+    whole forward on this rank, then the sharded one, recording the
+    tensors in and out of every ConvBlock and ``TRACED_OPS`` call in the
+    order they run; each of the whole run's is cropped to this rank's
+    columns (where its width is not already the sharded one's).  Returns
+    the number of calls, the first whose output is not bit for bit the
+    whole run's, and per op the calls whose inputs were equal but whose
+    outputs were not (the sources of a difference), with their largest
+    |difference|."""
+    def flat(v):
+        if isinstance(v, torch.Tensor):
+            return [v]
+        if isinstance(v, (list, tuple)):
+            return [t for x in v for t in flat(x)]
+        return []
+
+    def crop(whole, part):
+        if whole.shape == part.shape:
+            return whole
+        lo, hi = shard.cols(whole.shape[-1])
+        if whole.shape[:-1] == part.shape[:-1] and hi - lo == part.shape[-1]:
+            return whole[..., lo:hi]
+        return None
+
+    record, calls = [], []
+
+    def note(name, ins, outs):
+        ins, outs = flat(ins), flat(outs)
+        if record is not None:
+            record.append((name, [t.detach().clone() for t in ins],
+                           [t.detach().clone() for t in outs]))
+            return
+        i = len(calls)
+        if i >= len(whole_run) or whole_run[i][0] != name:
+            calls.append((name, None, None, None))
+            return
+        _, w_ins, w_outs = whole_run[i]
+
+        def same(ws, ps):
+            pairs = [(crop(w, p), p) for w, p in zip(ws, ps)]
+            return (len(ws) == len(ps)
+                    and all(w is not None and same_bits(w, p)
+                            for w, p in pairs)), pairs
+
+        ins_same, _ = same(w_ins, ins)
+        outs_same, pairs = same(w_outs, outs)
+        diff = max([(w.float() - p.float()).abs().max().item()
+                    for w, p in pairs if w is not None and w.numel()
+                    and w.dtype.is_floating_point] or [0.0])
+        calls.append((name, ins_same, outs_same, diff))
+
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=name: note(name, args[:1], out))
+        for name, m in model.named_modules()
+        if type(m).__name__ == "ConvBlock"]
+    saved = []
+    for mod, fn in TRACED_OPS:
+        module = getattr(k, mod)
+        op = getattr(module, fn)
+
+        def wrapped(*args, _op=op, _fn=fn, **kw):
+            out = _op(*args, **kw)
+            note(_fn, list(args), out)
+            return out
+
+        saved.append((module, fn, op))
+        setattr(module, fn, wrapped)
+    try:
+        k.upflow.forward(model, im1, im2)
+        whole_run, record = record, None
+        k.upflow.forward(model, im1, im2, shard)
+    finally:
+        for h in hooks:
+            h.remove()
+        for module, fn, op in saved:
+            setattr(module, fn, op)
+    first = next(((i, c[0], c[3]) for i, c in enumerate(calls)
+                  if not c[2]), None)
+    sources = {}
+    for name, ins_same, outs_same, diff in calls:
+        if ins_same and not outs_same:
+            n, d = sources.get(name, (0, 0.0))
+            sources[name] = (n + 1, max(d, diff))
+    aligned = (len(calls) == len(whole_run)
+               and all(c[1] is not None for c in calls))
+    return dict(calls=len(calls), aligned=aligned, first=first,
+                sources=sources)
+
+
+def spatial_rank(rank: int, world: int, init_method: str, out: str) -> int:
+    """One rank of phase 10b-d (``chip_smoke.py --spatial-rank R WORLD INIT
+    OUT``), over gloo on cuda:0: with 2 ranks the SGU eval of
+    ``SPATIAL_PATHS`` on ``SPATIAL_REQUESTS``, then ``dryrun_multigpu(2)``
+    in the same group; with 3 ranks the fp32 request ``SPATIAL_UNEVEN``.
+    Each request runs once to warm up and once counted and timed; the
+    results go to ``OUT`` (``torch.save``)."""
+    k = Port()
+    k.build.build()
+    k.pmesh.init_distributed(rank=rank, world_size=world, local_rank=0,
+                             init_method=init_method, backend="gloo",
+                             device="cuda:0",
+                             timeout=datetime.timedelta(minutes=5))
+    res = {}
+    try:
+        mesh = k.pmesh.make_mesh(data=1, spatial=world)
+        if world == 2:
+            jobs = [(path, req) for path in SPATIAL_PATHS
+                    for req in SPATIAL_REQUESTS]
+        else:
+            jobs = [("sgu", SPATIAL_UNEVEN)]
+        k.warp_ops.MASK_THRESHOLD = RELAXED_THRESHOLD
+        models, windows = {}, set()
+        for path, (name, b, h, w, seed) in jobs:
+            if path not in models:
+                models[path] = k.upflow.build_model(
+                    k.UPFlowConfig().updated(SPATIAL_PATHS[path][0]),
+                    weights=str(NPZ))
+            step = k.pstep.make_sharded_eval_step(models[path], mesh,
+                                                  spatial=True)
+            im1, im2 = textured_pair(b, h, w, seed)
+            with recording_windows(k, windows):
+                step(im1, im2)
+                torch.cuda.synchronize()
+                launches_from_zero(k)
+                step.shard.bytes_reduced = step.shard.collectives = 0
+                t0 = time.perf_counter()
+                outs = step(im1, im2)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            got, plain_calls = launch_counts(k)
+            res[path, name] = dict(
+                outputs={key: v.cpu() for key, v in
+                         zip(("flow_f_out", "flow_b_out", "occ_fw",
+                              "occ_bw"), outs)},
+                launches=got, plain_calls=plain_calls, ms=ms,
+                bytes=step.shard.bytes_reduced,
+                collectives=step.shard.collectives,
+                backend=torch.distributed.get_backend(),
+                device=str(mesh.device))
+            if path == "sgu":
+                res[path, name]["trace"] = trace_difference(
+                    k, models[path], im1, im2, step.shard)
+        res["windows"] = windows
+        k.warp_ops.MASK_THRESHOLD = 1.0
+        del models
+        torch.cuda.empty_cache()
+        if world == 2:
+            res["dryrun_loss"] = k.dryrun.dryrun_multigpu(2)
+        torch.save(res, out)
+    finally:
+        k.pmesh.close_distributed()
+    return 0
+
+
+def run_spatial_ranks(tmp: Path, world: int):
+    """Starts ``world`` processes of ``spatial_rank`` on the card and
+    waits for them; returns (results by rank or None, outputs, seconds)."""
+    init = "file://" + str(tmp / ("spatial_store_%d" % world))
+    outs = [tmp / ("spatial_%d_rank%d.pt" % (world, r)) for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--spatial-rank",
+         str(r), str(world), init, str(outs[r])], cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=SPATIAL_RANK_TIMEOUT)[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    ok = all(p.returncode == 0 for p in procs)
+    check(ok, "10: %d ranks exited 0 in %.1f s (exit codes %s)"
+          % (world, seconds, [p.returncode for p in procs]))
+    if not ok:
+        for r, log in enumerate(logs):
+            print("  rank %d output:\n%s" % (r, log[-4000:]))
+        return None, logs, seconds
+    return [torch.load(path) for path in outs], logs, seconds
+
+
+def hold_spatial(k, ranks, path, req, refs, what):
+    """The ranks' gathered outputs of one request: equal bit for bit on
+    every rank, within the path's AGREEMENT bars of one process, every
+    kernel of the path launched per forward, no plain call.  Returns its
+    summary."""
+    name, b, h, w, _ = req
+    per_rank = [r[path, name] for r in ranks]
+    r0 = per_rank[0]
+    ref = refs[path, name]
+    mean, p999 = flow_diffs(r0["outputs"], ref)
+    occ = max((r0["outputs"][key] != ref[key]).float().mean().item()
+              for key in ("occ_fw", "occ_bw"))
+    mean_bar, p999_bar, occ_bar = AGREEMENT[path]
+    want = SPATIAL_PATHS[path][1]
+    what = "%s %s %s over %d gloo ranks" % (what, path, name, len(ranks))
+    check(all(r["backend"] == "gloo" and r["device"] == "cuda:0"
+              for r in per_rank), "%s: over gloo on cuda:0" % what)
+    check(all(same_bits(r["outputs"][key], r0["outputs"][key])
+              for r in per_rank for key in r0["outputs"]),
+          "%s: every rank holds the same four outputs bit for bit" % what)
+    check(tuple(r0["outputs"]["flow_f_out"].shape) == (b, h, w, 2)
+          and mean < mean_bar and p999 < p999_bar and occ < occ_bar,
+          "%s: flow against one process mean %.3e px (< %g), p99.9 %.3e px "
+          "(< %g), occlusion pixels apart %.2e (< %g)"
+          % (what, mean, mean_bar, p999, p999_bar, occ, occ_bar))
+    check(all(r["launches"] == want and r["plain_calls"] == 0
+              for r in per_rank),
+          "%s: each rank launched %s a forward (want %s), plain calls on "
+          "CUDA tensors %s" % (what, [r["launches"] for r in per_rank], want,
+                               [r["plain_calls"] for r in per_rank]))
+    print("  info %s: forward wall ms by rank %s, bytes all-reduced a "
+          "forward by rank %s in %s collectives (%d gloo ranks on one "
+          "card: %s)" % (what, [round(r["ms"], 1) for r in per_rank],
+                         [r["bytes"] for r in per_rank],
+                         [r["collectives"] for r in per_rank],
+                         len(per_rank), nvidia_smi_line()), flush=True)
+    traces = [r.get("trace") for r in per_rank]
+    for rank, t in enumerate(traces):
+        if t is None:
+            continue
+        print("  info %s rank %d against the whole forward on the same "
+              "rank: %d calls traced (aligned %s); first output apart: %s; "
+              "calls with equal inputs and outputs apart (count, max "
+              "|diff|): %s" % (what, rank, t["calls"], t["aligned"],
+                               t["first"], t["sources"]), flush=True)
+    return dict(mean=mean, p999=p999, occ=occ,
+                launches=r0["launches"], ms=[r["ms"] for r in per_rank],
+                bytes=[r["bytes"] for r in per_rank],
+                collectives=r0["collectives"], trace=traces)
+
+
+def phase_spatial(k, tmp):
+    """Phase 10: 10a, then the one-process references, 10b with 10d, and
+    10c; prints one JSON line."""
+    out = {}
+    t0 = time.perf_counter()
+    print("phase 10a", flush=True)
+    out["10a"], held_windows = phase_offsets(k)
+    launched_windows = set()
+    refs = {}
+    k.warp_ops.MASK_THRESHOLD = RELAXED_THRESHOLD
+    for path, (knobs, _) in SPATIAL_PATHS.items():
+        model = k.upflow.build_model(k.UPFlowConfig().updated(knobs),
+                                     weights=str(NPZ))
+        reqs = SPATIAL_REQUESTS + ([SPATIAL_UNEVEN] if path == "sgu" else [])
+        for name, b, h, w, seed in reqs:
+            res = k.upflow.forward(model, *textured_pair(b, h, w, seed))
+            refs[path, name] = {key: res[key].cpu() for key in
+                                ("flow_f_out", "flow_b_out", "occ_fw",
+                                 "occ_bw")}
+        del model, res
+    k.warp_ops.MASK_THRESHOLD = 1.0
+    torch.cuda.empty_cache()
+    print("phase 10b, 10d", flush=True)
+    ranks, logs, seconds = run_spatial_ranks(tmp, 2)
+    out["10b"] = dict(seconds=seconds)
+    if ranks is not None:
+        for path in SPATIAL_PATHS:
+            for req in SPATIAL_REQUESTS:
+                out["10b"]["%s %s" % (path, req[0])] = hold_spatial(
+                    k, ranks, path, req, refs, "10b")
+        launched_windows.update(*(r["windows"] for r in ranks))
+        lines = [line for log in logs for line in log.splitlines()]
+        losses = {r["dryrun_loss"] for r in ranks}
+        rehearsal = [line for line in lines if line.startswith(
+            "dryrun_multigpu: spatial=2 full-model eval ok (1, 64, 128, 2)")]
+        check(len(losses) == 1 and all(np.isfinite(list(losses)))
+              and len(rehearsal) == 2,
+              "10d dryrun_multigpu(2) in the 2-rank gloo group: loss %s on "
+              "both ranks, the width-sharded rehearsal printed %d times "
+              "(want 2)" % (sorted(losses), len(rehearsal)))
+        out["10d"] = dict(loss=losses.pop() if len(losses) == 1 else None)
+    print("phase 10c", flush=True)
+    ranks, _, seconds = run_spatial_ranks(tmp, 3)
+    out["10c"] = dict(seconds=seconds)
+    if ranks is not None:
+        out["10c"][SPATIAL_UNEVEN[0]] = hold_spatial(
+            k, ranks, "sgu", SPATIAL_UNEVEN, refs, "10c")
+        launched_windows.update(*(r["windows"] for r in ranks))
+    missing = sorted(launched_windows - held_windows)
+    check(launched_windows and not missing,
+          "10a held every window shape that the ranks of 10b and 10c "
+          "launched correlation, corr_norm and conv3x3_seg at (%d shapes "
+          "launched, %d held, not held: %s)"
+          % (len(launched_windows), len(held_windows), missing[:5]))
+    out["seconds"] = time.perf_counter() - t0
+    print("  info phase 10 took %.1f s" % out["seconds"], flush=True)
+    print(json.dumps({"phase_10": out}), flush=True)
+    return out
+
+
 class Port:
     """The port's modules, imported once the card is known to be there."""
 
@@ -3156,6 +3784,7 @@ class Port:
         from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as sb
         from upflow_pytorch_tpu_torch.ops.kernels import sgu_final as sf
         from upflow_pytorch_tpu_torch.ops.kernels import warp
+        from upflow_pytorch_tpu_torch.parallel import dryrun
         from upflow_pytorch_tpu_torch.parallel import mesh as pmesh
         from upflow_pytorch_tpu_torch.parallel import step as pstep
         from upflow_pytorch_tpu_torch.train import step, trainer
@@ -3172,7 +3801,7 @@ class Port:
         self.build, self.UPFlowConfig = _build, UPFlowConfig
         self.step, self.TrainerConfig = step, TrainerConfig
         self.upflow = upflow
-        self.pmesh, self.pstep = pmesh, pstep
+        self.pmesh, self.pstep, self.dryrun = pmesh, pstep, dryrun
         self.warp_ops, self.cn, self.corr, self.fw, self.warp = (
             warp_ops, cn, corr, fw, warp)
         self.sb, self.sf, self.conv_ops, self.seg = sb, sf, conv_ops, seg
@@ -3234,7 +3863,7 @@ BF16_ROWS = ("conv3x3_seg", "correlation_bf16", "feature_warp_bf16",
              "corr_norm_bf16", "sgu_blend_bf16")
 
 
-def kernels_line(rows, launches, one_rank):
+def kernels_line(rows, launches, one_rank, spatial):
     """One entry per kernel and row; times are per forward at B=4,
     384x1280 on the SGU path (the bf16 rows on the bf16 SGU path): the sum
     over the kernel's calls in one forward (two directions per level);
@@ -3242,7 +3871,11 @@ def kernels_line(rows, launches, one_rank):
     call, ``device_ms`` the profiler's device time of the same calls.
     ``launches`` counts the run of that path (``path``);
     ``sharded_step_launches`` phase 9a's one-rank sharded step at that
-    path's precision."""
+    path's precision; ``width_cases`` the cases phase 10a held the row at
+    on a rank's columns (the warp kernels at a column offset, the others
+    on windows), and
+    ``width_sharded_launches`` a forward's launches on rank 0 of phase
+    10b at that path's precision (B=2 384x1280)."""
     out = []
     for name, shapes in rows.items():
         def total(key):
@@ -3265,6 +3898,11 @@ def kernels_line(rows, launches, one_rank):
             plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
             bound_by=by, library_ms=lib, device_ms=total("device_ms"),
             library_device_ms=total("library_device_ms"), per_call=shapes))
+        out[-1]["width_cases"] = spatial.get("10a", {}).get(name, 0)
+        sharded = spatial.get("10b", {}).get("%s b2_384x1280" % path)
+        out[-1]["width_sharded_launches"] = (
+            None if sharded is None
+            else sharded["launches"][SERVED_BY.get(name, name)])
         if name in SERVED_BY:
             out[-1]["served_by"] = SERVED_BY[name]
     return {"kernels": out}
@@ -3281,6 +3919,8 @@ def main(argv) -> int:
         return 2
     if argv[:1] == ["--parallel-rank"]:  # one rank of phase 9b
         return parallel_rank(int(argv[1]), argv[2], argv[3])
+    if argv[:1] == ["--spatial-rank"]:  # one rank of phase 10b-d
+        return spatial_rank(int(argv[1]), int(argv[2]), argv[3], argv[4])
     k = Port()
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -3341,11 +3981,13 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         parallel = phase_parallel(k, root, Path(tmp), pth, train)
         print("  info phase 9 took %.1f s" % (time.perf_counter() - t0))
+        print("phase 10: width sharding on the card", flush=True)
+        spatial = phase_spatial(k, Path(tmp))
 
     print(json.dumps({"forward_ms": timing,
                       "device_kernels_per_forward": kernels_per_forward}))
     print(json.dumps({"train": train}))
-    print(json.dumps(kernels_line(rows, launches, parallel["9a"])))
+    print(json.dumps(kernels_line(rows, launches, parallel["9a"], spatial)))
     print(smi)
     if failures:
         print("chip_smoke: %d check(s) failed:\n  %s"

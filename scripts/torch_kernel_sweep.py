@@ -111,7 +111,7 @@ def sweep_correlation():
 def sweep_sgu_final():
     rng = np.random.RandomState(1)
     fn = _build.kernel_fn("upflow_sgu_final",
-                          [PTR] * 8 + [INT] * 5 + [FLOAT, FLOAT, INT, PTR])
+                          [PTR] * 8 + [INT] * 7 + [FLOAT, FLOAT, INT, PTR])
     for b, h, w in ((4, 384, 1280), (1, 375, 1242)):
         hq, wq = cs.pyramid_hw(h, w)[4]
         flow_q = cs.make_flow(rng, b, hq, wq, 10.0)
@@ -130,8 +130,8 @@ def sweep_sgu_final():
                     launch("sgu_final", COUNT, flow_q, fn, flow_q.data_ptr(),
                            x_out.data_ptr(), mask_q.data_ptr(), ri.data_ptr(),
                            rw.data_ptr(), ci.data_ptr(), cw.data_ptr(),
-                           out.data_ptr(), b, hq, wq, h, w, w / wq, h / hq,
-                           ty)
+                           out.data_ptr(), b, hq, wq, h, w, w, 0, w / wq,
+                           h / hq, ty)
                 call()
                 torch.cuda.synchronize()
                 d = (out - ref).abs()
@@ -148,7 +148,7 @@ def sweep_sgu_final():
 def sweep_sgu_blend():
     rng = np.random.RandomState(2)
     fn = _build.kernel_fn("upflow_sgu_blend",
-                          [PTR] * 8 + [INT, LONG, LONG] + [INT] * 7 + [PTR])
+                          [PTR] * 8 + [INT, LONG, LONG] + [INT] * 9 + [PTR])
     configs = [(pix, rows) for pix in (1, 2) for rows in (1, 2, 4, 8)]
     for level, (h, w) in enumerate(cs.pyramid_hw(cs.MAIN_H, cs.MAIN_W)):
         if level == 0:
@@ -176,7 +176,7 @@ def sweep_sgu_blend():
                            heads[1].data_ptr(),
                            heads[1].data_ptr() + 2 * plane,
                            outs[1].data_ptr(), 2, 3 * h * w, 3 * h * w, b,
-                           h, w, 0, 1, pix, rows)
+                           h, w, w, 0, 0, 1, pix, rows)
                 call()
                 torch.cuda.synchronize()
                 differ = sum(int((o != r).sum().item())

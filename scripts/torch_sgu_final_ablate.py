@@ -181,7 +181,7 @@ def main() -> int:
     fns = {}
     for name, d in dirs.items():
         fn = ctypes.CDLL(str(d / "lib.so")).upflow_sgu_final
-        fn.argtypes = [P] * 8 + [I] * 5 + [F, F, I, P]
+        fn.argtypes = [P] * 8 + [I] * 7 + [F, F, I, P]
         fn.restype = I
         fns[name] = fn
     for ty in (32, 16):
@@ -190,7 +190,7 @@ def main() -> int:
                 code = fn(flow_q.data_ptr(), x_out.data_ptr(),
                           mask_q.data_ptr(), ri.data_ptr(), rw.data_ptr(),
                           ci.data_ptr(), cw.data_ptr(), out.data_ptr(), b,
-                          hq, wq, h, w, w / wq, h / hq, ty,
+                          hq, wq, h, w, w, 0, w / wq, h / hq, ty,
                           torch.cuda.current_stream().cuda_stream)
                 assert code == 0, code
             call()
@@ -206,7 +206,7 @@ def main() -> int:
         call = (lambda fn=fns["timed"]: fn(
             flow_q.data_ptr(), x_out.data_ptr(), mask_q.data_ptr(),
             ri.data_ptr(), rw.data_ptr(), ci.data_ptr(), cw.data_ptr(),
-            out.data_ptr(), b, hq, wq, h, w, w / wq, h / hq, ty,
+            out.data_ptr(), b, hq, wq, h, w, w, 0, w / wq, h / hq, ty,
             torch.cuda.current_stream().cuda_stream))
         for _ in range(10):
             call()

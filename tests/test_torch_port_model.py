@@ -244,10 +244,10 @@ def test_forward_pins_full_fp32_matmuls(set_tf32, monkeypatch):
     seen = []
     resize = presize.resize_bilinear_align_corners
 
-    def spy(x, out_hw):
+    def spy(x, out_hw, cols=None):
         seen.append((torch.get_float32_matmul_precision(),
                      torch.backends.cuda.matmul.fp32_precision))
-        return resize(x, out_hw)
+        return resize(x, out_hw, cols)
 
     monkeypatch.setattr(presize, "resize_bilinear_align_corners", spy)
     saved = (torch.backends.cuda.matmul.fp32_precision,

@@ -68,8 +68,8 @@ from upflow_pytorch_tpu_torch.data.pipeline import DataLoader
 from upflow_pytorch_tpu_torch.data.synthetic import make_dataset
 from upflow_pytorch_tpu_torch.models import upflow as pupflow
 from upflow_pytorch_tpu_torch.parallel import dryrun, mesh as pmesh, reduce
-from upflow_pytorch_tpu_torch.parallel.step import (
-    make_sharded_eval_step, make_sharded_train_step)
+from upflow_pytorch_tpu_torch.parallel.spatial import WidthShard
+from upflow_pytorch_tpu_torch.parallel.step import make_sharded_train_step
 from upflow_pytorch_tpu_torch.train import step as pstep
 from upflow_pytorch_tpu_torch.train.trainer import Trainer
 
@@ -769,20 +769,21 @@ def test_make_mesh_takes_the_card_unless_asked_for_the_cpu(tmp_path,
 
 
 def test_refusals(tmp_path, monkeypatch):
-    """``data_axis > 1`` without a group, width sharding, a batch that
-    does not split, NCCL for CPU tensors, and no silent gloo or CPU on a
-    card."""
+    """``data_axis > 1`` without a group, a frame too narrow for its width
+    shards, a batch that does not split, NCCL for CPU tensors, and no
+    silent gloo or CPU on a card."""
     with pytest.raises(RuntimeError, match="needs a process group"):
         Trainer(UPFlowConfig(), TrainerConfig(
             exp_dir=str(tmp_path), batchsize=2, data_axis=2), [],
             device="cpu")
     with pytest.raises(ValueError, match="split evenly"):
         TrainerConfig(batchsize=3, data_axis=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pmesh.make_mesh(spatial=2)
+    model = pupflow.build_model(UPFlowConfig().updated(KNOBS), device="cpu")
+    frame = np.zeros((1, 64, 128, 3), np.float32)
+    with pytest.raises(ValueError, match="pyramid level 1/64 is 2 columns "
+                       "wide: split over 3 ranks it leaves a rank no column"):
+        pupflow.forward(model, frame, frame, WidthShard(None, 0, 3))
     mesh = pmesh.Mesh(None, 2, 1, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="width sharding"):
-        make_sharded_eval_step(None, mesh, spatial=True)
     assert mesh.rows(4) == slice(2, 4)
     with pytest.raises(ValueError, match="does not split"):
         pmesh.shard_batch(mesh, {"im1": np.zeros((3, 4, 4, 3))})

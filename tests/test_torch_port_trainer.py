@@ -159,9 +159,9 @@ def test_eq_student_forward_pins_full_fp32_matmuls(monkeypatch):
     seen = []
     resize = presize.resize_bilinear_align_corners
 
-    def spy(x, out_hw):
+    def spy(x, out_hw, cols=None):
         seen.append(torch.get_float32_matmul_precision())
-        return resize(x, out_hw)
+        return resize(x, out_hw, cols)
 
     monkeypatch.setattr(presize, "resize_bilinear_align_corners", spy)
     try:

@@ -33,6 +33,13 @@
 // warp_common.cuh computes it, the sigmoid as torch.sigmoid computes it on
 // CUDA (1 / (1 + exp(-x)) in fp32: the accurate expf, an IEEE add and
 // division; no fast math), 1 - m and the blend in upflow::blend's order.
+//
+// Width sharding (parallel/spatial.py): the heads and the output may be
+// the columns [x0, x0 + w_out) of the frame, and the flow the whole
+// W-column frame (it is both the warp's source and, at the pixel's global
+// column, the blend's own value).  The taps see the global column x0 + x
+// (an integer add, before the float conversion) and W; the heads and the
+// output the local column x.  x0 = 0, w_out = W is the whole frame.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -50,7 +57,7 @@ struct Direction {
   const float* flow;   // (B, 2, H, W)
   const void* iflow;   // inter-flow planes u, v; batch stride iflow_bstride
   const void* mask;    // mask plane; batch stride mask_bstride
-  float* out;          // (B, 2, H, W)
+  float* out;          // (B, 2, H, w_out)
 };
 
 __device__ __forceinline__ void ldg2(const float* p, float& a, float& b) {
@@ -75,16 +82,19 @@ __device__ __forceinline__ float sigmoid_rn(float a) {
 template <typename T, bool kLogit, int kPix>
 __global__ void __launch_bounds__(kBlockX * kMaxRows)
 sgu_blend_kernel(Direction d0, Direction d1, long long iflow_bstride,
-                 long long mask_bstride, int B, int H, int W) {
+                 long long mask_bstride, int B, int H, int W, int w_out,
+                 int x0) {
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = (blockIdx.x * kBlockX + threadIdx.x) * kPix;
-  if (y >= H || x >= W) return;
+  if (y >= H || x >= w_out) return;
   const int dir = blockIdx.z >= static_cast<unsigned>(B);
   const int b = blockIdx.z - dir * B;
   const Direction d = dir ? d1 : d0;
-  const size_t plane = static_cast<size_t>(H) * W;
-  const size_t pix = static_cast<size_t>(y) * W + x;
-  const float* fb = d.flow + static_cast<size_t>(b) * 2 * plane;
+  const size_t plane = static_cast<size_t>(H) * w_out;
+  const size_t pix = static_cast<size_t>(y) * w_out + x;
+  const size_t src_plane = static_cast<size_t>(H) * W;
+  const size_t src_pix = static_cast<size_t>(y) * W + x0 + x;
+  const float* fb = d.flow + static_cast<size_t>(b) * 2 * src_plane;
   const T* ib = static_cast<const T*>(d.iflow) + b * iflow_bstride;
   const T* mb = static_cast<const T*>(d.mask) + b * mask_bstride;
   float* ob = d.out + static_cast<size_t>(b) * 2 * plane;
@@ -93,22 +103,23 @@ sgu_blend_kernel(Direction d0, Direction d1, long long iflow_bstride,
     ldg2(ib + pix, iu[0], iu[1]);
     ldg2(ib + plane + pix, iv[0], iv[1]);
     ldg2(mb + pix, m[0], m[1]);
-    ldg2(fb + pix, fu[0], fu[1]);
-    ldg2(fb + plane + pix, fv[0], fv[1]);
+    ldg2(fb + src_pix, fu[0], fu[1]);
+    ldg2(fb + src_plane + src_pix, fv[0], fv[1]);
   } else {
     iu[0] = upflow::ldg_f32(ib + pix);
     iv[0] = upflow::ldg_f32(ib + plane + pix);
     m[0] = upflow::ldg_f32(mb + pix);
-    fu[0] = __ldg(fb + pix);
-    fv[0] = __ldg(fb + plane + pix);
+    fu[0] = __ldg(fb + src_pix);
+    fv[0] = __ldg(fb + src_plane + src_pix);
   }
   float ou[kPix], ov[kPix];
 #pragma unroll
   for (int p = 0; p < kPix; ++p) {
-    const upflow::Taps t = upflow::bilinear_taps(iu[p], iv[p], x + p, y, H, W);
+    const upflow::Taps t =
+        upflow::bilinear_taps(iu[p], iv[p], x0 + x + p, y, H, W);
     const float mp = kLogit ? sigmoid_rn(m[p]) : m[p];
     ou[p] = upflow::blend(upflow::sample_plane(fb, t), fu[p], mp);
-    ov[p] = upflow::blend(upflow::sample_plane(fb + plane, t), fv[p], mp);
+    ov[p] = upflow::blend(upflow::sample_plane(fb + src_plane, t), fv[p], mp);
   }
   if constexpr (kPix == 2) {
     *reinterpret_cast<float2*>(ob + pix) = make_float2(ou[0], ou[1]);
@@ -122,58 +133,65 @@ sgu_blend_kernel(Direction d0, Direction d1, long long iflow_bstride,
 template <typename T, bool kLogit>
 void launch_typed(const Direction& d0, const Direction& d1, int ndir,
                   long long iflow_bstride, long long mask_bstride, int B,
-                  int H, int W, int pix, int rows, cudaStream_t stream) {
+                  int H, int W, int w_out, int x0, int pix, int rows,
+                  cudaStream_t stream) {
   const int cols = kBlockX * pix;
-  const dim3 grid((W + cols - 1) / cols, (H + rows - 1) / rows, ndir * B);
+  const dim3 grid((w_out + cols - 1) / cols, (H + rows - 1) / rows,
+                  ndir * B);
   const dim3 block(kBlockX, rows);
   if (pix == 2) {
     sgu_blend_kernel<T, kLogit, 2><<<grid, block, 0, stream>>>(
-        d0, d1, iflow_bstride, mask_bstride, B, H, W);
+        d0, d1, iflow_bstride, mask_bstride, B, H, W, w_out, x0);
   } else {
     sgu_blend_kernel<T, kLogit, 1><<<grid, block, 0, stream>>>(
-        d0, d1, iflow_bstride, mask_bstride, B, H, W);
+        d0, d1, iflow_bstride, mask_bstride, B, H, W, w_out, x0);
   }
 }
 
 }  // namespace
 
-// ndir (1 or 2) directions of one level, each flow_d / out_d (B, 2, H, W)
-// fp32 contiguous, inter-flow planes iflow_d and mask plane mask_d fp32 or
-// bf16 (head_bf16), each batch item contiguous, with the batch strides
-// given in elements.  logit: the mask plane holds logits (the raw head),
-// else the mask itself.  pix: pixels a thread (2 needs an even W, 8-byte
-// aligned flows and 2-element aligned head planes and strides); rows:
-// block rows, 1..8.  Returns the launch's CUDA error code.
+// ndir (1 or 2) directions of one level, each flow_d (B, 2, H, W) and
+// out_d (B, 2, H, w_out) fp32 contiguous, inter-flow planes iflow_d and
+// mask plane mask_d (H x w_out) fp32 or bf16 (head_bf16), each batch item
+// contiguous, with the batch strides given in elements: the output is the
+// frame's columns [x0, x0 + w_out) (0 <= x0, x0 + w_out <= W).  logit: the
+// mask plane holds logits (the raw head), else the mask itself.  pix:
+// pixels a thread (2 needs even W, w_out and x0, 8-byte aligned flows and
+// outputs and 2-element aligned head planes and strides); rows: block
+// rows, 1..8.  Returns the launch's CUDA error code.
 extern "C" int upflow_sgu_blend(const float* flow0, const void* iflow0,
                                 const void* mask0, float* out0,
                                 const float* flow1, const void* iflow1,
                                 const void* mask1, float* out1, int ndir,
                                 long long iflow_bstride,
                                 long long mask_bstride, int B, int H, int W,
-                                int head_bf16, int logit, int pix, int rows,
-                                void* stream) {
+                                int w_out, int x0, int head_bf16, int logit,
+                                int pix, int rows, void* stream) {
   if (ndir < 1 || ndir > 2 || (pix != 1 && pix != 2) ||
-      (pix == 2 && W % 2 != 0) || rows < 1 || rows > kMaxRows ||
+      (pix == 2 && (W % 2 != 0 || w_out % 2 != 0 || x0 % 2 != 0)) ||
+      rows < 1 || rows > kMaxRows || x0 < 0 || w_out < 0 || x0 + w_out > W ||
       static_cast<long long>(ndir) * B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || H == 0 || W == 0) return 0;
+  if (B == 0 || H == 0 || w_out == 0) return 0;
   const Direction d0{flow0, iflow0, mask0, out0};
   const Direction d1{flow1, iflow1, mask1, out1};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_bf16) {
     if (logit)
       launch_typed<__nv_bfloat16, true>(d0, d1, ndir, iflow_bstride,
-                                        mask_bstride, B, H, W, pix, rows, s);
+                                        mask_bstride, B, H, W, w_out, x0, pix,
+                                        rows, s);
     else
       launch_typed<__nv_bfloat16, false>(d0, d1, ndir, iflow_bstride,
-                                         mask_bstride, B, H, W, pix, rows, s);
+                                         mask_bstride, B, H, W, w_out, x0,
+                                         pix, rows, s);
   } else {
     if (logit)
       launch_typed<float, true>(d0, d1, ndir, iflow_bstride, mask_bstride, B,
-                                H, W, pix, rows, s);
+                                H, W, w_out, x0, pix, rows, s);
     else
       launch_typed<float, false>(d0, d1, ndir, iflow_bstride, mask_bstride,
-                                 B, H, W, pix, rows, s);
+                                 B, H, W, w_out, x0, pix, rows, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,6 +53,14 @@
 //   accumulates over the source index (w0*a rounded, then one fma of
 //   w1*b), because the warp turns an ulp of a sample coordinate into ulp x
 //   the flow's slope, which is steep where a sample leaves the image.
+// - Width sharding (parallel/spatial.py): the output may be the columns
+//   [x0, x0 + w_out) of the W-column frame.  The tiles then start at x0,
+//   every column of the tables, the staged box and the taps is global
+//   (x0 + a local column, an integer add before any float conversion),
+//   the column tables stay over the whole W, and only the stores use the
+//   local column.  x0 = 0, w_out = W is the whole frame, launched with
+//   kWhole, which makes them compile-time constants: the offset's index
+//   arithmetic costs the whole frame 5% of its device time otherwise.
 #include <cuda_runtime.h>
 
 #include "per_device.cuh"
@@ -187,15 +195,19 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
-template <int TY>
+template <int TY, bool kWhole>
 __global__ void __launch_bounds__(kThreads, 3)
 sgu_final_kernel(const float* __restrict__ fq, const float* __restrict__ xo,
                  const float* __restrict__ mq, const int* __restrict__ row_idx,
                  const float* __restrict__ row_wt,
                  const int* __restrict__ col_idx,
                  const float* __restrict__ col_wt, float* __restrict__ out,
-                 int Hq, int Wq, int H, int W, float su, float sv,
-                 int vec_out) {
+                 int Hq, int Wq, int H, int W, int w_out, int x0, float su,
+                 float sv, int vec_out) {
+  if (kWhole) {
+    w_out = W;
+    x0 = 0;
+  }
   using S = Smem<TY>;
   extern __shared__ __align__(16) float smem[];
   int4* col_tab = reinterpret_cast<int4*>(smem);
@@ -206,7 +218,9 @@ sgu_final_kernel(const float* __restrict__ fq, const float* __restrict__ xo,
 
   const int tid = threadIdx.x;
   const int lane = tid % kLanes, warp = tid / kLanes;
-  const int x0 = blockIdx.x * kTileX, y0 = blockIdx.y * TY;
+  // the tile's first global column and row; x_out the end of the output
+  const int tx = x0 + blockIdx.x * kTileX, y0 = blockIdx.y * TY;
+  const int x_out = x0 + w_out;
   const int b = blockIdx.z;
   const int pq = Hq * Wq;
   const float* up = fq + static_cast<size_t>(b) * 2 * pq;
@@ -216,21 +230,21 @@ sgu_final_kernel(const float* __restrict__ fq, const float* __restrict__ xo,
   const float* mp = mq + static_cast<size_t>(b) * pq;
   const upflow::Divisor dx = upflow::roundtrip_divisor(W);
   const upflow::Divisor dy = upflow::roundtrip_divisor(H);
-  const int xt = x0 + kPx * lane;
-  const size_t plane = static_cast<size_t>(H) * W;
+  const int xt = tx + kPx * lane;
+  const size_t plane = static_cast<size_t>(H) * w_out;
   float* ou = out + static_cast<size_t>(b) * 2 * plane;
   float* ov = ou + plane;
   // stores a thread's 4 pixels of row y: one 16-byte store a plane where
   // the row allows
   auto store = [&](int y, const float2 (&res)[kPx]) {
-    const size_t o = static_cast<size_t>(y) * W + xt;
-    if (vec_out && xt + kPx <= W) {
+    const size_t o = static_cast<size_t>(y) * w_out + (xt - x0);
+    if (vec_out && xt + kPx <= x_out) {
       *reinterpret_cast<float4*>(ou + o) =
           make_float4(res[0].x, res[1].x, res[2].x, res[3].x);
       *reinterpret_cast<float4*>(ov + o) =
           make_float4(res[0].y, res[1].y, res[2].y, res[3].y);
     } else {
-      for (int p = 0; p < kPx && xt + p < W; ++p) {
+      for (int p = 0; p < kPx && xt + p < x_out; ++p) {
         ou[o + p] = res[p].x;
         ov[o + p] = res[p].y;
       }
@@ -243,14 +257,14 @@ sgu_final_kernel(const float* __restrict__ fq, const float* __restrict__ xo,
   // [qo0, qo0 + nqo).  The resize tables are monotonic, so the first and
   // the last entry bound them.  A box larger than the shared memory (a
   // resize by less than x4) sends the block to device memory.
-  const int xs0 = x0 - kHalo;
+  const int xs0 = tx - kHalo;
   const int yr0 = max(0, y0 - kHalo), yr1 = min(H, y0 + TY + kHalo);
   const int n_rows = yr1 - yr0;
   const int own_rows = min(TY, H - y0);
-  const int x_end = min(W, x0 + kTileX);
+  const int x_end = min(x_out, tx + kTileX);
   const int cq0 = __ldg(col_idx + 2 * max(0, xs0));
   const int nq = __ldg(col_idx + 2 * (min(W, xs0 + kCols) - 1) + 1) + 1 - cq0;
-  const int co0 = __ldg(col_idx + 2 * x0);
+  const int co0 = __ldg(col_idx + 2 * tx);
   const int no = __ldg(col_idx + 2 * (x_end - 1) + 1) + 1 - co0;
   const int qr0 = __ldg(row_idx + 2 * yr0);
   const int nqr = __ldg(row_idx + 2 * (yr1 - 1) + 1) + 1 - qr0;
@@ -260,7 +274,7 @@ sgu_final_kernel(const float* __restrict__ fq, const float* __restrict__ xo,
     for (int i = warp; i < own_rows; i += kWarps) {
       float2 res[kPx];
       for (int p = 0; p < kPx; ++p)
-        res[p] = xt + p < W
+        res[p] = xt + p < x_out
                      ? pixel_ldg(up, vp, iup, ivp, mp, Wq, row_idx, row_wt,
                                  col_idx, col_wt, y0 + i, xt + p, H, W, su,
                                  sv, dx, dy)
@@ -336,7 +350,8 @@ sgu_final_kernel(const float* __restrict__ fq, const float* __restrict__ xo,
     float2 res[kPx];
 #pragma unroll
     for (int p = 0; p < kPx; ++p) {
-      const int x = min(xt + p, W - 1);  // past the edge: computed, unused
+      // past the output's edge: computed, unused
+      const int x = min(xt + p, x_out - 1);
       const Lerp c = unpack(col_tab[x - xs0]);
       const float iu = __fmul_rn(own_at(0, c), su);
       const float iv = __fmul_rn(own_at(1, c), sv);
@@ -379,25 +394,27 @@ sgu_final_kernel(const float* __restrict__ fq, const float* __restrict__ xo,
   }
 }
 
-template <int TY>
+template <int TY, bool kWhole>
 int launch(const float* fq, const float* xo, const float* mq,
            const int* row_idx, const float* row_wt, const int* col_idx,
            const float* col_wt, float* out, int B, int Hq, int Wq, int H,
-           int W, float su, float sv, cudaStream_t stream) {
+           int W, int w_out, int x0, float su, float sv,
+           cudaStream_t stream) {
   static upflow::PerDevice attrs;
   const cudaError_t e = attrs.once([] {
-    return cudaFuncSetAttribute(sgu_final_kernel<TY>,
+    return cudaFuncSetAttribute(sgu_final_kernel<TY, kWhole>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(Smem<TY>::kBytes));
   });
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((W + kTileX - 1) / kTileX, (H + TY - 1) / TY, B);
+  const dim3 grid((w_out + kTileX - 1) / kTileX, (H + TY - 1) / TY, B);
   // 16-byte stores need rows of whole float4s (the output is allocated
   // by torch, so its base is aligned)
-  const int vec_out = W % kPx == 0;
-  sgu_final_kernel<TY><<<grid, kThreads, Smem<TY>::kBytes, stream>>>(
-      fq, xo, mq, row_idx, row_wt, col_idx, col_wt, out, Hq, Wq, H, W, su,
-      sv, vec_out);
+  const int vec_out = w_out % kPx == 0;
+  sgu_final_kernel<TY, kWhole><<<grid, kThreads, Smem<TY>::kBytes,
+                                 stream>>>(
+      fq, xo, mq, row_idx, row_wt, col_idx, col_wt, out, Hq, Wq, H, W, w_out,
+      x0, su, sv, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -406,25 +423,26 @@ int launch(const float* fq, const float* xo, const float* mq,
 // fq: (B, 2, Hq, Wq), xo: (B, 3, Hq, Wq), mq: (B, 1, Hq, Wq) fp32;
 // row_idx/row_wt: (H, 2) int32/fp32 and col_idx/col_wt: (W, 2), the
 // resize's source indices and weights per output row and column;
-// su = W / Wq, sv = H / Hq in fp32; out: (B, 2, H, W); ty: tile rows (16
+// su = W / Wq, sv = H / Hq in fp32; out: (B, 2, H, w_out), the frame's
+// columns [x0, x0 + w_out) (0 <= x0, x0 + w_out <= W); ty: tile rows (16
 // or 32).  All contiguous on the current device.
 extern "C" int upflow_sgu_final(const float* fq, const float* xo,
                                 const float* mq, const int* row_idx,
                                 const float* row_wt, const int* col_idx,
                                 const float* col_wt, float* out, int B, int Hq,
-                                int Wq, int H, int W, float su, float sv,
-                                int ty, void* stream) {
-  if (B == 0 || H == 0 || W == 0) return 0;
+                                int Wq, int H, int W, int w_out, int x0,
+                                float su, float sv, int ty, void* stream) {
+  if (x0 < 0 || w_out < 0 || x0 + w_out > W)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0 || w_out == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ty) {
-    case 16:
-      return launch<16>(fq, xo, mq, row_idx, row_wt, col_idx, col_wt, out,
-                        B, Hq, Wq, H, W, su, sv, s);
-    case 32:
-      return launch<32>(fq, xo, mq, row_idx, row_wt, col_idx, col_wt, out,
-                        B, Hq, Wq, H, W, su, sv, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (ty != 16 && ty != 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (x0 == 0 && w_out == W)
+    return (ty == 16 ? launch<16, true> : launch<32, true>)(
+        fq, xo, mq, row_idx, row_wt, col_idx, col_wt, out, B, Hq, Wq, H, W,
+        w_out, x0, su, sv, s);
+  return (ty == 16 ? launch<16, false> : launch<32, false>)(
+      fq, xo, mq, row_idx, row_wt, col_idx, col_wt, out, B, Hq, Wq, H, W,
+      w_out, x0, su, sv, s);
 }
 

@@ -28,6 +28,14 @@ concatenation is copied.  The fp32 path concatenates as the reference
 does, and so does the bf16 path under autograd, which cannot follow the
 buffer's in-place slot writes (``FlowEstimatorDense.dense_input``); the
 values are the same.
+
+Every block takes ``cols`` (``ops/columns.py::Columns``) for a frame
+whose width is sharded: the input is this rank's columns of a map
+``cols.width`` wide, and each conv reads the window its output columns
+need (``conv_window``: a halo of the dilation, a stride-2 conv's input
+span), zero outside the frame, and convolves it with no column padding.
+At bf16 the dense buffer keeps its slot writes, each conv reading the
+window of its channel range.
 """
 
 from __future__ import annotations
@@ -37,8 +45,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from upflow_pytorch_tpu_torch.ops.conv import conv_bf16
+from upflow_pytorch_tpu_torch.ops.columns import conv_width, conv_window
 
 
 class ConvBlock(nn.Sequential):
@@ -64,14 +74,33 @@ class ConvBlock(nn.Sequential):
         super().__init__(*layers)
         self.relu = relu
 
-    def forward(self, x: torch.Tensor,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if x.dtype != torch.bfloat16:
-            return super().forward(x)
+    def forward(self, x: torch.Tensor, out: Optional[torch.Tensor] = None,
+                cols=None) -> torch.Tensor:
         conv = self[0]
-        return conv_bf16(x, conv.weight, conv.bias, conv.stride[0],
-                         conv.padding[0], conv.dilation[0], self.relu, out,
-                         owner=self)
+        k, s, p, d = (conv.kernel_size[0], conv.stride[0], conv.padding[0],
+                      conv.dilation[0])
+        width = None
+        if cols is not None:
+            x = conv_window(x, cols, k, s, p, d)
+            width = cols.width
+        if x.dtype == torch.bfloat16:
+            return conv_bf16(x, conv.weight, conv.bias, s, p, d, self.relu,
+                             out, owner=self, width=width)
+        if cols is None:
+            return super().forward(x)
+        y = F.conv2d(x, conv.weight, conv.bias, s, (p, 0), d)
+        return F.leaky_relu(y, 0.1) if self.relu else y
+
+    def out_width(self, width: int) -> int:
+        """The output's width for an input ``width`` columns wide."""
+        conv = self[0]
+        return conv_width(width, conv.kernel_size[0], conv.stride[0],
+                          conv.padding[0], conv.dilation[0])
+
+    def out_cols(self, cols):
+        """The output's ``Columns`` for an input on ``cols`` (None stays
+        None)."""
+        return None if cols is None else cols.to(self.out_width(cols.width))
 
 
 class FeatureExtractor(nn.Module):
@@ -86,12 +115,24 @@ class FeatureExtractor(nn.Module):
                           ConvBlock(cout, cout, generator=generator))
             for cin, cout in zip(num_chs[:-1], num_chs[1:]))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, cols=None) -> List[torch.Tensor]:
         pyramid = []
         for level in self.convs:
-            x = level(x)
+            for block in level:
+                x = block(x, cols=cols)
+                cols = block.out_cols(cols)
             pyramid.append(x)
         return pyramid[::-1]
+
+    def level_widths(self, width: int) -> List[int]:
+        """The global widths of the levels, COARSEST-FIRST, for a frame
+        ``width`` columns wide."""
+        widths = []
+        for level in self.convs:
+            for block in level:
+                width = block.out_width(width)
+            widths.append(width)
+        return widths[::-1]
 
 
 class FlowEstimatorDense(nn.Module):
@@ -140,22 +181,24 @@ class FlowEstimatorDense(nn.Module):
             return torch.cat([s.to(torch.bfloat16) for s in segments], dim=1)
         return self.dense_buffer(segments, extra)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                cols=None) -> Tuple[torch.Tensor, torch.Tensor]:
         if x.dtype != torch.bfloat16 or x.shape[1] == self.ch_in:
             for i in range(self.n_convs):
-                x = torch.cat([getattr(self, "conv%d" % (i + 1))(x), x],
-                              dim=1)
-            return x, self.conv_last(x)
+                x = torch.cat([getattr(self, "conv%d" % (i + 1))(
+                    x, cols=cols), x], dim=1)
+            return x, self.conv_last(x, cols=cols)
         # cat([conv(x), x]) order: conv i reads [start, feat_dim) and
         # writes the slot just in front of it
         start = self.feat_dim - self.ch_in
         for i in range(self.n_convs):
             conv = getattr(self, "conv%d" % (i + 1))
             f = conv[0].out_channels
-            conv(x[:, start:self.feat_dim], out=x[:, start - f:start])
+            conv(x[:, start:self.feat_dim], out=x[:, start - f:start],
+                 cols=cols)
             start -= f
         feat = x[:, :self.feat_dim]
-        return feat, self.conv_last(feat)
+        return feat, self.conv_last(feat, cols=cols)
 
 
 class ContextNetwork(nn.Module):
@@ -176,8 +219,10 @@ class ContextNetwork(nn.Module):
             c = f
         self.convs = nn.Sequential(*blocks)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.convs(x)
+    def forward(self, x: torch.Tensor, cols=None) -> torch.Tensor:
+        for block in self.convs:
+            x = block(x, cols=cols)
+        return x
 
 
 class SGUDenseEstimator(FlowEstimatorDense):
@@ -196,6 +241,18 @@ class SGUOutputConv(nn.Sequential):
         super().__init__(*(ConvBlock(cin, cout, stride=s, generator=generator)
                            for cin, cout, s in ((3, 16, 1), (16, 16, 2),
                                                 (16, 32, 1), (32, 32, 2))))
+
+    def forward(self, x: torch.Tensor, cols=None) -> torch.Tensor:
+        for block in self:
+            x = block(x, cols=cols)
+            cols = block.out_cols(cols)
+        return x
+
+    def out_cols(self, cols):
+        """The output's ``Columns`` for an input on ``cols``."""
+        for block in self:
+            cols = block.out_cols(cols)
+        return cols
 
 
 class SGUModel(nn.Module):

@@ -56,12 +56,25 @@ dense stacks concatenate instead of writing into buffers, and with
 ``remat`` the estimator and the context network recompute their
 activations in the backward.  Internally NCHW; ``forward`` and
 ``forward_with_loss`` take and return NHWC.
+
+Width sharding (the eval step over a mesh's 'spatial' axis,
+``parallel/spatial.py``): ``UPFlowNet.forward`` and ``forward`` take a
+``shard``, and each rank computes its columns of every map, through the
+same code.  Every op that reads across columns gets the map's
+``Columns``: the convs read a window of their input (a halo, a stride-2
+span), the resizes the columns their taps reach, the moments sum over
+every rank's own columns, the correlations run on a window of +-4
+columns and are cropped, and the warps (the feature warps, the SGU blend
+and final stage, the occlusion check's) gather their source and write
+the rank's columns of the frame.  Every kernel stays on, and the bf16
+convs take the route of the whole frame's shape.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import (
+    TYPE_CHECKING, Any, Dict, Iterator, List, Optional, Tuple)
 
 import numpy as np
 import torch
@@ -88,6 +101,9 @@ from upflow_pytorch_tpu_torch.ops.kernels.sgu_final import sgu_final
 from upflow_pytorch_tpu_torch.ops.normalize import normalize_features
 from upflow_pytorch_tpu_torch.ops.resize import (
     downsample_area, full_fp32_matmuls, upsample2d_flow_as, upsample_flow)
+
+if TYPE_CHECKING:
+    from upflow_pytorch_tpu_torch.parallel.spatial import WidthShard
 
 Flows = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -118,30 +134,38 @@ class UPFlowNet(nn.Module):
             self.sgi_model = SGUModel(g)
 
     def _sgu_pair(self, flow_1, flow_2, feature_1, feature_2,
-                  output_hw=None):
+                  output_hw=None, cols=None, flow_cols=None):
         """Both directions of ``sgu_model.forward``: each flow refined by
         the SGU estimator on ``feature_*`` (the 1x1 features of the two
         frames).  With ``output_hw`` (the final stage) the result is at
-        that size."""
-        hw = feature_1.shape[2:]
-        if flow_1.shape[2:] != hw:
-            flow_1 = upsample2d_flow_as(flow_1, hw, if_rate=True)
-            flow_2 = upsample2d_flow_as(flow_2, hw, if_rate=True)
+        that size.  On a width-sharded frame ``cols`` and ``flow_cols``
+        are the features' and the flows' ``Columns``."""
+        hw = _global_hw(feature_1, cols)
+        if _global_hw(flow_1, flow_cols) != hw:
+            flow_1 = upsample2d_flow_as(flow_1, hw, True, flow_cols)
+            flow_2 = upsample2d_flow_as(flow_2, hw, True, flow_cols)
         estimator = self.sgi_model.dense_estimator_mask
         heads = []
         for fl, fa, fb in ((flow_1, feature_1, feature_2),
                            (flow_2, feature_2, feature_1)):
-            fb_warp = _warp.flow_warp_masked(fb, fl)
+            fb_warp = _warp.flow_warp_masked(fb, fl, cols)
             if self.dtype == torch.bfloat16:
                 x = estimator.dense_input([fa, fb_warp])
             else:
                 x = torch.cat([fa, fb_warp], dim=1)
-            heads.append(estimator(x)[1])
+            heads.append(estimator(x, cols)[1])
         if output_hw is not None:
-            return tuple(sgu_final(fl, x_out.float(), output_hw)
+            if cols is None:
+                return tuple(sgu_final(fl, x_out.float(), output_hw)
+                             for fl, x_out in zip((flow_1, flow_2), heads))
+            # the quarter-resolution flow and head whole, this rank's
+            # columns of the full-resolution result
+            out = cols.to(int(output_hw[1]))
+            return tuple(sgu_final(cols.gather(fl), cols.gather(x_out).float(),
+                                   output_hw, out.lo, out.hi - out.lo)
                          for fl, x_out in zip((flow_1, flow_2), heads))
         # the raw heads, fp32 or bf16, go to one blend launch for the level
-        return _warp.sgu_blend_pair(flow_1, heads[0], flow_2, heads[1])
+        return _warp.sgu_blend_pair(flow_1, heads[0], flow_2, heads[1], cols)
 
     def _norm_kw(self) -> Optional[dict]:
         c = self.conf
@@ -152,65 +176,73 @@ class UPFlowNet(nn.Module):
                     moments_across_images=c.norm_moments_across_images)
 
     def _cost_volumes(self, level, flow_1_up, flow_2_up, feature_1,
-                      feature_2):
+                      feature_2, cols=None):
         """The two directions' 81-channel cost volumes, after LeakyReLU."""
         c = self.conf
         norm_kw = self._norm_kw()
         if level > 0 and not c.if_use_cor_pytorch:
             thr = _warp.mask_threshold()
             return (warp_norm_corr(feature_1, feature_2, flow_1_up, norm_kw,
-                                   0.1, thr),
+                                   0.1, thr, cols),
                     warp_norm_corr(feature_2, feature_1, flow_2_up, norm_kw,
-                                   0.1, thr))
+                                   0.1, thr, cols))
         if level == 0:
             feature_2_warp, feature_1_warp = feature_2, feature_1
         else:
-            feature_2_warp = _warp.flow_warp_masked(feature_2, flow_1_up)
-            feature_1_warp = _warp.flow_warp_masked(feature_1, flow_2_up)
+            feature_2_warp = _warp.flow_warp_masked(feature_2, flow_1_up,
+                                                    cols)
+            feature_1_warp = _warp.flow_warp_masked(feature_1, flow_2_up,
+                                                    cols)
         if norm_kw is not None:
             feature_1, feature_2_warp = normalize_features(
-                (feature_1, feature_2_warp), **norm_kw)
+                (feature_1, feature_2_warp), **norm_kw, cols=cols)
             feature_2, feature_1_warp = normalize_features(
-                (feature_2, feature_1_warp), **norm_kw)
-        corrs = (correlation(feature_1.contiguous(),
-                             feature_2_warp.contiguous(), c.search_range),
-                 correlation(feature_2.contiguous(),
-                             feature_1_warp.contiguous(), c.search_range))
+                (feature_2, feature_1_warp), **norm_kw, cols=cols)
+        corrs = (_correlation(feature_1, feature_2_warp, c.search_range,
+                              cols),
+                 _correlation(feature_2, feature_1_warp, c.search_range,
+                              cols))
         return tuple(F.leaky_relu(x, negative_slope=0.1) for x in corrs)
 
     def _decode_level(self, level, flow_1, flow_2, feature_1, feature_1_1x1,
-                      feature_2, feature_2_1x1):
+                      feature_2, feature_2_1x1, cols=None, flow_cols=None):
         """``decode_level_res``: returns (flow_1_up, flow_2_up, res_1,
-        res_2)."""
-        hw = feature_1.shape[2:]
-        flow_1_up = upsample2d_flow_as(flow_1, hw, if_rate=True)
-        flow_2_up = upsample2d_flow_as(flow_2, hw, if_rate=True)
+        res_2).  On a width-sharded frame ``cols`` and ``flow_cols`` are
+        the level's and the incoming flows' ``Columns``."""
+        hw = _global_hw(feature_1, cols)
+        flow_1_up = upsample2d_flow_as(flow_1, hw, True, flow_cols)
+        flow_2_up = upsample2d_flow_as(flow_2, hw, True, flow_cols)
         if level > 0 and self.conf.if_sgu_upsample:
             flow_1_up, flow_2_up = self._sgu_pair(
-                flow_1_up, flow_2_up, feature_1_1x1, feature_2_1x1)
+                flow_1_up, flow_2_up, feature_1_1x1, feature_2_1x1,
+                cols=cols, flow_cols=cols)
         corr_1, corr_2 = self._cost_volumes(level, flow_1_up, flow_2_up,
-                                            feature_1, feature_2)
-        out = [self._heads(corr_1, feature_1_1x1, flow_1_up),
-               self._heads(corr_2, feature_2_1x1, flow_2_up)]
+                                            feature_1, feature_2, cols)
+        out = [self._heads(corr_1, feature_1_1x1, flow_1_up, cols),
+               self._heads(corr_2, feature_2_1x1, flow_2_up, cols)]
         return flow_1_up, flow_2_up, out[0], out[1]
 
-    def _remat(self, module: nn.Module, x: torch.Tensor):
-        """``module(x)``; with ``remat`` under autograd its activations are
-        recomputed in the backward instead of kept (``nn.remat`` of the
-        JAX package's estimator and context network)."""
+    def _remat(self, module: nn.Module, x: torch.Tensor, cols=None):
+        """``module(x, cols)``; with ``remat`` under autograd its
+        activations are recomputed in the backward instead of kept
+        (``nn.remat`` of the JAX package's estimator and context
+        network)."""
         if self.conf.remat and torch.is_grad_enabled():
-            return checkpoint(module, x, use_reentrant=False)
-        return module(x)
+            return checkpoint(module, x, cols, use_reentrant=False)
+        return module(x, cols)
 
-    def _heads(self, corr, f_1x1, flow_up):
+    def _heads(self, corr, f_1x1, flow_up, cols=None):
         """The dense flow estimator and the context network of one
-        direction: the fp32 residual ``res + fine``."""
+        direction: the fp32 residual ``res + fine``.  ``cols``: the
+        level's ``Columns`` on a width-sharded frame (an eval path: the
+        training paths take whole frames)."""
         estimator = self.flow_estimators
         if self.dtype != torch.bfloat16:
             feat, res = self._remat(
-                estimator, torch.cat([corr, f_1x1, flow_up], dim=1))
+                estimator, torch.cat([corr, f_1x1, flow_up], dim=1), cols)
             return res + self._remat(self.context_networks,
-                                     torch.cat([feat, flow_up + res], dim=1))
+                                     torch.cat([feat, flow_up + res], dim=1),
+                                     cols)
         if torch.is_grad_enabled():
             feat, res = self._remat(
                 estimator, estimator.dense_input([corr, f_1x1, flow_up]))
@@ -221,41 +253,89 @@ class UPFlowNet(nn.Module):
         # one buffer: the estimator's features, then flow_up + res for the
         # context network in the last two channels
         buf = estimator.dense_buffer([corr, f_1x1, flow_up], extra=2)
-        res = estimator(buf)[1].float()
+        res = estimator(buf, cols)[1].float()
         buf[:, estimator.feat_dim:] = flow_up + res
-        return res + self.context_networks(buf).float()
+        return res + self.context_networks(buf, cols).float()
 
-    def forward(self, im1: torch.Tensor, im2: torch.Tensor):
+    def map_widths(self, width: int) -> Dict[str, int]:
+        """The pyramid's widths for a frame ``width`` columns wide,
+        coarsest first, by name."""
+        widths = self.feature_pyramid_extractor.level_widths(width)
+        return {"pyramid level 1/%d" % 2 ** (len(widths) - i): w
+                for i, w in enumerate(widths)}
+
+    def forward(self, im1: torch.Tensor, im2: torch.Tensor,
+                shard: Optional[WidthShard] = None):
         """``forward_2_frame_v3`` on NCHW images (B, 3, H, W).  Returns
         ``(flow_f_out, flow_b_out, flows)``; ``flows`` is the per-level
-        ``[(flow_f, flow_b)]`` list FINEST-FIRST."""
+        ``[(flow_f, flow_b)]`` list FINEST-FIRST.
+
+        With ``shard`` the images are the whole frames and this rank
+        computes its columns ``shard.cols(w)`` of every map of width ``w``
+        (``parallel/spatial.py``); the outputs are its columns of the
+        flows.  A frame whose coarsest level leaves a rank no column
+        raises ``ValueError``."""
         b, _, height, width = im1.shape
-        x1_pyramid = self.feature_pyramid_extractor(im1.to(self.dtype))
-        x2_pyramid = self.feature_pyramid_extractor(im2.to(self.dtype))
+        cols = None
+        level_cols = [None] * len(self.feature_pyramid_extractor.convs)
+        if shard is not None:
+            shard.check(self.map_widths(width))
+            cols = shard.at(width)
+            im1, im2 = im1[..., cols.lo:cols.hi], im2[..., cols.lo:cols.hi]
+            level_cols = [shard.at(w) for w in
+                          self.feature_pyramid_extractor.level_widths(width)]
+        x1_pyramid = self.feature_pyramid_extractor(im1.to(self.dtype), cols)
+        x2_pyramid = self.feature_pyramid_extractor(im2.to(self.dtype), cols)
         h0, w0 = x1_pyramid[0].shape[2:]
         flow_f = im1.new_zeros((b, 2, h0, w0))
         flow_b = im1.new_zeros((b, 2, h0, w0))
+        flow_cols = level_cols[0]
         flows: Flows = []
         for level in range(self.conf.output_level + 1):
             x1, x2 = x1_pyramid[level], x2_pyramid[level]
+            lc = level_cols[level]
             flow_f_up, flow_b_up, res_f, res_b = self._decode_level(
-                level, flow_f, flow_b, x1, self.conv_1x1[level](x1),
-                x2, self.conv_1x1[level](x2))
+                level, flow_f, flow_b, x1, self.conv_1x1[level](x1, cols=lc),
+                x2, self.conv_1x1[level](x2, cols=lc), lc, flow_cols)
             flow_f = flow_f_up + res_f
             flow_b = flow_b_up + res_b
+            flow_cols = lc
             flows.append((flow_f, flow_b))
         if self.conf.if_sgu_upsample:
             up_conv = self.sgi_model.upsample_output_conv
             flow_f_out, flow_b_out = self._sgu_pair(
-                flow_f, flow_b, up_conv(im1.to(self.dtype)),
-                up_conv(im2.to(self.dtype)),
-                output_hw=(height, width))
+                flow_f, flow_b, up_conv(im1.to(self.dtype), cols),
+                up_conv(im2.to(self.dtype), cols),
+                output_hw=(height, width), cols=up_conv.out_cols(cols),
+                flow_cols=flow_cols)
         else:
-            flow_f_out = upsample2d_flow_as(flow_f, (height, width),
-                                            if_rate=True)
-            flow_b_out = upsample2d_flow_as(flow_b, (height, width),
-                                            if_rate=True)
+            flow_f_out = upsample2d_flow_as(flow_f, (height, width), True,
+                                            flow_cols)
+            flow_b_out = upsample2d_flow_as(flow_b, (height, width), True,
+                                            flow_cols)
         return flow_f_out, flow_b_out, flows[::-1]
+
+
+def _global_hw(x: torch.Tensor, cols) -> Tuple[int, int]:
+    """(H, W) of the map ``x``, or of the width-sharded map whose columns
+    ``cols`` it holds."""
+    return (x.shape[2], x.shape[3] if cols is None else cols.width)
+
+
+def _correlation(f1: torch.Tensor, f2: torch.Tensor, d: int,
+                 cols=None) -> torch.Tensor:
+    """The cost volume of ``f1`` against ``f2``.  On a width-sharded frame
+    (``cols``) it runs on this rank's columns widened by ``d`` each side,
+    zero outside the frame (the correlation's own padding), and is
+    cropped to them: ``f1``'s extra columns are zeros, as they reach only
+    the cropped outputs, and ``f2``'s come from the neighbours.  The
+    kernel takes the grid of the frame's width."""
+    if cols is None:
+        return correlation(f1.contiguous(), f2.contiguous(), d)
+    f1 = F.pad(f1, (d, d))
+    f2 = cols.halo(f2, d, d)
+    out = correlation(f1.contiguous(), f2.contiguous(), d, cols.width)
+    return out[..., d:out.shape[3] - d]
 
 
 def _resolve_device(device) -> torch.device:
@@ -310,7 +390,8 @@ def fp32_numerics() -> Iterator[None]:
         yield
 
 
-def forward(model: UPFlowNet, im1, im2) -> Dict[str, Any]:
+def forward(model: UPFlowNet, im1, im2,
+            shard: Optional[WidthShard] = None) -> Dict[str, Any]:
     """Inference forward (``UPFlow_net.forward`` with if_loss=False): flows
     and analytic occlusion masks.
 
@@ -318,16 +399,19 @@ def forward(model: UPFlowNet, im1, im2) -> Dict[str, Any]:
     to the model's device.  Returns NHWC ``flow_f_out``, ``flow_b_out``
     (B, H, W, 2), ``occ_fw``, ``occ_bw`` (B, H, W, 1) and ``flows``, the
     per-level ``[(flow_f, flow_b)]`` list finest-first, all fp32 whatever
-    the compute dtype.  Runs under ``fp32_numerics``.
+    the compute dtype.  Runs under ``fp32_numerics``.  With ``shard``
+    (``parallel/spatial.py::WidthShard``) every output is this rank's
+    columns ``shard.cols(w)`` of its width ``w`` (``UPFlowNet.forward``).
     """
     conf = model.conf
     device = next(model.parameters()).device
+    im1, im2 = _as_nchw(im1, device), _as_nchw(im2, device)
+    cols = None if shard is None else shard.at(im1.shape[3])
     with torch.no_grad(), fp32_numerics():
-        flow_f, flow_b, flows = model(_as_nchw(im1, device),
-                                      _as_nchw(im2, device))
+        flow_f, flow_b, flows = model(im1, im2, shard)
         occ_fw, occ_bw = occ_check(flow_f, flow_b, conf.alpha_1,
                                    conf.alpha_2, conf.occ_check_obj_out_all,
-                                   conf.occ_type)
+                                   conf.occ_type, cols=cols)
     return {
         "flow_f_out": _nhwc(flow_f),
         "flow_b_out": _nhwc(flow_b),

@@ -18,11 +18,17 @@ knobs, are dropped):
   This is a library convolution (cuDNN on the card), as the JAX package
   leaves it to XLA.  The bias is never passed to ``F.conv2d``, which would
   add it before the rounding.
+
+For a width-sharded frame (``parallel/spatial.py``) a conv runs on the
+window of the input that its output columns read, and the route is chosen
+by the frame's shape, never the window's: a shard that fell to the
+plain-conv route would round three times where the whole frame rounds
+once.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +50,11 @@ def uses_kernel(cin: int, h: int, w: int, kernel_size: int, stride: int,
 
 
 def conv_plain_route(x: torch.Tensor, weight: torch.Tensor,
-                     bias: torch.Tensor, stride: int, padding: int,
-                     dilation: int, relu: bool) -> torch.Tensor:
-    """``nn.Conv(dtype=bfloat16)`` + ``nn.leaky_relu`` on a bf16 map."""
+                     bias: torch.Tensor, stride: int,
+                     padding: Union[int, Tuple[int, int]], dilation: int,
+                     relu: bool) -> torch.Tensor:
+    """``nn.Conv(dtype=bfloat16)`` + ``nn.leaky_relu`` on a bf16 map;
+    ``padding`` pads rows and columns alike, or is (rows, columns)."""
     w = weight.to(torch.bfloat16)
     if x.is_cuda:
         y = F.conv2d(x, w, None, stride, padding, dilation)
@@ -66,16 +74,28 @@ def conv_plain_route(x: torch.Tensor, weight: torch.Tensor,
 
 def conv_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               stride: int, padding: int, dilation: int, relu: bool,
-              out: Optional[torch.Tensor] = None,
-              owner=None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None, owner=None,
+              width: Optional[int] = None) -> torch.Tensor:
     """One ``ConvBlock`` at bf16 on the route its shape selects; writes
     into ``out`` when it is given and returns it.  On the kernel route
     with a CUDA input the weights come packed from ``owner``'s cache
-    (``packed_params``) when an owner is given."""
+    (``packed_params``) when an owner is given.  With ``width``, ``x`` is
+    a window of a width-sharded map of ``width`` columns that holds every
+    column its output columns read, zero outside the frame
+    (``parallel/spatial.py::conv_window``): the route is that of the
+    whole map, the columns are not padded, and on the kernel route, which
+    pads, the output is cropped to them."""
     _, cin, h, w = x.shape
-    if uses_kernel(cin, h, w, weight.shape[-1], stride, x.dtype):
+    if uses_kernel(cin, h, w if width is None else width, weight.shape[-1],
+                   stride, x.dtype):
         packed = (packed_params(owner, weight, bias)
                   if owner is not None and x.is_cuda else None)
-        return conv3x3_seg(x, weight, bias, dilation, relu, out, packed)
-    y = conv_plain_route(x, weight, bias, stride, padding, dilation, relu)
-    return y if out is None else out.copy_(y)
+        if width is None:
+            return conv3x3_seg(x, weight, bias, dilation, relu, out, packed)
+        y = conv3x3_seg(x, weight, bias, dilation, relu, None,
+                        packed)[..., padding:w - padding]
+    else:
+        y = conv_plain_route(x, weight, bias, stride,
+                             padding if width is None else (padding, 0),
+                             dilation, relu)
+    return y.contiguous() if out is None else out.copy_(y)

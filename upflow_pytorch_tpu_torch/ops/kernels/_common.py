@@ -49,6 +49,23 @@ def check_cuda_input(op: str, name: str, t: torch.Tensor,
             op, name, " within each batch item" if batch_strided else ""))
 
 
+def check_columns(op: str, x0: int, w_out: int, w: int) -> None:
+    """Raises unless the output columns ``[x0, x0 + w_out)`` of a warp
+    kernel lie in its frame of ``w`` columns."""
+    if not 0 <= x0 <= x0 + w_out <= w:
+        raise ValueError("%s: columns [%d, %d) are not in a frame of %d"
+                         % (op, x0, x0 + w_out, w))
+
+
+def whole_frame(op: str, x0: int, w_out: int, w: int) -> None:
+    """Under autograd a warp kernel's output is the whole frame: the
+    column offset of the width-sharded eval has no gradient rule."""
+    if (x0, w_out) != (0, w):
+        raise ValueError("%s: columns [%d, %d) of %d under autograd; the "
+                         "gradient rules take whole frames"
+                         % (op, x0, x0 + w_out, w))
+
+
 def check_cpu_input(op: str, t: torch.Tensor) -> None:
     """The plain versions serve CPU tensors only; anything else raises."""
     if t.device.type != "cpu":

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as kfw
+from upflow_pytorch_tpu_torch.ops.normalize import sharded_moments
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FP32_BF16, check_cpu_input, check_cuda_input, count_cuda_call,
     wants_grad)
@@ -55,15 +56,21 @@ from upflow_pytorch_tpu_torch.ops.kernels.correlation import (  # noqa: F401
     correlation_vjp, launch_config, launch_tiles, staging_route)
 
 
-def moments(f: torch.Tensor, across_channels: bool
+def moments(f: torch.Tensor, across_channels: bool, cols=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, C, H, W) -> mean and UNBIASED variance, each (B, C)."""
+    """(B, C, H, W) -> mean and UNBIASED variance, each (B, C).  With
+    ``cols`` the map is this rank's columns of a width-sharded frame and
+    the moments are the frame's (``ops/normalize.py::sharded_moments``)."""
     b, c, h, w = f.shape
-    f = f.float()
     dims = (1, 2, 3) if across_channels else (2, 3)
-    n = h * w * c if across_channels else h * w
-    mean = f.sum(dim=dims, keepdim=True) / n
-    var = ((f - mean) ** 2).sum(dim=dims) / max(n - 1, 1)
+    if cols is None:
+        f = f.float()
+        n = h * w * c if across_channels else h * w
+        mean = f.sum(dim=dims, keepdim=True) / n
+        var = ((f - mean) ** 2).sum(dim=dims) / max(n - 1, 1)
+    else:
+        (mean,), (var,) = sharded_moments([f], dims, cols)
+        var = var.reshape(b, -1)
     mean = mean.reshape(b, -1)
     if across_channels:
         return mean.expand(b, c), var.reshape(b, 1).expand(b, c)
@@ -105,7 +112,8 @@ corr_norm_plain.cuda_calls = 0
 
 
 def corr_norm_cuda(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
-                   leaky_slope: Optional[float]) -> torch.Tensor:
+                   leaky_slope: Optional[float],
+                   width: Optional[int] = None) -> torch.Tensor:
     """Launches ``upflow_corr_norm`` on the current stream."""
     op = "corr_norm"
     check_cuda_input(op, "f1", f1, (None, None, None, None),
@@ -119,14 +127,15 @@ def corr_norm_cuda(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
     out = torch.empty((b, k * k, h, w), dtype=torch.float32, device=f1.device)
     # LeakyReLU with slope 1 is the identity
     slope = 1.0 if leaky_slope is None else float(leaky_slope)
-    launch_tiles(op, corr_norm, f1, f2, out, aff, slope)
+    launch_tiles(op, corr_norm, f1, f2, out, aff, slope, width)
     return out
 
 
 def _corr_norm(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
-               leaky_slope: Optional[float]) -> torch.Tensor:
+               leaky_slope: Optional[float],
+               width: Optional[int] = None) -> torch.Tensor:
     if f1.is_cuda:
-        return corr_norm_cuda(f1, f2, aff, leaky_slope)
+        return corr_norm_cuda(f1, f2, aff, leaky_slope, width)
     check_cpu_input("corr_norm", f1)
     return corr_norm_plain(f1, f2, aff, leaky_slope)
 
@@ -160,8 +169,8 @@ class CorrNormFn(torch.autograd.Function):
     """``corr_norm`` with the gradient of its plain composition."""
 
     @staticmethod
-    def forward(ctx, f1, f2, aff, leaky_slope):
-        out = _corr_norm(f1, f2, aff, leaky_slope)
+    def forward(ctx, f1, f2, aff, leaky_slope, width):
+        out = _corr_norm(f1, f2, aff, leaky_slope, width)
         ctx.save_for_backward(f1, f2, aff, out)
         ctx.leaky_slope = leaky_slope
         return out
@@ -169,16 +178,20 @@ class CorrNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         f1, f2, aff, out = ctx.saved_tensors
-        return corr_norm_vjp(f1, f2, aff, out, ctx.leaky_slope, g) + (None,)
+        return corr_norm_vjp(f1, f2, aff, out, ctx.leaky_slope,
+                             g) + (None, None)
 
 
 def corr_norm(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,
-              leaky_slope: Optional[float]) -> torch.Tensor:
+              leaky_slope: Optional[float],
+              width: Optional[int] = None) -> torch.Tensor:
     """Normalised correlation: the kernel for CUDA tensors, the plain
-    version for CPU tensors; through ``CorrNormFn`` under autograd."""
+    version for CPU tensors; through ``CorrNormFn`` under autograd.
+    ``width``: the frame's width where the maps are a window of it
+    (``correlation.py::launch_tiles``)."""
     if wants_grad(f1, f2, aff):
-        return CorrNormFn.apply(f1, f2, aff, leaky_slope)
-    return _corr_norm(f1, f2, aff, leaky_slope)
+        return CorrNormFn.apply(f1, f2, aff, leaky_slope, width)
+    return _corr_norm(f1, f2, aff, leaky_slope, width)
 
 
 corr_norm.launches = 0
@@ -187,26 +200,44 @@ corr_norm.route_launches = {"vec": 0, "word": 0}
 
 def warp_norm_corr(f_tgt: torch.Tensor, f_src: torch.Tensor,
                    flow: torch.Tensor, norm_kw: Optional[dict],
-                   leaky_slope: Optional[float], mask_thr: float
-                   ) -> torch.Tensor:
+                   leaky_slope: Optional[float], mask_thr: float,
+                   cols=None) -> torch.Tensor:
     """``leaky(corr(norm(f_tgt), norm(masked_warp(f_src, flow))))``.
 
     NCHW fp32 or bf16 maps (B, C, H, W), flow (B, 2, H, W); output
     (B, 81, H, W) fp32.  The warped map has ``f_src``'s type.
     ``norm_kw``: the normalize_features knobs, or None for no
     normalisation.
+
+    With ``cols`` (``ops/columns.py::Columns``) the maps and the flow
+    are this rank's columns ``[lo, hi)`` of a width-sharded frame, and so
+    is the output.  The kernels run on the window ``[lo - 4, hi + 4)``
+    clipped to the frame (the kernel zeroes the taps outside its maps
+    after the affine, which a zero-filled column would not be): the whole
+    source is gathered and warped by the flow's window, the moments are
+    the frame's, taken over the rank's own columns, and the cost volume,
+    on the grid of the frame's width, is cropped to them.
     """
-    warped = kfw.feature_warp(f_src.contiguous(), flow.float().contiguous(),
-                              mask_thr)
-    f_tgt = f_tgt.contiguous()
+    f_tgt, flow = f_tgt.contiguous(), flow.float().contiguous()
+    x0, own = 0, slice(None)
+    if cols is not None:
+        d = KERNEL_DISP
+        x0 = max(cols.lo - d, 0)
+        own = slice(cols.lo - x0, cols.hi - x0)
+        f_src = cols.gather(f_src)
+        flow = cols.halo(flow, d, d, "clip")
+        f_tgt = cols.halo(f_tgt, d, d, "clip")
+    warped = kfw.feature_warp(f_src.contiguous(), flow, mask_thr, x0=x0)
     if norm_kw is not None:
         ac = norm_kw["moments_across_channels"]
-        m1, v1 = moments(f_tgt, ac)
-        m2, v2 = moments(warped, ac)
+        m1, v1 = moments(f_tgt[..., own], ac, cols)
+        m2, v2 = moments(warped[..., own], ac, cols)
         aff = affine_pair(m1, v1, m2, v2, norm_kw)
     else:
         b, c = f_tgt.shape[:2]
         zeros = f_tgt.new_zeros((b, c), dtype=torch.float32)
         ones = f_tgt.new_ones((b, c), dtype=torch.float32)
         aff = torch.stack([zeros, ones, zeros, ones], dim=1)
-    return corr_norm(f_tgt, warped, aff, leaky_slope)
+    if cols is None:
+        return corr_norm(f_tgt, warped, aff, leaky_slope)
+    return corr_norm(f_tgt, warped, aff, leaky_slope, cols.width)[..., own]

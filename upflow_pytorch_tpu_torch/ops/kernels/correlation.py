@@ -20,6 +20,11 @@ The kernel runs the tile body of the normalised correlation
 (``csrc/corr_tile.cuh``) without its affine, so both take their grid from
 ``launch_config`` and their staging route from ``staging_route`` here,
 and both are launched by ``launch_tiles``.
+
+On a width-sharded frame the two correlations run on a window of the
+frame's columns and are cropped; ``width`` (the frame's width) then
+chooses the grid, so that each pixel's channel sum is split as the whole
+frame's is and the cropped columns are the whole frame's bit for bit.
 """
 
 from __future__ import annotations
@@ -95,19 +100,22 @@ def channel_ranges(c: int, splits: int):
 
 def launch_tiles(op: str, wrapper, f1: torch.Tensor, f2: torch.Tensor,
                  out: torch.Tensor, aff: Optional[torch.Tensor] = None,
-                 slope: float = 1.0) -> None:
+                 slope: float = 1.0, width: Optional[int] = None) -> None:
     """Launches the tile kernel on checked (B, C, H, W) maps: with ``aff``
     the normalised correlation ``upflow_corr_norm(f1, f2, aff, out, b, c,
     h, w, slope, rows, splits, vec, stream)``, else the plain one
     ``upflow_correlation(f1, f2, out, b, c, h, w, rows, splits, vec,
     stream)`` (``_bf16`` for bf16 maps); counts the launch in
-    ``wrapper.launches`` and its route in ``wrapper.route_launches``."""
+    ``wrapper.launches`` and its route in ``wrapper.route_launches``.  The
+    grid is ``launch_config``'s for maps ``width`` columns wide (default
+    ``w``): a window of a wider frame takes the frame's channel splits."""
     b, c, h, w = f1.shape
     bf16 = f1.dtype == torch.bfloat16
     if bf16:
         # the kernel stages bf16 maps as aligned 4-byte words
         f1, f2 = (t if t.data_ptr() % 4 == 0 else t.clone() for t in (f1, f2))
-    rows, cols, splits, _ = launch_config(b, c, h, w)
+    rows, cols, splits, _ = launch_config(b, c, h, w if width is None
+                                          else width)
     route = staging_route(w, f1.element_size(), f1.data_ptr(), f2.data_ptr())
     grid = [rows, cols, splits, int(route == "vec")]
     if aff is None:
@@ -143,7 +151,8 @@ correlation_plain.cuda_calls = 0
 
 
 def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
-                     max_displacement: int = 4) -> torch.Tensor:
+                     max_displacement: int = 4,
+                     width: Optional[int] = None) -> torch.Tensor:
     """Launches ``upflow_correlation`` on the current stream."""
     op = "correlation"
     if max_displacement != KERNEL_DISP:
@@ -157,14 +166,14 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor,
         raise ValueError("%s: no channels" % op)
     k = 2 * KERNEL_DISP + 1
     out = torch.empty((b, k * k, h, w), dtype=torch.float32, device=f1.device)
-    launch_tiles(op, correlation, f1, f2, out)
+    launch_tiles(op, correlation, f1, f2, out, width=width)
     return out
 
 
-def _correlation(f1: torch.Tensor, f2: torch.Tensor,
-                 max_displacement: int) -> torch.Tensor:
+def _correlation(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int,
+                 width: Optional[int] = None) -> torch.Tensor:
     if f1.is_cuda:
-        return correlation_cuda(f1, f2, max_displacement)
+        return correlation_cuda(f1, f2, max_displacement, width)
     check_cpu_input("correlation", f1)
     return correlation_plain(f1, f2, max_displacement)
 
@@ -195,25 +204,26 @@ class CorrelationFn(torch.autograd.Function):
     """``correlation`` with the JAX package's gradient rule."""
 
     @staticmethod
-    def forward(ctx, f1, f2, max_displacement):
+    def forward(ctx, f1, f2, max_displacement, width):
         ctx.save_for_backward(f1, f2)
         ctx.max_displacement = max_displacement
-        return _correlation(f1, f2, max_displacement)
+        return _correlation(f1, f2, max_displacement, width)
 
     @staticmethod
     def backward(ctx, g):
         f1, f2 = ctx.saved_tensors
         d_f1, d_f2 = correlation_vjp(f1, f2, g, ctx.max_displacement)
-        return d_f1, d_f2, None
+        return d_f1, d_f2, None, None
 
 
-def correlation(f1: torch.Tensor, f2: torch.Tensor,
-                max_displacement: int = 4) -> torch.Tensor:
+def correlation(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 4,
+                width: Optional[int] = None) -> torch.Tensor:
     """Cost volume: the kernel for CUDA tensors, the plain version for CPU
-    tensors; through ``CorrelationFn`` under autograd."""
+    tensors; through ``CorrelationFn`` under autograd.  ``width``: the
+    frame's width where the maps are a window of it (``launch_tiles``)."""
     if wants_grad(f1, f2):
-        return CorrelationFn.apply(f1, f2, max_displacement)
-    return _correlation(f1, f2, max_displacement)
+        return CorrelationFn.apply(f1, f2, max_displacement, width)
+    return _correlation(f1, f2, max_displacement, width)
 
 
 correlation.launches = 0

@@ -18,6 +18,11 @@ backward is the JAX package's rule (``feature_warp.py::
 _feature_warp_bwd``): the gradient of the sample times the mask, the mask
 a constant.  The forward saves the mask the kernel returns, so the
 backward never recomputes the chaotic ``>= thr`` bits.
+
+``x0`` makes the flow, the output and the mask the columns ``[x0, x0 +
+w)`` of the frame that ``x`` holds whole (the width-sharded eval,
+``parallel/spatial.py``); the default 0 with a flow as wide as ``x`` is
+the whole frame.  It has no gradient rule: under autograd it must be 0.
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ import torch
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    FLOAT, FP32_BF16, INT, PTR, SMS, check_cpu_input, check_cuda_input,
-    count_cuda_call, launch, wants_grad)
+    FLOAT, FP32_BF16, INT, PTR, SMS, check_columns, check_cpu_input,
+    check_cuda_input, count_cuda_call, launch, wants_grad, whole_frame)
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -62,12 +67,12 @@ def launch_config(b: int, c: int, h: int, w: int) -> Tuple[int, int, int,
 
 
 def feature_warp_plain(x: torch.Tensor, flow: torch.Tensor, thr: float,
-                       with_mask: bool = False) -> Result:
+                       with_mask: bool = False, x0: int = 0) -> Result:
     """Plain PyTorch version: returns ``warp(x) * mask`` in ``x``'s type
     and, with ``with_mask``, the (B, H, W) fp32 mask."""
     count_cuda_call(feature_warp_plain, x, flow)
     _, _, ih, iw = x.shape
-    px, py = _w.abs_coords_torch_grid(flow)
+    px, py = _w.abs_coords_torch_grid(flow, x0, iw)
     out = _w.bilinear_sample(x, px, py)
     mask = (_w._analytic_wsum(ih, iw, px, py) >= thr).float()
     out = (out * mask[:, None]).to(x.dtype)
@@ -78,33 +83,35 @@ feature_warp_plain.cuda_calls = 0
 
 
 def feature_warp_cuda(x: torch.Tensor, flow: torch.Tensor, thr: float,
-                      with_mask: bool = False) -> Result:
+                      with_mask: bool = False, x0: int = 0) -> Result:
     """Launches ``upflow_feature_warp`` on the current stream."""
     op = "feature_warp"
     check_cuda_input(op, "x", x, (None, None, None, None),
                      dtypes=FP32_BF16)
     b, c, h, w = x.shape
-    check_cuda_input(op, "flow", flow, (b, 2, h, w), x.device)
-    out = torch.empty_like(x)
-    mask = (torch.empty((b, h, w), dtype=torch.float32, device=x.device)
+    check_cuda_input(op, "flow", flow, (b, 2, h, None), x.device)
+    w_out = flow.shape[3]
+    check_columns(op, x0, w_out, w)
+    out = torch.empty((b, c, h, w_out), dtype=x.dtype, device=x.device)
+    mask = (torch.empty((b, h, w_out), dtype=torch.float32, device=x.device)
             if with_mask else None)
-    threads, _, groups, size = launch_config(b, c, h, w)
+    threads, _, groups, size = launch_config(b, c, h, w_out)
     fn = _build.kernel_fn("upflow_feature_warp" + (
         "_bf16" if x.dtype == torch.bfloat16 else ""),
-                          [PTR, PTR, PTR, PTR, INT, INT, INT, INT, FLOAT, INT,
-                           INT, INT, PTR])
+                          [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
+                           FLOAT, INT, INT, INT, PTR])
     launch(op, feature_warp, x, fn, x.data_ptr(), flow.data_ptr(),
            out.data_ptr(), mask.data_ptr() if with_mask else None, b, c, h, w,
-           float(thr), threads, groups, size)
+           w_out, x0, float(thr), threads, groups, size)
     return (out, mask) if with_mask else out
 
 
 def _feature_warp(x: torch.Tensor, flow: torch.Tensor, thr: float,
-                  with_mask: bool) -> Result:
+                  with_mask: bool, x0: int = 0) -> Result:
     if x.is_cuda:
-        return feature_warp_cuda(x, flow, thr, with_mask)
+        return feature_warp_cuda(x, flow, thr, with_mask, x0)
     check_cpu_input("feature_warp", x)
-    return feature_warp_plain(x, flow, thr, with_mask)
+    return feature_warp_plain(x, flow, thr, with_mask, x0)
 
 
 class FeatureWarpFn(torch.autograd.Function):
@@ -126,13 +133,14 @@ class FeatureWarpFn(torch.autograd.Function):
 
 
 def feature_warp(x: torch.Tensor, flow: torch.Tensor, thr: float,
-                 with_mask: bool = False) -> Result:
+                 with_mask: bool = False, x0: int = 0) -> Result:
     """Masked warp: the kernel for CUDA tensors, the plain version for CPU
     tensors; through ``FeatureWarpFn`` under autograd."""
     if wants_grad(x, flow):
+        whole_frame("feature_warp", x0, flow.shape[3], x.shape[3])
         out, mask = FeatureWarpFn.apply(x, flow, thr)
         return (out, mask) if with_mask else out
-    return _feature_warp(x, flow, thr, with_mask)
+    return _feature_warp(x, flow, thr, with_mask, x0)
 
 
 feature_warp.launches = 0

@@ -19,19 +19,25 @@ is the JAX package's rule (``models/upflow.py::_sgu_final_op_bwd``: the
 VJP of ``_sgu_final_xla``), ``sgu_final_vjp``: the blend's gradient at
 full resolution, then the rate scales, the transposed resizes and the
 sigmoid.
+
+``x0`` and ``w_out`` make the output the columns ``[x0, x0 + w_out)`` of
+the (H, W) frame (the width-sharded eval, ``parallel/spatial.py``), from
+the whole quarter-resolution flow and head; the defaults are the whole
+frame.  They have no gradient rule: under autograd the output is the
+whole frame.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    FLOAT, INT, PTR, SMS, check_cpu_input, check_cuda_input, count_cuda_call,
-    launch, wants_grad)
+    FLOAT, INT, PTR, SMS, check_columns, check_cpu_input, check_cuda_input,
+    count_cuda_call, launch, wants_grad, whole_frame)
 from upflow_pytorch_tpu_torch.ops.kernels.sgu_blend import sgu_blend_plain
 from upflow_pytorch_tpu_torch.ops.resize import (
     interp_taps, resize_vjp, upsample2d_as, upsample2d_flow_as)
@@ -53,21 +59,25 @@ def tile_rows(b: int, h: int, w: int) -> int:
 
 
 def sgu_final_plain(flow_q: torch.Tensor, x_out: torch.Tensor,
-                    out_hw: Size) -> torch.Tensor:
+                    out_hw: Size, x0: int = 0,
+                    w_out: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version (``_sgu_final_xla``): ``flow_q`` (B, 2, Hq,
-    Wq), ``x_out`` (B, 3, Hq, Wq) -> (B, 2, H, W)."""
+    Wq), ``x_out`` (B, 3, Hq, Wq) -> (B, 2, H, w_out), the columns ``[x0,
+    x0 + w_out)`` of the (H, W) result (by default all of it)."""
     count_cuda_call(sgu_final_plain, flow_q, x_out)
+    cols = slice(x0, int(out_hw[1]) if w_out is None else x0 + w_out)
     flow = upsample2d_flow_as(flow_q, out_hw, if_rate=True)
     inter_flow = upsample2d_flow_as(x_out[:, :2], out_hw, if_rate=True)
     mask = upsample2d_as(torch.sigmoid(x_out[:, 2:3]), out_hw)
-    return sgu_blend_plain(flow, inter_flow, mask)
+    return sgu_blend_plain(flow, inter_flow[..., cols], mask[..., cols], x0)
 
 
 sgu_final_plain.cuda_calls = 0
 
 
 def sgu_final_cuda(flow_q: torch.Tensor, x_out: torch.Tensor,
-                   out_hw: Size) -> torch.Tensor:
+                   out_hw: Size, x0: int = 0,
+                   w_out: Optional[int] = None) -> torch.Tensor:
     """Launches ``upflow_sgu_final`` on the current stream.  The sigmoid
     of the mask logit runs in torch at quarter resolution."""
     op = "sgu_final"
@@ -75,26 +85,29 @@ def sgu_final_cuda(flow_q: torch.Tensor, x_out: torch.Tensor,
     b, _, hq, wq = flow_q.shape
     check_cuda_input(op, "x_out", x_out, (b, 3, hq, wq), flow_q.device)
     h, w = int(out_hw[0]), int(out_hw[1])
+    w_out = w - x0 if w_out is None else w_out
+    check_columns(op, x0, w_out, w)
     mask_q = torch.sigmoid(x_out[:, 2:3]).contiguous()
     row_idx, row_wt = interp_taps(h, hq, flow_q.device)
     col_idx, col_wt = interp_taps(w, wq, flow_q.device)
-    out = torch.empty((b, 2, h, w), dtype=torch.float32, device=flow_q.device)
+    out = torch.empty((b, 2, h, w_out), dtype=torch.float32,
+                      device=flow_q.device)
     fn = _build.kernel_fn("upflow_sgu_final",
                           [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT,
-                           INT, INT, INT, FLOAT, FLOAT, INT, PTR])
+                           INT, INT, INT, INT, INT, FLOAT, FLOAT, INT, PTR])
     launch(op, sgu_final, flow_q, fn, flow_q.data_ptr(), x_out.data_ptr(),
            mask_q.data_ptr(), row_idx.data_ptr(), row_wt.data_ptr(),
            col_idx.data_ptr(), col_wt.data_ptr(), out.data_ptr(), b, hq, wq, h,
-           w, w / wq, h / hq, tile_rows(b, h, w))
+           w, w_out, x0, w / wq, h / hq, tile_rows(b, h, w_out))
     return out
 
 
-def _sgu_final(flow_q: torch.Tensor, x_out: torch.Tensor,
-               out_hw: Size) -> torch.Tensor:
+def _sgu_final(flow_q: torch.Tensor, x_out: torch.Tensor, out_hw: Size,
+               x0: int = 0, w_out: Optional[int] = None) -> torch.Tensor:
     if flow_q.is_cuda:
-        return sgu_final_cuda(flow_q, x_out, out_hw)
+        return sgu_final_cuda(flow_q, x_out, out_hw, x0, w_out)
     check_cpu_input("sgu_final", flow_q)
-    return sgu_final_plain(flow_q, x_out, out_hw)
+    return sgu_final_plain(flow_q, x_out, out_hw, x0, w_out)
 
 
 def _rate_scale(flow: torch.Tensor, su: float, sv: float) -> torch.Tensor:
@@ -137,13 +150,15 @@ class SguFinalFn(torch.autograd.Function):
         return sgu_final_vjp(flow_q, x_out, ctx.out_hw, g) + (None,)
 
 
-def sgu_final(flow_q: torch.Tensor, x_out: torch.Tensor,
-              out_hw: Size) -> torch.Tensor:
+def sgu_final(flow_q: torch.Tensor, x_out: torch.Tensor, out_hw: Size,
+              x0: int = 0, w_out: Optional[int] = None) -> torch.Tensor:
     """Final SGU stage: the kernel for CUDA tensors, the plain version for
     CPU tensors; through ``SguFinalFn`` under autograd."""
     if wants_grad(flow_q, x_out):
+        w = int(out_hw[1])
+        whole_frame("sgu_final", x0, w if w_out is None else w_out, w)
         return SguFinalFn.apply(flow_q, x_out, out_hw)
-    return _sgu_final(flow_q, x_out, out_hw)
+    return _sgu_final(flow_q, x_out, out_hw, x0, w_out)
 
 
 sgu_final.launches = 0

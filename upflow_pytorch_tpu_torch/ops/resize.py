@@ -9,6 +9,12 @@ uses, so both packages give the same numbers; ``downsample_area`` is the
 same with the area-pool matrices.  ``resize_vjp`` is the transposed
 product, the resize's gradient, for the backward rules of the kernels
 that resize inside them.
+
+The bilinear resizes take ``cols`` (``ops/columns.py::Columns``) for
+a map whose width is sharded: the input is this rank's columns of a map
+``cols.width`` wide, the output this rank's columns of the resized map,
+from the rows ``[lo, hi)`` of the global column matrix over the input
+window their taps reach.
 """
 
 from __future__ import annotations
@@ -108,11 +114,16 @@ def interp_taps(out_size: int, in_size: int, device: torch.device
             torch.from_numpy(wt).to(device))
 
 
-def _separable(x: torch.Tensor, out_hw, matrix) -> torch.Tensor:
+def _separable(x: torch.Tensor, out_hw, matrix, cols=None) -> torch.Tensor:
     """``x`` (B, C, H, W) times ``matrix(oh, h, device)`` along the rows,
     then ``matrix(ow, w, device)`` along the columns, in fp32, cast back to
-    ``x``'s type."""
+    ``x``'s type.  With ``cols`` (bilinear only), ``x`` is this rank's
+    columns of a map ``cols.width`` wide, and the column product takes
+    the rank's rows of the global matrix over the input columns they
+    reach (``_reach``)."""
     _, _, h, w = x.shape
+    if cols is not None:
+        w = cols.width
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (oh, ow) == (h, w):
         return x
@@ -120,14 +131,35 @@ def _separable(x: torch.Tensor, out_hw, matrix) -> torch.Tensor:
     if oh != h:
         xf = torch.einsum("oh,bchw->bcow", matrix(oh, h, x.device), xf)
     if ow != w:
-        xf = torch.einsum("ow,bchw->bcho", matrix(ow, w, x.device), xf)
+        m = matrix(ow, w, x.device)
+        if cols is not None:
+            spans = cols.spans_of(ow)
+            reach = [_reach(ow, w, lo, hi) for lo, hi in spans]
+            xf = cols.window(xf, lambda r: reach[r], "clip")
+            (lo, hi), (a, b) = spans[cols.rank], reach[cols.rank]
+            m = m[lo:hi, a:b]
+        xf = torch.einsum("ow,bchw->bcho", m, xf)
     return xf.to(x.dtype)
 
 
-def resize_bilinear_align_corners(x: torch.Tensor,
-                                  out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Resize NCHW ``x`` to ``out_hw`` (align_corners=True bilinear)."""
-    return _separable(x, out_hw, _interp_matrix)
+@functools.lru_cache(maxsize=256)
+def _reach(out_size: int, in_size: int, lo: int, hi: int
+           ) -> Tuple[int, int]:
+    """The input columns ``[a, b)`` that the rows ``[lo, hi)`` of the
+    (out_size, in_size) interpolation matrix read: the matrix is monotone,
+    so the first nonzero of row ``lo`` and the last of row ``hi - 1``
+    bound them."""
+    m = _interp_matrix_np(out_size, in_size)
+    return (int(np.flatnonzero(m[lo])[0]),
+            int(np.flatnonzero(m[hi - 1])[-1]) + 1)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int],
+                                  cols=None) -> torch.Tensor:
+    """Resize NCHW ``x`` to ``out_hw`` (align_corners=True bilinear).  With
+    ``cols``, ``x`` is this rank's columns of a map ``cols.width`` wide and
+    the result this rank's columns of the resized map."""
+    return _separable(x, out_hw, _interp_matrix, cols)
 
 
 def resize_vjp(g: torch.Tensor, in_hw: Tuple[int, int]) -> torch.Tensor:
@@ -169,15 +201,19 @@ def upsample2d_as(x: torch.Tensor, target_hw) -> torch.Tensor:
     return resize_bilinear_align_corners(x, target_hw)
 
 
-def upsample2d_flow_as(flow: torch.Tensor, target_hw,
-                       if_rate: bool = False) -> torch.Tensor:
+def upsample2d_flow_as(flow: torch.Tensor, target_hw, if_rate: bool = False,
+                       cols=None) -> torch.Tensor:
     """``upsample2d_flow_as`` on a (B, 2, H, W) flow.  With ``if_rate`` the
-    resized u is scaled by ``out_w / in_w`` and v by ``out_h / in_h``."""
+    resized u is scaled by ``out_w / in_w`` and v by ``out_h / in_h``, the
+    frame's widths: with ``cols`` the flow is this rank's columns of a
+    flow ``cols.width`` wide (``resize_bilinear_align_corners``)."""
     _, c, h, w = flow.shape
     if c != 2:
         raise ValueError("flow must have 2 channels (u, v), got %d" % c)
-    res = resize_bilinear_align_corners(flow, target_hw)
+    res = resize_bilinear_align_corners(flow, target_hw, cols)
     if if_rate:
+        if cols is not None:
+            w = cols.width
         oh, ow = int(target_hw[0]), int(target_hw[1])
         # the scales go to the kernels as arguments, not as a tensor
         # copied from the host

@@ -33,7 +33,7 @@ Tensors: images ``(B, C, H, W)``, flows ``(B, 2, H, W)`` with channels
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -82,16 +82,21 @@ def _torch_grid_roundtrip(p: torch.Tensor, size: int) -> torch.Tensor:
     return (norm + 1.0) / 2.0 * float(size - 1)
 
 
-def abs_coords_torch_grid(flow: torch.Tensor
+def abs_coords_torch_grid(flow: torch.Tensor, x0: int = 0,
+                          width: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Absolute sample coords ``(px, py)``, each (B, H, W), passed through
-    the grid_sample roundtrip."""
+    """Absolute sample coords ``(px, py)``, each (B, H, w), passed through
+    the grid_sample roundtrip.  The flow's w columns are the columns
+    ``[x0, x0 + w)`` of a frame ``width`` columns wide (by default the
+    flow's own): the global column is an integer before it becomes a
+    float, and the roundtrip divides by the frame's width."""
     _, _, h, w = flow.shape
-    xs = torch.arange(w, dtype=torch.float32, device=flow.device)
+    xs = torch.arange(x0, x0 + w, dtype=torch.float32, device=flow.device)
     ys = torch.arange(h, dtype=torch.float32, device=flow.device)
     px = xs[None, None, :] + flow[:, 0].float()
     py = ys[None, :, None] + flow[:, 1].float()
-    return _torch_grid_roundtrip(px, w), _torch_grid_roundtrip(py, h)
+    return (_torch_grid_roundtrip(px, w if width is None else width),
+            _torch_grid_roundtrip(py, h))
 
 
 def _tap_weights(px: torch.Tensor, py: torch.Tensor):
@@ -257,12 +262,24 @@ def boundary_dilated_warp(img_full: torch.Tensor, flow: torch.Tensor,
     return out.to(img_full.dtype)
 
 
-def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """``tools.torch_warp``: zero-padded bilinear warp, no mask."""
+def _source(x: torch.Tensor, cols) -> Tuple[torch.Tensor, int]:
+    """A warp's source and the output's first column: ``x`` and 0, or on
+    a width-sharded frame (``cols``, ``ops/columns.py::Columns``)
+    the whole gathered map and this rank's first column."""
+    return (x, 0) if cols is None else (cols.gather(x), cols.lo)
+
+
+def flow_warp(x: torch.Tensor, flow: torch.Tensor,
+              cols=None) -> torch.Tensor:
+    """``tools.torch_warp``: zero-padded bilinear warp, no mask.  With
+    ``cols`` ``x`` and ``flow`` are this rank's columns of a
+    width-sharded frame: the whole source is gathered, and the result is
+    this rank's columns."""
     from upflow_pytorch_tpu_torch.ops.kernels import warp as kwarp
 
-    return kwarp.warp(x.float().contiguous(),
-                      flow.float().contiguous()).to(x.dtype)
+    x, x0 = _source(x, cols)
+    return kwarp.warp(x.float().contiguous(), flow.float().contiguous(),
+                      x0).to(x.dtype)
 
 
 def flow_warp_with_mask(x: torch.Tensor, flow: torch.Tensor):
@@ -276,11 +293,15 @@ def flow_warp_with_mask(x: torch.Tensor, flow: torch.Tensor):
                             mask_threshold(), with_mask=True)
 
 
-def flow_warp_masked(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def flow_warp_masked(x: torch.Tensor, flow: torch.Tensor,
+                     cols=None) -> torch.Tensor:
+    """``flow_warp_with_mask``'s warped map alone; with ``cols`` on a
+    width-sharded frame, as ``flow_warp``."""
     from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as kfw
 
+    x, x0 = _source(x, cols)
     return kfw.feature_warp(x.contiguous(), flow.float().contiguous(),
-                            mask_threshold())
+                            mask_threshold(), x0=x0)
 
 
 def sgu_blend(flow_init: torch.Tensor, inter_flow: torch.Tensor,
@@ -295,13 +316,17 @@ def sgu_blend(flow_init: torch.Tensor, inter_flow: torch.Tensor,
 
 
 def sgu_blend_pair(flow_1: torch.Tensor, x_out_1: torch.Tensor,
-                   flow_2: torch.Tensor, x_out_2: torch.Tensor
+                   flow_2: torch.Tensor, x_out_2: torch.Tensor, cols=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both directions of a decode level's SGU blend, from the SGU
     estimator's raw heads: per direction ``sgu_blend(flow, x[:, :2],
     sigmoid(x[:, 2:3]))``, in one kernel launch on the card.  Flows
-    (B, 2, H, W); heads (B, 3, H, W), fp32 or bf16, read in place."""
+    (B, 2, H, W); heads (B, 3, H, W), fp32 or bf16, read in place.  With
+    ``cols`` on a width-sharded frame, the flows, which the blend warps,
+    are gathered and the heads stay this rank's columns."""
     from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as kb
 
+    flow_1, x0 = _source(flow_1, cols)
+    flow_2, _ = _source(flow_2, cols)
     return kb.sgu_blend_pair(flow_1.float().contiguous(), x_out_1,
-                             flow_2.float().contiguous(), x_out_2)
+                             flow_2.float().contiguous(), x_out_2, x0=x0)

@@ -1,4 +1,6 @@
-"""Multi-GPU data parallelism on ``torch.distributed``: the group and the
-mesh (``mesh.py``), the reductions over the ranks (``reduce.py``), the
-sharded train and eval steps (``step.py``) and a one-step dry run over n
-ranks (``dryrun.py``).  Port of ``upflow_pytorch_tpu/parallel/``."""
+"""Multi-GPU parallelism on ``torch.distributed``: the group and the
+('data', 'spatial') mesh (``mesh.py``), the reductions over the ranks
+(``reduce.py``), the width sharding of the eval step over 'spatial'
+(``spatial.py``), the sharded train and eval steps (``step.py``) and a
+dry run over n ranks (``dryrun.py``).  Port of
+``upflow_pytorch_tpu/parallel/``."""

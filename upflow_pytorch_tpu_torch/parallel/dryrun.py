@@ -5,10 +5,13 @@ Port of ``__graft_entry__.py::dryrun_multichip``: the training recipe
 distillation and the boundary-dilated warp; AMSGrad) from seeded weights,
 replicated over the 'data' mesh, one sharded step on a global batch of n
 items (64x64 crops of 80x80 frames, one a rank), and the global loss
-printed.  Called outside an n-rank group, ``dryrun_multigpu`` starts n
-processes joined through a ``file://`` store and waits for them; inside
-one, it runs the step in this process.  The JAX dry run's width-sharded
-eval has no counterpart yet (``ROADMAP.md`` §1).
+printed.  Then, at an even n, the JAX dry run's width-sharded rehearsal:
+the eval recipe with SGU from seeded weights on a ('data', 'spatial') =
+(n/2, 2) mesh, one 64x128 frame a data row, its width split over the two
+'spatial' ranks (``make_sharded_eval_step(spatial=True)``), and the
+flow's shape printed.  Called outside an n-rank group,
+``dryrun_multigpu`` starts n processes joined through a ``file://``
+store and waits for them; inside one, it runs both in this process.
 
     python -m upflow_pytorch_tpu_torch.parallel.dryrun 2 --device cpu
 """
@@ -32,7 +35,9 @@ from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.parallel.mesh import (
     Mesh, close_distributed, init_distributed, make_mesh, replicate,
     shard_batch)
-from upflow_pytorch_tpu_torch.parallel.step import make_sharded_train_step
+from upflow_pytorch_tpu_torch.models.upflow import build_model
+from upflow_pytorch_tpu_torch.parallel.step import (
+    make_sharded_eval_step, make_sharded_train_step)
 from upflow_pytorch_tpu_torch.train.step import create_train_state
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -51,6 +56,8 @@ TRAIN_CONF = EVAL_CONF.updated(dict(
     if_use_boundary_warp=True,
 ))
 LINE = "dryrun_multigpu(%d): total_loss=%.6f over %d ranks (%s, %s)"
+SPATIAL = 2  # the rehearsal's 'spatial' ranks
+SPATIAL_LINE = "dryrun_multigpu: spatial=%d full-model eval ok %s"
 
 
 def dryrun_batch(b: int, h: int = 64, w: int = 64, margin: int = 8):
@@ -82,13 +89,35 @@ def dryrun_step(mesh: Mesh) -> float:
     return loss
 
 
+def dryrun_spatial(n: int, device) -> None:
+    """The width-sharded rehearsal over the group's ``n`` ranks (even):
+    the SGU eval recipe from seeded weights on a (n/2, 2) mesh, one
+    64x128 frame a data row; prints the gathered flow's shape."""
+    mesh = make_mesh(data=n // SPATIAL, spatial=SPATIAL, device=device)
+    model = build_model(EVAL_CONF, mesh.device, seed=0)
+    im = np.random.RandomState(1).rand(mesh.size, 64, 128, 3).astype(
+        np.float32)
+    flow_f = make_sharded_eval_step(model, mesh, spatial=True)(im, im)[0]
+    print(SPATIAL_LINE % (SPATIAL, tuple(flow_f.shape)), flush=True)
+
+
+def dryrun_ranks(n: int, device) -> float:
+    """One rank's part of the dry run: the step, then, at an even n, the
+    width-sharded rehearsal.  Returns the global loss."""
+    mesh = make_mesh(data=n, device=device)
+    loss = dryrun_step(mesh)
+    if n % SPATIAL == 0:
+        dryrun_spatial(n, mesh.device)
+    return loss
+
+
 def dryrun_multigpu(n: int, device=None, timeout: float = 600.0) -> float:
     """The dry run over ``n`` ranks: on ``n`` cards over NCCL, or with
     ``device="cpu"`` in ``n`` CPU processes over gloo.  Returns the global
     loss, which every rank must report alike; ``timeout`` (seconds) bounds
     the group's collectives and the wait for the processes."""
     if dist.is_initialized():
-        return dryrun_step(make_mesh(data=n, device=device))
+        return dryrun_ranks(n, device)
     on_cpu = device is not None and torch.device(device).type == "cpu"
     if not on_cpu and torch.cuda.device_count() < n:
         raise RuntimeError(
@@ -125,6 +154,13 @@ def dryrun_multigpu(n: int, device=None, timeout: float = 600.0) -> float:
     if len(lines) != n or len(losses) != 1:
         raise RuntimeError("the ranks disagree: %s" % lines)
     print(lines[0], flush=True)
+    spatial = [line for out in outs for line in out.splitlines()
+               if line.startswith("dryrun_multigpu: spatial=")]
+    if n % SPATIAL == 0:
+        if len(spatial) != n or len(set(spatial)) != 1:
+            raise RuntimeError("the spatial rehearsal's ranks disagree: %s"
+                               % spatial)
+        print(spatial[0], flush=True)
     return float(losses.pop())
 
 
@@ -147,7 +183,7 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         init_method=args.init_method, device=args.device,
         timeout=datetime.timedelta(seconds=args.timeout))
     try:
-        return dryrun_step(make_mesh(data=args.n, device=device))
+        return dryrun_ranks(args.n, device)
     finally:
         close_distributed()
 

@@ -10,8 +10,12 @@ what the loss and the gradients need over the ranks.
 
 ``init_distributed`` is the counterpart of ``jax.distributed.initialize``:
 NCCL on ``cuda:LOCAL_RANK`` by default, gloo only where the caller asks
-for it (``device="cpu"``, or ``backend="gloo"``).  Only the 'data' axis is
-ported: width sharding (``spatial > 1``) raises (``ROADMAP.md`` §1).
+for it (``device="cpu"``, or ``backend="gloo"``).  ``make_mesh(data=D,
+spatial=S)`` lays the D*S ranks out as the JAX ('data', 'spatial') mesh,
+rank ``r = d*S + s``: the batch splits over 'data' (``Mesh.group``, the D
+ranks of one spatial column, over which the train step reduces), and the
+eval step's width over 'spatial' (``Mesh.spatial_group``, the S ranks of
+one data row; ``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -26,10 +30,6 @@ import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
-SPATIAL_REFUSAL = (
-    "width sharding (spatial=%d) is not ported: it needs a halo exchange "
-    "around every convolution, warp and correlation (ROADMAP.md §1, the "
-    "last module item); the port shards the batch only")
 
 def _env_int(name: str) -> Optional[int]:
     value = os.environ.get(name)
@@ -112,12 +112,18 @@ def close_distributed() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The 'data' axis: every rank of ``group``, one device each."""
+    """The 'data' axis: ``rank`` of the ``size`` ranks of ``group``, one
+    device each; and the 'spatial' axis: ``spatial_rank`` of the
+    ``spatial`` ranks of ``spatial_group``.  With the defaults a mesh of
+    the 'data' axis alone."""
 
     group: Any
     size: int
     rank: int
     device: torch.device
+    spatial: int = 1
+    spatial_rank: int = 0
+    spatial_group: Any = None
 
     def rows(self, batch: int) -> slice:
         """This rank's rows of a global batch of ``batch`` items
@@ -144,22 +150,29 @@ def batch_rows(batch: int, rank: int, ranks: int) -> slice:
 
 def make_mesh(data: Optional[int] = None, spatial: int = 1,
               device=None) -> Mesh:
-    """The mesh over the initialised group; ``data`` defaults to the
-    group's size and must equal it.  ``device`` is this rank's: by default
-    the current CUDA device (``init_distributed`` sets it to
-    ``cuda:LOCAL_RANK``), whatever the group's backend, raising without
-    CUDA; the CPU only where the caller passes ``device="cpu"``."""
-    if spatial != 1:
-        raise NotImplementedError(SPATIAL_REFUSAL % spatial)
+    """The ('data', 'spatial') mesh over the initialised group: ``data``
+    defaults to the group's size over ``spatial``, and ``data * spatial``
+    must equal the group's size.  With ``spatial > 1`` every rank builds
+    the subgroups of both axes (``torch.distributed.new_group``, in one
+    order on every rank); with ``spatial=1`` the data axis is the whole
+    group.  ``device`` is this rank's: by default the current CUDA device
+    (``init_distributed`` sets it to ``cuda:LOCAL_RANK``), whatever the
+    group's backend, raising without CUDA; the CPU only where the caller
+    passes ``device="cpu"``."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs a process group: call "
             "parallel.mesh.init_distributed first (under torchrun, or with "
             "rank, world_size and init_method)")
     world = dist.get_world_size()
-    if data is not None and data != world:
-        raise ValueError("data=%d, but the group has %d ranks"
-                         % (data, world))
+    if spatial < 1 or (data is None and world % spatial):
+        raise ValueError("spatial=%d does not split the group's %d ranks"
+                         % (spatial, world))
+    if data is None:
+        data = world // spatial
+    if data * spatial != world:
+        raise ValueError("data=%d x spatial=%d, but the group has %d ranks"
+                         % (data, spatial, world))
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -172,7 +185,15 @@ def make_mesh(data: Optional[int] = None, spatial: int = 1,
     if dist.get_backend() == "nccl" and device.type != "cuda":
         raise ValueError("the group runs NCCL, which reduces CUDA tensors "
                          "only; device %s needs a gloo group" % device)
-    return Mesh(dist.group.WORLD, world, dist.get_rank(), device)
+    rank = dist.get_rank()
+    if spatial == 1:
+        return Mesh(dist.group.WORLD, world, rank, device)
+    d, s = divmod(rank, spatial)
+    columns = [dist.new_group([dd * spatial + ss for dd in range(data)])
+               for ss in range(spatial)]
+    rows = [dist.new_group([dd * spatial + ss for ss in range(spatial)])
+            for dd in range(data)]
+    return Mesh(columns[s], data, d, device, spatial, s, rows[d])
 
 
 def shard_batch(mesh: Mesh, batch):
@@ -191,12 +212,13 @@ def shard_batch(mesh: Mesh, batch):
 def replicate(mesh: Mesh, model: torch.nn.Module,
               optimizer: Optional[torch.optim.Optimizer] = None) -> None:
     """Broadcasts the parameters, buffers and optimizer state of rank 0 to
-    every rank, in place.  The optimizer's state must hold the same
-    entries on every rank (both empty, or both restored)."""
+    every rank of the group, both axes of ``mesh``, in place.  The
+    optimizer's state must hold the same entries on every rank (both
+    empty, or both restored)."""
     tensors = list(model.parameters()) + list(model.buffers())
     if optimizer is not None:
         count = torch.tensor([len(optimizer.state)], device=mesh.device)
-        dist.broadcast(count, 0, group=mesh.group)
+        dist.broadcast(count, 0)
         if int(count) != len(optimizer.state):
             raise RuntimeError(
                 "optimizer state differs between ranks: %d entries on rank "
@@ -210,8 +232,8 @@ def replicate(mesh: Mesh, model: torch.nn.Module,
     with torch.no_grad():
         for t in tensors:
             if t.device == mesh.device:
-                dist.broadcast(t.data, 0, group=mesh.group)
+                dist.broadcast(t.data, 0)
             else:  # Adam's step counts live on the CPU
                 buf = t.detach().to(mesh.device)
-                dist.broadcast(buf, 0, group=mesh.group)
+                dist.broadcast(buf, 0)
                 t.copy_(buf)

@@ -10,9 +10,13 @@ gradients, the metrics.  No ``DistributedDataParallel``: the equivariance
 step runs two forwards (teacher, student) before its one backward, which
 DDP's reducer does not expect.
 
+The eval step with ``spatial=True`` also shards the frame's width over
+the mesh's 'spatial' axis: each rank computes its columns of every map
+(``parallel/spatial.py``, ``models/upflow.py::forward`` with a shard).
+
 The JAX steps turn the Pallas kernels off on a mesh of more than one
-device (``ops/pallas_gate.py``).  Each rank here runs whole frames, so
-every kernel stays on and nothing is gated.
+device (``ops/pallas_gate.py``).  Here every kernel stays on, whole frames
+or width shards, and nothing is gated.
 """
 
 from __future__ import annotations
@@ -21,8 +25,8 @@ import torch
 import torch.distributed as dist
 
 from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet, forward
-from upflow_pytorch_tpu_torch.parallel.mesh import (
-    SPATIAL_REFUSAL, Mesh, shard_batch)
+from upflow_pytorch_tpu_torch.parallel.mesh import Mesh, shard_batch
+from upflow_pytorch_tpu_torch.parallel.spatial import WidthShard
 from upflow_pytorch_tpu_torch.train.step import make_train_step
 
 EVAL_OUTPUTS = ("flow_f_out", "flow_b_out", "occ_fw", "occ_bw")
@@ -46,9 +50,17 @@ def make_sharded_eval_step(model: UPFlowNet, mesh: Mesh,
     NHWC batch, and every rank gets the outputs of the whole batch on its
     device.  The outputs are gathered by an all-reduce of each rank's
     slice written into a zeroed global buffer (exact; one path for NCCL
-    and for gloo, whose all-gather takes no CUDA tensors)."""
-    if spatial:
-        raise NotImplementedError(SPATIAL_REFUSAL % mesh.size)
+    and for gloo, whose all-gather takes no CUDA tensors).
+
+    With ``spatial`` on a mesh whose 'spatial' axis has more than one rank
+    each rank also takes its columns of the frames: it runs the forward on
+    its data rows with the mesh's ``WidthShard``, and the world gathers
+    every rank's block of rows and columns, over an integer view of the
+    buffer so that each value arrives bit for bit.  The shard, whose
+    counters say what a rank moved, is ``eval_step.shard``.  On a mesh
+    with one 'spatial' rank ``spatial=True`` is the step without it."""
+    if spatial and mesh.spatial > 1:
+        return _width_sharded_eval_step(model, mesh)
 
     def eval_step(im1, im2):
         local = forward(model, shard_batch(mesh, im1),
@@ -63,4 +75,25 @@ def make_sharded_eval_step(model: UPFlowNet, mesh: Mesh,
             outs.append(full)
         return tuple(outs)
 
+    return eval_step
+
+
+def _width_sharded_eval_step(model: UPFlowNet, mesh: Mesh):
+    shard = WidthShard(mesh.spatial_group, mesh.spatial_rank, mesh.spatial)
+
+    def eval_step(im1, im2):
+        rows = mesh.rows(len(im1))
+        local = forward(model, im1[rows], im2[rows], shard)
+        lo, hi = shard.cols(im1.shape[2])
+        outs = []
+        for key in EVAL_OUTPUTS:
+            part = local[key]
+            full = part.new_zeros((len(im1), part.shape[1], im1.shape[2])
+                                  + tuple(part.shape[3:]))
+            full[rows, :, lo:hi] = part
+            dist.all_reduce(full.view(torch.int32))
+            outs.append(full)
+        return tuple(outs)
+
+    eval_step.shard = shard
     return eval_step
