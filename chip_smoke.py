@@ -169,6 +169,26 @@ Phases, each of which must pass:
    unevenly), under the same checks.  (d)
    ``dryrun_multigpu(2)`` in (b)'s group: the step's loss on both ranks
    and the width-sharded rehearsal's line.
+11. The port's bench (``upflow_pytorch_tpu_torch/bench.py``) and its
+   batch sweep (``scripts/torch_bench_batch_sweep.py``).  (a) One chained
+   forward of the bench (bf16, B=4 384x1280) launches phase 3's bf16
+   counts less the occlusion check's two warps, no plain version on a
+   CUDA tensor, and as many device kernels as the network alone plus the
+   chain's own ops (counted by ``scripts/torch_forward_wall.py``'s
+   ``kernel_count``); one step of the bench's train lane launches phase
+   6's fp32 counts.  (b) ``bench.main([])`` at its defaults (B=4
+   384x1280, 20 forwards a run, the train lane) prints its JSON line:
+   every key of the JAX bench's line but ``degraded``, the card's name,
+   every rate finite and > 0, the bf16 and fp32 interior EPE within 0.02
+   px of the JAX package's (``jax_reference_epe.json``, ``b4_384x1280``,
+   the same pairs), the fused A/B at most the chaos floor + 0.02 px, the
+   out-of-halo lane's median inter-flow beyond the 40-px halo; then the
+   sweep at B = 4, 8, 16 prints a line a batch (with its peak memory) and
+   its summary.  (c) Two runs of two uninterrupted fp32 steps of phase
+   6's recipe from the checkpoint, as the port runs them and under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
+   cuDNN's deterministic algorithms: whether the runs' losses and
+   parameters are bit-equal, each step's ms and the ops that warn.
 
 The line before the last is the card's name and power limit; the line
 before that holds the kernels' numbers as JSON, and the one before that
@@ -194,6 +214,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 from pathlib import Path
 
@@ -2207,195 +2228,203 @@ def phase_shapes(k):
     where that is TMA, also on the cp.async route (the input one bf16
     element off a 16-byte boundary).  A bf16 forward at each size must
     launch conv3x3_seg as often as those shapes say."""
-    rng = np.random.RandomState(8)
-    gen = torch.Generator(device=DEV).manual_seed(8)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=DEV)
-
     held = {}
 
     def hold(name, ok, what):
         check(ok, "8a " + what)
         held[name] = held.get(name, 0) + 1
 
+    rng = np.random.RandomState(8)
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    bf16_model = k.upflow.build_model(k.UPFlowConfig().updated(BF16_KNOBS),
+                                      weights=str(NPZ))
+    out = {"B=%d %dx%d" % size: hold_frame(k, *size, rng, gen, hold,
+                                           bf16_model, "8a")
+           for size in SHAPE_SIZES}
+    del bf16_model
+    return dict(sizes=out, shapes_held=held)
+
+
+def hold_frame(k, b, h, w, rng, gen, hold, bf16_model, tag):
+    """Phase 8a's checks at one b x h x w frame: each kernel against its
+    plain version at the frame's decode-level shapes (``hold(kernel, ok,
+    what)`` records each), then one bf16 forward of ``bf16_model`` whose
+    conv3x3_seg launches, by route, must be those the shapes say.  The
+    random inputs come from ``rng`` and ``gen``."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+
     def close(got, ref, share):
         err = (got.float() - ref.float()).abs().max().item()
         bar = share * ref.float().abs().max().item()
         return err, bar
 
-    bf16_model = k.upflow.build_model(k.UPFlowConfig().updated(BF16_KNOBS),
-                                      weights=str(NPZ))
-    out = {}
-    for b, h, w in SHAPE_SIZES:
-        size = "B=%d %dx%d" % (b, h, w)
-        levels = pyramid_hw(h, w)
-        for level, (lh, lw) in enumerate(levels):
-            c = PYRAMID_CHS[level]
-            amp = max(2.0, min(40.0, lw / 4))
-            f1 = randn(b, c, lh, lw)
-            f2 = randn(b, c, lh, lw) * 2 + 0.5
-            x32 = randn(b, 32, lh, lw) * 2 + 0.5
-            flow = make_flow(rng, b, lh, lw, amp)
-            for dtype in (torch.float32, torch.bfloat16):
-                dn = str(dtype)[6:]
-                a1, a2 = f1.to(dtype), f2.to(dtype)
-                got = k.corr.correlation(a1, a2)
-                again = k.corr.correlation(a1, a2)
-                err, bar = close(got, k.corr.correlation_plain(a1, a2), 1e-5)
-                route = k.corr.staging_route(lw, a1.element_size(),
-                                             a1.data_ptr(), a2.data_ptr())
-                hold("correlation", err <= bar and torch.equal(got, again),
-                     "%s correlation %s L%d %s (%s staging): max abs err "
-                     "%.3e (bar %.3e), a second call the same bits"
-                     % (size, dn, level, (b, c, lh, lw), route, err, bar))
-                if level == 0:
-                    continue
-                for what, x in (("cost volume", a2), ("SGU", x32.to(dtype))):
-                    warped, mask = k.fw.feature_warp(x, flow, 1.0,
-                                                     with_mask=True)
-                    ref, ref_mask = k.fw.feature_warp_plain(x, flow, 1.0,
-                                                            with_mask=True)
-                    differ = int((warped != ref).sum().item())
-                    flips = int((mask != ref_mask).sum().item())
-                    share = mask.mean().item()
-                    hold("feature_warp", differ == 0 and flips == 0
-                         and 0.0 < share < 1.0,
-                         "%s feature_warp %s %s L%d %s, flow +-%g px: %d "
-                         "values and %d mask bits differ, valid share %.4f"
-                         % (size, dn, what, level, tuple(x.shape), amp,
-                            differ, flips, share))
-                    if what == "SGU":
-                        continue
-                    aff = k.cn.affine_pair(*k.cn.moments(a1, False),
-                                           *k.cn.moments(warped, False),
-                                           NORM_KW)
-                    got = k.cn.corr_norm(a1, warped, aff, 0.1)
-                    again = k.cn.corr_norm(a1, warped, aff, 0.1)
-                    err, bar = close(got, k.cn.corr_norm_plain(
-                        a1, warped, aff, 0.1), 1e-5)
-                    route = k.cn.staging_route(lw, a1.element_size(),
-                                               a1.data_ptr(),
-                                               warped.data_ptr())
-                    hold("corr_norm", err <= bar and torch.equal(got, again),
-                         "%s corr_norm %s L%d %s (%s staging): max abs err "
-                         "%.3e (bar %.3e), a second call the same bits"
-                         % (size, dn, level, (b, c, lh, lw), route, err,
-                            bar))
+    size = "B=%d %dx%d" % (b, h, w)
+    levels = pyramid_hw(h, w)
+    for level, (lh, lw) in enumerate(levels):
+        c = PYRAMID_CHS[level]
+        amp = max(2.0, min(40.0, lw / 4))
+        f1 = randn(b, c, lh, lw)
+        f2 = randn(b, c, lh, lw) * 2 + 0.5
+        x32 = randn(b, 32, lh, lw) * 2 + 0.5
+        flow = make_flow(rng, b, lh, lw, amp)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype)[6:]
+            a1, a2 = f1.to(dtype), f2.to(dtype)
+            got = k.corr.correlation(a1, a2)
+            again = k.corr.correlation(a1, a2)
+            err, bar = close(got, k.corr.correlation_plain(a1, a2), 1e-5)
+            route = k.corr.staging_route(lw, a1.element_size(),
+                                         a1.data_ptr(), a2.data_ptr())
+            hold("correlation", err <= bar and torch.equal(got, again),
+                 "%s correlation %s L%d %s (%s staging): max abs err "
+                 "%.3e (bar %.3e), a second call the same bits"
+                 % (size, dn, level, (b, c, lh, lw), route, err, bar))
             if level == 0:
                 continue
-            flows = [flow, make_flow(rng, b, lh, lw, amp)]
-            pix, rows_, blocks = k.sb.launch_config(2, b, lh, lw)
-            for tier, (amp_u, amp_v) in (("fused", (1.5, 1.5)),
-                                         ("medium", (30.0, 15.0)),
-                                         ("beyond", (300.0, 300.0))):
-                heads = [torch.cat([
-                    (randn(b, 1, lh, lw).clamp(-3, 3) / 3) * amp_u,
-                    (randn(b, 1, lh, lw).clamp(-3, 3) / 3) * amp_v,
-                    randn(b, 1, lh, lw) * 3], dim=1) for _ in range(2)]
-                args = (flows[0], heads[0], flows[1], heads[1])
-                got = k.sb.sgu_blend_pair(*args)
-                ref = k.sb.sgu_blend_pair_plain(*args)
-                differ, ulps = ulp_report(got, ref)
-                masks = [torch.sigmoid(x[:, 2:3]) for x in heads]
-                one = [k.sb.sgu_blend(fl, x[:, :2].contiguous(), m)
-                       for fl, x, m in zip(flows, heads, masks)]
-                one_differ, _ = ulp_report(one, ref)
-                hold("sgu_blend", differ == 0 and one_differ == 0,
-                     "%s sgu_blend L%d %s both directions (%d pixels a "
-                     "thread, %d-row blocks, %d blocks), inter-flow "
-                     "+-%g/+-%g px: %d values differ (max %d ulp), one "
-                     "direction %d" % (size, level, (b, 3, lh, lw), pix,
-                                       rows_, blocks, amp_u, amp_v, differ,
-                                       ulps, one_differ))
-        # the occlusion check's image warp and the final SGU stage at full
-        # resolution
-        flow_src = make_flow(rng, b, h, w, 40.0)
-        flow = make_flow(rng, b, h, w, 40.0)
-        got = k.warp.warp(flow_src, flow)
-        ref = k.warp.warp_plain(flow_src, flow)
+            for what, x in (("cost volume", a2), ("SGU", x32.to(dtype))):
+                warped, mask = k.fw.feature_warp(x, flow, 1.0,
+                                                 with_mask=True)
+                ref, ref_mask = k.fw.feature_warp_plain(x, flow, 1.0,
+                                                        with_mask=True)
+                differ = int((warped != ref).sum().item())
+                flips = int((mask != ref_mask).sum().item())
+                share = mask.mean().item()
+                hold("feature_warp", differ == 0 and flips == 0
+                     and 0.0 < share < 1.0,
+                     "%s feature_warp %s %s L%d %s, flow +-%g px: %d "
+                     "values and %d mask bits differ, valid share %.4f"
+                     % (size, dn, what, level, tuple(x.shape), amp,
+                        differ, flips, share))
+                if what == "SGU":
+                    continue
+                aff = k.cn.affine_pair(*k.cn.moments(a1, False),
+                                       *k.cn.moments(warped, False),
+                                       NORM_KW)
+                got = k.cn.corr_norm(a1, warped, aff, 0.1)
+                again = k.cn.corr_norm(a1, warped, aff, 0.1)
+                err, bar = close(got, k.cn.corr_norm_plain(
+                    a1, warped, aff, 0.1), 1e-5)
+                route = k.cn.staging_route(lw, a1.element_size(),
+                                           a1.data_ptr(),
+                                           warped.data_ptr())
+                hold("corr_norm", err <= bar and torch.equal(got, again),
+                     "%s corr_norm %s L%d %s (%s staging): max abs err "
+                     "%.3e (bar %.3e), a second call the same bits"
+                     % (size, dn, level, (b, c, lh, lw), route, err,
+                        bar))
+        if level == 0:
+            continue
+        flows = [flow, make_flow(rng, b, lh, lw, amp)]
+        pix, rows_, blocks = k.sb.launch_config(2, b, lh, lw)
+        for tier, (amp_u, amp_v) in (("fused", (1.5, 1.5)),
+                                     ("medium", (30.0, 15.0)),
+                                     ("beyond", (300.0, 300.0))):
+            heads = [torch.cat([
+                (randn(b, 1, lh, lw).clamp(-3, 3) / 3) * amp_u,
+                (randn(b, 1, lh, lw).clamp(-3, 3) / 3) * amp_v,
+                randn(b, 1, lh, lw) * 3], dim=1) for _ in range(2)]
+            args = (flows[0], heads[0], flows[1], heads[1])
+            got = k.sb.sgu_blend_pair(*args)
+            ref = k.sb.sgu_blend_pair_plain(*args)
+            differ, ulps = ulp_report(got, ref)
+            masks = [torch.sigmoid(x[:, 2:3]) for x in heads]
+            one = [k.sb.sgu_blend(fl, x[:, :2].contiguous(), m)
+                   for fl, x, m in zip(flows, heads, masks)]
+            one_differ, _ = ulp_report(one, ref)
+            hold("sgu_blend", differ == 0 and one_differ == 0,
+                 "%s sgu_blend L%d %s both directions (%d pixels a "
+                 "thread, %d-row blocks, %d blocks), inter-flow "
+                 "+-%g/+-%g px: %d values differ (max %d ulp), one "
+                 "direction %d" % (size, level, (b, 3, lh, lw), pix,
+                                   rows_, blocks, amp_u, amp_v, differ,
+                                   ulps, one_differ))
+    # the occlusion check's image warp and the final SGU stage at full
+    # resolution
+    flow_src = make_flow(rng, b, h, w, 40.0)
+    flow = make_flow(rng, b, h, w, 40.0)
+    got = k.warp.warp(flow_src, flow)
+    ref = k.warp.warp_plain(flow_src, flow)
+    err = (got - ref).abs().max().item()
+    hold("warp", err <= 1e-6,
+         "%s warp %s, flow +-40 px: max abs err %.3e, %d of %d values "
+         "differ" % (size, tuple(flow_src.shape), err,
+                     int((got != ref).sum().item()), got.numel()))
+    hq, wq = levels[4]
+    flow_q = make_flow(rng, b, hq, wq, 10.0)
+    for amp in (0.4, 9.0, 75.0):
+        x_out = torch.cat([randn(b, 2, hq, wq).clamp(-3, 3) / 3 * amp,
+                           randn(b, 1, hq, wq) * 3], dim=1)
+        got = k.sf.sgu_final(flow_q, x_out, (h, w))
+        ref = k.sf.sgu_final_plain(flow_q, x_out, (h, w))
         err = (got - ref).abs().max().item()
-        hold("warp", err <= 1e-6,
-             "%s warp %s, flow +-40 px: max abs err %.3e, %d of %d values "
-             "differ" % (size, tuple(flow_src.shape), err,
-                         int((got != ref).sum().item()), got.numel()))
-        hq, wq = levels[4]
-        flow_q = make_flow(rng, b, hq, wq, 10.0)
-        for amp in (0.4, 9.0, 75.0):
-            x_out = torch.cat([randn(b, 2, hq, wq).clamp(-3, 3) / 3 * amp,
-                               randn(b, 1, hq, wq) * 3], dim=1)
-            got = k.sf.sgu_final(flow_q, x_out, (h, w))
-            ref = k.sf.sgu_final_plain(flow_q, x_out, (h, w))
-            err = (got - ref).abs().max().item()
-            hold("sgu_final", tuple(got.shape) == (b, 2, h, w)
-                 and err <= 1e-4,
-                 "%s sgu_final %s -> %s (tile %dx%d, %s stores), "
-                 "inter-flow +-%g px: max abs err %.3e px (<= 1e-4)"
-                 % (size, tuple(x_out.shape), (b, 2, h, w),
-                    k.sf.tile_rows(b, h, w), k.sf.TILE_W,
-                    "16-byte" if w % 4 == 0 else "4-byte", amp, err))
-        # conv3x3_seg at every conv shape of the bf16 forward at this size
-        routes = {"tma": 0, "cp.async": 0}
-        for what, cb, ch, cw, cin, cout, d, relu, per_forward, buf in \
-                conv_shapes(b, (h, w), ragged=False):
-            weight = randn(cout, cin, 3, 3) * (2.0 / (9 * cin)) ** 0.5
-            bias = randn(cout) * 0.1
-            for offset in (0, 1):
-                chans = cin if buf is None else buf[0]
-                flat = torch.empty(cb * chans * ch * cw + offset,
-                                   dtype=torch.bfloat16, device=DEV)
-                full = flat[offset:].view(cb, chans, ch, cw)
-                full.copy_(randn(cb, chans, ch, cw))
-                if buf is None:
-                    x = full
-                    dst = torch.empty((cb, cout, ch, cw),
-                                      dtype=torch.bfloat16, device=DEV)
-                else:
-                    x = full[:, buf[1]:buf[1] + cin]
-                    dst = (full[:, buf[1] - cout:buf[1]] if buf[1] >= cout
-                           else torch.empty((cb, cout, ch, cw),
-                                            dtype=torch.bfloat16,
-                                            device=DEV))
-                route = k.seg.staging_route(cw, x.stride(0), x.data_ptr())
-                if offset == 0:
-                    routes[route] += per_forward
-                before = dict(k.seg.conv3x3_seg.route_launches)
-                ref = k.seg.conv3x3_seg_plain(x, weight, bias, d,
-                                              relu).float()
-                got = k.seg.conv3x3_seg(x, weight, bias, d, relu,
-                                        out=dst).float()
-                ran = {r: n - before[r]
-                       for r, n in k.seg.conv3x3_seg.route_launches.items()}
-                _, stats = conv_agreement(got, ref)
-                hold("conv3x3_seg", stats[0] and ran[route] == 1
-                     and sum(ran.values()) == 1,
-                     "%s conv3x3_seg %s (%d, %d->%d, %dx%d, d=%d), %s route%s "
-                     "(launches %s): %s"
-                     % (size, what, cb, cin, cout, ch, cw, d, route,
-                        " (forced, input 2 bytes off)" if offset else "",
-                        ran, stats[1]))
-                if offset == 0 and route != "tma":
-                    break
-        # a bf16 forward at this size launches conv3x3_seg where the shapes
-        # say, by these routes
-        im1, im2 = textured_pair(b, h, w, seed=b * h + w)
-        launches_from_zero(k)
-        before = dict(k.seg.conv3x3_seg.route_launches)
-        k.upflow.forward(bf16_model, im1, im2)
-        got, _ = launch_counts(k)
-        ran = {r: n - before[r]
-               for r, n in k.seg.conv3x3_seg.route_launches.items()}
-        want = sum(routes.values())
-        check(got["conv3x3_seg"] == want and ran == routes,
-              "8a %s bf16 forward: conv3x3_seg launched %d times by route "
-              "%s (the shapes above: %d, %s)"
-              % (size, got["conv3x3_seg"], ran, want, routes))
-        out[size] = dict(conv3x3_seg_route_launches=ran,
-                         levels=["%dx%d" % hw for hw in levels])
-        print("  info 8a %s: decode levels %s, conv3x3_seg routes of a bf16 "
-              "forward %s" % (size, out[size]["levels"], ran), flush=True)
-    del bf16_model
-    return dict(sizes=out, shapes_held=held)
+        hold("sgu_final", tuple(got.shape) == (b, 2, h, w)
+             and err <= 1e-4,
+             "%s sgu_final %s -> %s (tile %dx%d, %s stores), "
+             "inter-flow +-%g px: max abs err %.3e px (<= 1e-4)"
+             % (size, tuple(x_out.shape), (b, 2, h, w),
+                k.sf.tile_rows(b, h, w), k.sf.TILE_W,
+                "16-byte" if w % 4 == 0 else "4-byte", amp, err))
+    # conv3x3_seg at every conv shape of the bf16 forward at this size
+    routes = {"tma": 0, "cp.async": 0}
+    for what, cb, ch, cw, cin, cout, d, relu, per_forward, buf in \
+            conv_shapes(b, (h, w), ragged=False):
+        weight = randn(cout, cin, 3, 3) * (2.0 / (9 * cin)) ** 0.5
+        bias = randn(cout) * 0.1
+        for offset in (0, 1):
+            chans = cin if buf is None else buf[0]
+            flat = torch.empty(cb * chans * ch * cw + offset,
+                               dtype=torch.bfloat16, device=DEV)
+            full = flat[offset:].view(cb, chans, ch, cw)
+            full.copy_(randn(cb, chans, ch, cw))
+            if buf is None:
+                x = full
+                dst = torch.empty((cb, cout, ch, cw),
+                                  dtype=torch.bfloat16, device=DEV)
+            else:
+                x = full[:, buf[1]:buf[1] + cin]
+                dst = (full[:, buf[1] - cout:buf[1]] if buf[1] >= cout
+                       else torch.empty((cb, cout, ch, cw),
+                                        dtype=torch.bfloat16,
+                                        device=DEV))
+            route = k.seg.staging_route(cw, x.stride(0), x.data_ptr())
+            if offset == 0:
+                routes[route] += per_forward
+            before = dict(k.seg.conv3x3_seg.route_launches)
+            ref = k.seg.conv3x3_seg_plain(x, weight, bias, d,
+                                          relu).float()
+            got = k.seg.conv3x3_seg(x, weight, bias, d, relu,
+                                    out=dst).float()
+            ran = {r: n - before[r]
+                   for r, n in k.seg.conv3x3_seg.route_launches.items()}
+            _, stats = conv_agreement(got, ref)
+            hold("conv3x3_seg", stats[0] and ran[route] == 1
+                 and sum(ran.values()) == 1,
+                 "%s conv3x3_seg %s (%d, %d->%d, %dx%d, d=%d), %s route%s "
+                 "(launches %s): %s"
+                 % (size, what, cb, cin, cout, ch, cw, d, route,
+                    " (forced, input 2 bytes off)" if offset else "",
+                    ran, stats[1]))
+            if offset == 0 and route != "tma":
+                break
+    # a bf16 forward at this size launches conv3x3_seg where the shapes
+    # say, by these routes
+    im1, im2 = textured_pair(b, h, w, seed=b * h + w)
+    launches_from_zero(k)
+    before = dict(k.seg.conv3x3_seg.route_launches)
+    k.upflow.forward(bf16_model, im1, im2)
+    got, _ = launch_counts(k)
+    ran = {r: n - before[r]
+           for r, n in k.seg.conv3x3_seg.route_launches.items()}
+    want = sum(routes.values())
+    check(got["conv3x3_seg"] == want and ran == routes,
+          "%s %s bf16 forward: conv3x3_seg launched %d times by route "
+          "%s (the shapes above: %d, %s)"
+          % (tag, size, got["conv3x3_seg"], ran, want, routes))
+    names = ["%dx%d" % hw for hw in levels]
+    print("  info %s %s: decode levels %s, conv3x3_seg routes of a bf16 "
+          "forward %s" % (tag, size, names, ran), flush=True)
+    return dict(conv3x3_seg_route_launches=ran, levels=names)
 
 
 def phase_native(k, root, tmp):
@@ -3763,6 +3792,392 @@ def phase_spatial(k, tmp):
     return out
 
 
+# --- phase 11: the port's bench and its batch sweep ------------------------
+# the bench's pairs are phase 5's b4_384x1280, whose JAX interior EPE is
+# in JAX_REFERENCE; the fused A/B may exceed the chaos floor by AB_BAR px
+BENCH_REFERENCE = "b4_384x1280"
+AB_BAR = 0.02
+SWEEP_BATCHES = (4, 8, 16)
+# the bench's forward is the network without the occlusion check (as the
+# JAX bench applies it): phase 3's bf16 counts less the check's two warps
+BENCH_LAUNCHES_PER_FORWARD = dict(BF16_LAUNCHES_PER_FORWARD, warp=0)
+# the fused A/B's off side: the fp32 forward with every feature warp on
+# its plain version (phase 3's SGU counts, less the check's two warps)
+AB_OFF_LAUNCHES = dict(SGU_LAUNCHES_PER_FORWARD, warp=0, feature_warp=0)
+AB_OFF_PLAIN_CALLS = {n: (SGU_LAUNCHES_PER_FORWARD["feature_warp"]
+                          if n == "feature_warp" else 0)
+                      for n in SGU_LAUNCHES_PER_FORWARD}
+# frames that earlier phases hold every kernel at: phase 2's, phase 8a's
+HELD_FRAMES = {(MAIN_B, MAIN_H, MAIN_W), *SHAPE_SIZES}
+# the JAX bench's keys, less "degraded", and the port's additions
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline",
+              "sgu_fallback_pairs_per_sec", "loop_dispatch_overhead_s",
+              "weights", "epe_vs_gt_bf16_px", "epe_vs_gt_fp32_px",
+              "bf16_vs_fp32_mean_epe_px", "bf16_vs_fp32_frac_gt_1px",
+              "bf16_vs_fp32_max_epe_px", "fused_on_off_fp32_mean_epe_px",
+              "chaos_floor_fp32_mean_epe_px",
+              "train_pairs_per_sec_fp32_256x832", "device", "power_limit",
+              "batch", "hw", "iters")
+BENCH_RATES = ("value", "sgu_fallback_pairs_per_sec",
+               "train_pairs_per_sec_fp32_256x832")
+REPRO_STEPS = 2  # uninterrupted fp32 steps a run of 11c
+
+
+def positive(x) -> bool:
+    return isinstance(x, (int, float)) and bool(np.isfinite(x)) and x > 0
+
+
+def zero_counts(k) -> None:
+    for fn in k.dispatch.values():
+        fn.launches = 0
+    for fn in k.plain.values():
+        fn.cuda_calls = 0
+
+
+def bench_launches(k):
+    """11a: one chained forward of the bench launches phase 3's kernels of
+    its path, no plain version, and, besides the network's own device
+    kernels, only the chain's ops; one step of the bench's train lane
+    launches phase 6's fp32 counts (the image warp among them)."""
+    hb = k.headline
+    model, _ = hb.load_model(hb.CONF, DEV)
+    im1, im2 = (hb.as_nchw(x, DEV) for x in textured_pair(
+        MAIN_B, MAIN_H, MAIN_W, 31))
+    run = hb.chained_loop(model, im1, im2, 1)
+    run(0.0)  # packs the weights, fills the caches
+    zero_counts(k)
+    run(1.0)
+    torch.cuda.synchronize()
+    launched = {n: fn.launches for n, fn in k.dispatch.items()}
+    plain_calls = {n: fn.cuda_calls for n, fn in k.plain.items()}
+    check(launched == BENCH_LAUNCHES_PER_FORWARD
+          and not any(plain_calls.values()),
+          "11a one bench forward (bf16, B=4 384x1280): launches %s (phase "
+          "3's bf16 counts less the occlusion check's 2 warps), plain "
+          "calls on CUDA tensors %s" % (launched, plain_calls))
+    # device kernels, each a difference of two profiler windows that start
+    # (and end) alike: in a long process the profiler misses a window's
+    # first or last few dozen device events, as many in both windows; and
+    # now and then a whole window's (phase 2 retries for it), so each
+    # window's count is the largest of DEVICE_MS_ATTEMPTS
+    def count(*fns):
+        def window():
+            for fn in fns:
+                fn()
+        return max(k.cli["wall"].kernel_count(window)[0]
+                   for _ in range(DEVICE_MS_ATTEMPTS))
+
+    acc = im1.new_zeros(())
+    flow = torch.zeros_like(im1[:, :2])
+
+    def forward():
+        hb.forward_flow(model, im1, im2)
+
+    def chain_ops():
+        hb.accumulate(acc, hb.chain_input(im1, acc)[:, :2], flow)
+
+    one = count(lambda: run(2.0))
+    two = count(lambda: hb.chained_loop(model, im1, im2, 2)(3.0))
+    base = count(forward)
+    alone = count(forward, forward) - base
+    chain = count(forward, chain_ops) - base
+    check(two - one == alone + chain,
+          "11a device kernels of one chained forward %d = the network's "
+          "%d + the chain's %d (the perturbed input, two sums, two adds; "
+          "windows: loops of one and two %d, %d; a forward %d)"
+          % (two - one, alone, chain, one, two, base))
+    del model, run
+
+    # the A/B's off side reaches every feature warp of the model: each runs
+    # the plain version on the card, the kernel none
+    model, _ = hb.load_model(hb.CONF_AB, DEV)
+    zero_counts(k)
+    with hb.plain_feature_warp():
+        hb.forward_flow(model, im1, im2)
+    torch.cuda.synchronize()
+    ab_launched = {n: fn.launches for n, fn in k.dispatch.items()}
+    ab_plain = {n: fn.cuda_calls for n, fn in k.plain.items()}
+    check(ab_launched == AB_OFF_LAUNCHES and ab_plain == AB_OFF_PLAIN_CALLS,
+          "11a the fused A/B's off side (fp32, plain_feature_warp): "
+          "launches %s, plain calls on CUDA tensors %s (want %s, %s)"
+          % (ab_launched, ab_plain, AB_OFF_LAUNCHES, AB_OFF_PLAIN_CALLS))
+    del model
+
+    model, state, opt = k.step.create_train_state(hb.TRAIN_CONF,
+                                                  k.TrainerConfig())
+    step_fn = k.step.make_train_step(model, opt)
+    batch = train_batch(k)
+    zero_counts(k)
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    got = {n: fn.launches for n, fn in k.dispatch.items()}
+    plain_calls = {n: fn.cuda_calls for n, fn in k.plain.items()}
+    check(got == SGU_LAUNCHES_PER_FORWARD and not any(plain_calls.values()),
+          "11a one step of the bench's train lane (fp32, B=4 256x832): "
+          "launches %s, plain calls on CUDA tensors %s"
+          % (got, plain_calls))
+    return dict(forward_launches=launched, train_step_launches=got,
+                ab_off_launches=ab_launched, ab_off_plain_calls=ab_plain,
+                device_kernels=dict(chained_forward=two - one,
+                                    network=alone, chain=chain))
+
+
+def hold_bench(k, result, ref_epe):
+    """11b's gates on the bench's JSON line."""
+    missing = [key for key in BENCH_KEYS if key not in result]
+    check(not missing and "degraded" not in result,
+          "11b bench line has every key (missing %s), no 'degraded'"
+          % missing)
+    check(result.get("device") == nvidia_smi_line().split(",")[0].strip()
+          and result.get("unit") == "pairs/sec/gpu",
+          "11b bench line names the card: %s, %s, unit %s"
+          % (result.get("device"), result.get("power_limit"),
+             result.get("unit")))
+    for key in BENCH_RATES:
+        check(positive(result.get(key)),
+              "11b %s = %s is finite and > 0" % (key, result.get(key)))
+    for key in ("epe_vs_gt_bf16_px", "epe_vs_gt_fp32_px"):
+        v = result.get(key)
+        check(positive(v) and abs(v - ref_epe) <= EPE_BAR,
+              "11b %s %s within %g px of the JAX package's %.4f"
+              % (key, v, EPE_BAR, ref_epe))
+    ab = result.get("fused_on_off_fp32_mean_epe_px")
+    floor = result.get("chaos_floor_fp32_mean_epe_px")
+    check(isinstance(ab, float) and isinstance(floor, float)
+          and ab <= floor + AB_BAR,
+          "11b fused A/B %s px <= chaos floor %s px + %g"
+          % (ab, floor, AB_BAR))
+    median = result.get("sgu_fallback_median_inter_flow_px")
+    halo = k.headline.SGU_HALO_PX
+    check(isinstance(median, float) and median > halo,
+          "11b out-of-halo lane: SGU head x %s, final stage's median "
+          "inter-flow %s px beyond the %d-px halo; %s against %s pairs/s"
+          % (result.get("sgu_fallback_head_scale"), median, halo,
+             result.get("sgu_fallback_pairs_per_sec"), result.get("value")))
+
+
+def hold_sweep(summary):
+    """11b's gates on the sweep's summary."""
+    rates = summary.get("sweep", {})
+    peaks = summary.get("peak_memory_gib", {})
+    check(sorted(rates) == list(SWEEP_BATCHES)
+          and all(positive(v) for v in rates.values())
+          and all(positive(peaks.get(b)) for b in SWEEP_BATCHES)
+          and summary.get("best_batch") in SWEEP_BATCHES,
+          "11b sweep: pairs/s %s, peak GiB %s, best batch %s"
+          % ({b: round(v, 2) for b, v in rates.items()},
+             peaks,
+             summary.get("best_batch")))
+
+
+def quantile_999(d: torch.Tensor) -> float:
+    """The 99.9th percentile of the flat ``d`` (``torch.quantile``'s linear
+    rule; it refuses more than 2**24 values, which B=16 flows exceed)."""
+    s = d.double().sort().values
+    pos = 0.999 * (s.numel() - 1)
+    lo = int(pos)
+    hi = min(lo + 1, s.numel() - 1)
+    return (s[lo] + (s[hi] - s[lo]) * (pos - lo)).item()
+
+
+def hold_sweep_frames(k):
+    """11b: the sweep's batches at the kernels and end to end.  At each
+    batch of ``SWEEP_BATCHES`` that no earlier phase holds, phase 8a's
+    checks (``hold_frame``) at B x 384x1280; then at every batch, one
+    forward of the sweep's model on the sweep's pairs launches
+    ``BENCH_LAUNCHES_PER_FORWARD`` and no plain version, and its flows
+    agree with the plain path's (every kernel on its plain version, none
+    launched) under the bf16 path's ``AGREEMENT`` bars at phase 3's
+    relaxed threshold."""
+    hb = k.headline
+    held = {}
+
+    def hold(name, ok, what):
+        check(ok, "11b " + what)
+        held[name] = held.get(name, 0) + 1
+
+    rng = np.random.RandomState(11)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    model, _ = hb.load_model(hb.CONF, DEV)
+    frames = {"B=%d %dx%d" % (b, MAIN_H, MAIN_W): hold_frame(
+        k, b, MAIN_H, MAIN_W, rng, gen, hold, model, "11b")
+        for b in SWEEP_BATCHES if (b, MAIN_H, MAIN_W) not in HELD_FRAMES}
+    torch.cuda.empty_cache()
+    data = hb.render_pairs(max(SWEEP_BATCHES), 7, (MAIN_H, MAIN_W))
+    mean_bar, p999_bar, _ = AGREEMENT["sgu-bf16"]
+    forwards = {}
+    saved = k.warp_ops.MASK_THRESHOLD
+    k.warp_ops.MASK_THRESHOLD = RELAXED_THRESHOLD
+    try:
+        for b in SWEEP_BATCHES:
+            im1, im2 = (hb.as_nchw(data[key][:b], DEV)
+                        for key in ("im1", "im2"))
+            with torch.no_grad(), k.upflow.fp32_numerics():
+                zero_counts(k)
+                got = model(im1, im2)[:2]
+                torch.cuda.synchronize()
+                launched = {n: fn.launches for n, fn in k.dispatch.items()}
+                plain_calls = sum(fn.cuda_calls for fn in k.plain.values())
+                with plain_path(k):
+                    zero_counts(k)
+                    ref = model(im1, im2)[:2]
+                    torch.cuda.synchronize()
+                plain_launches = sum(fn.launches
+                                     for fn in k.dispatch.values())
+                plain_ran = sum(fn.cuda_calls for fn in k.plain.values())
+            d = torch.cat([(x.float() - y.float()).abs().flatten()
+                           for x, y in zip(got, ref)])
+            mean, p999 = d.mean().item(), quantile_999(d)
+            check(launched == BENCH_LAUNCHES_PER_FORWARD and plain_calls == 0
+                  and plain_launches == 0 and plain_ran > 0
+                  and mean < mean_bar and p999 < p999_bar,
+                  "11b sweep forward B=%d %dx%d: launches %s, plain calls "
+                  "%d; the plain path launched %d kernels, %d plain calls; "
+                  "at threshold %g |flow - plain flow| mean %.3e px (< %g), "
+                  "p99.9 %.3e px (< %g)"
+                  % (b, MAIN_H, MAIN_W, launched, plain_calls,
+                     plain_launches, plain_ran, RELAXED_THRESHOLD, mean,
+                     mean_bar, p999, p999_bar))
+            forwards[b] = dict(launches=launched, mean_px=mean,
+                               p999_px=p999)
+            del im1, im2, got, ref, d
+    finally:
+        k.warp_ops.MASK_THRESHOLD = saved
+    del model
+    return dict(frames=frames, shapes_held=held, forwards=forwards)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` and
+    cuDNN's deterministic algorithms for the block, the caller's settings
+    restored after it."""
+    cudnn = torch.backends.cudnn
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        cudnn.deterministic = saved[2]
+
+
+def repro_run(k, conf, batch):
+    """``REPRO_STEPS`` uninterrupted fp32 steps from the checkpoint: the
+    steps' metrics, the parameters after them and each step's ms."""
+    model, state, opt = k.step.create_train_state(conf, k.TrainerConfig(),
+                                                  weights=str(NPZ))
+    step_fn = k.step.make_train_step(model, opt)
+    metrics, ms = [], []
+    for _ in range(REPRO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({key: v.clone() for key, v in m.items()})
+    return metrics, {n: p.detach().clone()
+                     for n, p in model.named_parameters()}, ms
+
+
+def phase_repro(k):
+    """11c: is card training reproducible run to run?  Two runs of
+    ``REPRO_STEPS`` fp32 steps of phase 6's recipe from the checkpoint,
+    first as the port runs them, then under ``deterministic_algorithms``:
+    whether the two runs' losses and parameters are bit-equal, each
+    step's ms, and the ops that warn for want of a deterministic kernel.
+    A measurement: no package default changes."""
+    conf = k.UPFlowConfig().updated(TRAIN_KNOBS)
+    batch = train_batch(k)
+    out = {}
+    for mode in ("default", "deterministic"):
+        ctx = (deterministic_algorithms() if mode == "deterministic"
+               else contextlib.nullcontext())
+        with ctx, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if mode == "deterministic":
+                # ops without a deterministic CUDA kernel: their warnings
+                # show that the record sees such warnings at all
+                torch.bincount(torch.zeros(4, dtype=torch.long, device=DEV),
+                               weights=torch.ones(4, device=DEV))
+                torch.kthvalue(torch.arange(4.0, device=DEV), 2)
+                probe = [str(w.message)[:60] for w in caught]
+                del caught[:]
+                check(len(probe) > 0, "11c the warning record sees the "
+                      "warnings of bincount and kthvalue on the card: %s"
+                      % probe)
+            runs = [repro_run(k, conf, batch) for _ in range(2)]
+        (ma, pa, msa), (mb, pb, msb) = runs
+        losses_equal = all(torch.equal(a[key], b[key])
+                           for a, b in zip(ma, mb) for key in a)
+        params_equal = all(torch.equal(pa[n], pb[n]) for n in pa)
+        rel = max(abs(float(a["total_loss"]) - float(b["total_loss"]))
+                  / abs(float(b["total_loss"])) for a, b in zip(ma, mb))
+        warned = sorted({"%s:%d: %s" % (
+            os.path.relpath(w.filename, ROOT) if w.filename.startswith(
+                str(ROOT)) else w.filename, w.lineno,
+            str(w.message).split(" does not have")[0][:120])
+            for w in caught if "determinis" in str(w.message)})
+        losses = [[float(m["total_loss"]) for m in run] for run in
+                  (ma, mb)]
+        check(all(np.isfinite(v) for run in losses for v in run),
+              "11c %s: two runs of %d fp32 steps, total losses %s"
+              % (mode, REPRO_STEPS, losses))
+        print("  info 11c %s: losses bit-equal %s (largest relative "
+              "difference %.3e), parameters bit-equal %s; step ms %s; ops "
+              "that warn: %s"
+              % (mode, losses_equal, rel, params_equal,
+                 [round(v, 1) for v in msa + msb], warned or "none"))
+        out[mode] = dict(losses_bit_equal=losses_equal,
+                         params_bit_equal=params_equal,
+                         max_rel_loss_diff=rel, total_losses=losses,
+                         step_ms=msa + msb, warned=warned)
+        del runs
+    return out
+
+
+def phase_bench(k):
+    """Phase 11: the port's bench at its defaults, then the sweep at
+    ``SWEEP_BATCHES``, then 11c; prints one JSON line."""
+    t0 = time.perf_counter()
+    out = {"11a": bench_launches(k)}
+    out["11a_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    ref = json.loads(JAX_REFERENCE.read_text())["requests"][BENCH_REFERENCE]
+    print("phase 11b: python -m upflow_pytorch_tpu_torch.bench", flush=True)
+    t1 = time.perf_counter()
+    result = k.headline.main([])
+    out["bench_s"] = time.perf_counter() - t1
+    hold_bench(k, result, ref["epe_interior"])
+    torch.cuda.empty_cache()
+    print("phase 11b: scripts/torch_bench_batch_sweep.py batches=%s"
+          % ",".join(map(str, SWEEP_BATCHES)), flush=True)
+    t1 = time.perf_counter()
+    summary = k.cli["sweep"].main(["batches=%s" % ",".join(
+        map(str, SWEEP_BATCHES))])
+    out["sweep_s"] = time.perf_counter() - t1
+    hold_sweep(summary)
+    torch.cuda.empty_cache()
+    print("phase 11b: the sweep's batches against the plain versions",
+          flush=True)
+    t1 = time.perf_counter()
+    out["sweep_held"] = hold_sweep_frames(k)
+    out["sweep_held_s"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    print("phase 11c: reproducibility of two fp32 steps", flush=True)
+    out["11c"] = phase_repro(k)
+    out["seconds"] = time.perf_counter() - t0
+    print("  info phase 11 took %.1f s (11a %.1f s, bench %.1f s, sweep %.1f "
+          "s, its batches held %.1f s)"
+          % (out["seconds"], out["11a_s"], out["bench_s"], out["sweep_s"],
+             out["sweep_held_s"]), flush=True)
+    print(json.dumps({"phase_11": out}), flush=True)
+    return out
+
+
 class Port:
     """The port's modules, imported once the card is known to be there."""
 
@@ -3793,10 +4208,13 @@ class Port:
         from upflow_pytorch_tpu_torch.data import (
             flow_io, kitti, native, pipeline, sintel)
         sys.path.insert(0, str(ROOT / "scripts"))
+        import torch_bench_batch_sweep
+        import torch_forward_wall
         import torch_kitti_eval
         import torch_synthetic_trees
         import torch_train_kitti
         import torch_train_sintel
+        from upflow_pytorch_tpu_torch import bench as headline
 
         self.build, self.UPFlowConfig = _build, UPFlowConfig
         self.step, self.TrainerConfig = step, TrainerConfig
@@ -3810,11 +4228,14 @@ class Port:
             npz_io, state_io, torch_import)
         self.flow_io, self.native, self.pipeline = flow_io, native, pipeline
         self.kitti, self.sintel, self.demo = kitti, sintel, demo
+        self.headline = headline  # the port's bench
         # the port's dataset CLIs and the synthetic trees' writer
         self.cli = {"kitti_eval": torch_kitti_eval,
                     "train_kitti": torch_train_kitti,
                     "train_sintel": torch_train_sintel,
-                    "trees": torch_synthetic_trees}
+                    "trees": torch_synthetic_trees,
+                    "sweep": torch_bench_batch_sweep,
+                    "wall": torch_forward_wall}
         self.dispatch = {"correlation": corr.correlation,
                          "feature_warp": fw.feature_warp,
                          "corr_norm": cn.corr_norm, "warp": warp.warp,
@@ -3863,7 +4284,7 @@ BF16_ROWS = ("conv3x3_seg", "correlation_bf16", "feature_warp_bf16",
              "corr_norm_bf16", "sgu_blend_bf16")
 
 
-def kernels_line(rows, launches, one_rank, spatial):
+def kernels_line(rows, launches, one_rank, spatial, bench):
     """One entry per kernel and row; times are per forward at B=4,
     384x1280 on the SGU path (the bf16 rows on the bf16 SGU path): the sum
     over the kernel's calls in one forward (two directions per level);
@@ -3875,7 +4296,11 @@ def kernels_line(rows, launches, one_rank, spatial):
     on a rank's columns (the warp kernels at a column offset, the others
     on windows), and
     ``width_sharded_launches`` a forward's launches on rank 0 of phase
-    10b at that path's precision (B=2 384x1280)."""
+    10b at that path's precision (B=2 384x1280); ``bench_launches`` a
+    chained forward's of the port's bench (bf16 rows) or one step's of
+    its train lane (fp32 rows), phase 11a; ``sweep_cases`` the cases 11b
+    held the kernel at (both precisions) at the sweep's batches that no
+    earlier phase holds (B=8 and 16, 384x1280)."""
     out = []
     for name, shapes in rows.items():
         def total(key):
@@ -3899,6 +4324,11 @@ def kernels_line(rows, launches, one_rank, spatial):
             bound_by=by, library_ms=lib, device_ms=total("device_ms"),
             library_device_ms=total("library_device_ms"), per_call=shapes))
         out[-1]["width_cases"] = spatial.get("10a", {}).get(name, 0)
+        out[-1]["bench_launches"] = bench["11a"][
+            "forward_launches" if path == "sgu-bf16"
+            else "train_step_launches"][SERVED_BY.get(name, name)]
+        out[-1]["sweep_cases"] = bench["sweep_held"]["shapes_held"].get(
+            SERVED_BY.get(name, name), 0)
         sharded = spatial.get("10b", {}).get("%s b2_384x1280" % path)
         out[-1]["width_sharded_launches"] = (
             None if sharded is None
@@ -3983,11 +4413,14 @@ def main(argv) -> int:
         print("  info phase 9 took %.1f s" % (time.perf_counter() - t0))
         print("phase 10: width sharding on the card", flush=True)
         spatial = phase_spatial(k, Path(tmp))
+    print("phase 11: the port's bench and its batch sweep", flush=True)
+    bench = phase_bench(k)
 
     print(json.dumps({"forward_ms": timing,
                       "device_kernels_per_forward": kernels_per_forward}))
     print(json.dumps({"train": train}))
-    print(json.dumps(kernels_line(rows, launches, parallel["9a"], spatial)))
+    print(json.dumps(kernels_line(rows, launches, parallel["9a"], spatial,
+                                  bench)))
     print(smi)
     if failures:
         print("chip_smoke: %d check(s) failed:\n  %s"
