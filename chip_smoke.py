@@ -58,7 +58,8 @@ Phases, each of which must pass:
    recipe of the JAX package's ``bench.py`` (photometric, census,
    smoothness, 'upup' distillation, SGU, boundary-dilated warp) and
    ``make_train_step`` on B=4 256x832 crops of 320x896 synthetic pairs,
-   at fp32 (one warm-up step and 5 timed) and bf16 (one and 3).  Every
+   at fp32 (one warm-up step and 5 timed) and bf16 (one and 3), each
+   under the package's deterministic algorithms.  Every
    step's forward launches every kernel of the path (at bf16 ``conv3x3_
    seg`` included, with one weight pack per kernel-route conv a step, as
    the optimizer's update changes the weights), no plain version runs on
@@ -77,9 +78,11 @@ Phases, each of which must pass:
    evaluating phase 5's two B=1 375x1242 pairs padded to multiples of 64:
    run A trains to step 2 (one eval line, one checkpoint), run B resumes
    it in a fresh ``Trainer`` (step 2, loader cursor (1, 0)) and trains to
-   step 4, run C trains 0 -> 4 in another directory.  B's total and
-   equivariance losses at steps 3 and 4 must be within 1e-4 relative of
-   C's and its parameters' cosine with C's >= 0.99999; every step launches
+   step 4, run C trains 0 -> 4 in another directory.  B's step 3 must
+   equal A's uninterrupted step 3 bit for bit, B's parameters and
+   optimizer state after step 4 C's, and A's and B's losses C's at every
+   step (the step is deterministic; the cosine of B's parameters with
+   C's is printed); every step launches
    the teacher forward's kernels and the student forward's (no occlusion
    warp), every term is finite and the equivariance loss positive, no
    plain version runs on a CUDA tensor.  It prints the step's ms, run C's
@@ -137,7 +140,10 @@ Phases, each of which must pass:
    relative of one process at B=4, and at 0.9999 every loss term within
    1e-5 and the gradient's cosine >= 0.9999; the ranks' losses,
    gradients and parameters equal bit for bit,
-   every kernel of the path launched on both.  (c)
+   every kernel of the path launched on both; at threshold 1.0 each rank
+   runs the two steps a second time from the checkpoint and prints
+   whether the losses and parameters equal the first run's (a reading,
+   not a gate).  (c)
    ``scripts/torch_train_kitti.py`` in torchrun's one-rank environment
    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_*) for 2 steps: it joins a NCCL
    group of one, launches every kernel of the path and leaves the group.
@@ -184,11 +190,14 @@ Phases, each of which must pass:
    the same pairs), the fused A/B at most the chaos floor + 0.02 px, the
    out-of-halo lane's median inter-flow beyond the 40-px halo; then the
    sweep at B = 4, 8, 16 prints a line a batch (with its peak memory) and
-   its summary.  (c) Two runs of two uninterrupted fp32 steps of phase
-   6's recipe from the checkpoint, as the port runs them and under
-   ``torch.use_deterministic_algorithms(True, warn_only=True)`` with
-   cuDNN's deterministic algorithms: whether the runs' losses and
-   parameters are bit-equal, each step's ms and the ops that warn.
+   its summary.  (c) Training is reproducible: two runs of five
+   uninterrupted steps of ``make_train_step`` from the checkpoint, at
+   fp32 and bf16 with phase 6's recipe and at fp32 with the equivariance
+   pass and with the SSIM loss, must give bit-equal losses and
+   parameters; a run between them
+   with the package's ``deterministic_numerics`` replaced by a null
+   context times what determinism costs (median step ms both ways, the
+   ratio, peak memory); ``bincount`` with weights must raise under the manager.
 
 The line before the last is the card's name and power limit; the line
 before that holds the kernels' numbers as JSON, and the one before that
@@ -214,7 +223,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 import zlib
 from pathlib import Path
 
@@ -1697,10 +1705,10 @@ def phase_train(k):
 # 256x832 crops of 8 synthetic pairs, evaluating on phase 5's two B=1
 # 375x1242 pairs (padded to multiples of 64) at every two-step epoch: run
 # A to step 2, run B resumes A's checkpoint and goes on to step 4, run C
-# trains 0 -> 4 in another directory.  On the card a backward's sums are
-# not bit-reproducible (scatter-adds, cuDNN), so B's step 3 is held
-# against A's step 3 from the same state (forwards are) and B's
-# parameters against C's by tolerance.
+# trains 0 -> 4 in another directory.  The step runs under the package's
+# deterministic_numerics, so B's step 3 equals A's uninterrupted step 3
+# bit for bit, B's parameters and optimizer state after step 4 equal C's,
+# and every step of A and B equals C's step of the same count.
 TRAINER_DATA = dict(n_pairs=8, seed=11, raw_hw=(320, 896), crop_hw=(256, 832))
 TRAINER_CONF = dict(batchsize=4, batch_per_epoch=2, batch_per_print=1,
                     eq_loss_weight=0.1, eq_loss_use_occ=True, num_workers=2,
@@ -1710,7 +1718,6 @@ TRAINER_CONF = dict(batchsize=4, batch_per_epoch=2, batch_per_print=1,
 # transformed pair, no occlusion check)
 EQ_LAUNCHES_PER_STEP = {n: c + (0 if n == "warp" else c)
                         for n, c in SGU_LAUNCHES_PER_FORWARD.items()}
-RESUME_LOSS_BAR, RESUME_COSINE_BAR = 1e-4, 0.99999
 # 7b: a bf16 forward at B=1 375x1242 runs conv3x3_seg in 19 ConvBlocks,
 # each of which packs its weights at the first forward after a load
 BF16_PACKERS = 19
@@ -1839,8 +1846,11 @@ def phase_trainer(k, tmp, fp32_busy):
     trainer in A's directory, resumes A's checkpoint, which must give A's
     parameters and optimizer state bit for bit, and trains to step 4; A
     goes on to step 3 from the same state, the uninterrupted step B's
-    step 3 is held against; run C trains 0 -> 4 in another directory.
-    Returns C's trainer, an eval pair and the trainer JSON object."""
+    step 3 must equal bit for bit; run C trains 0 -> 4 in another
+    directory, and B's parameters and optimizer state after step 4 must
+    equal C's bit for bit, every step of A and B C's step of the same
+    count.  Returns C's trainer, an eval pair and the trainer JSON
+    object."""
     data = k.synthetic.make_dataset(**TRAINER_DATA)
     dataset = PairDataset(data)
     kw = dict(EVAL_REQUESTS["b1_375x1242_native"][0])
@@ -1899,30 +1909,33 @@ def phase_trainer(k, tmp, fp32_busy):
           % [round(s["metrics"]["eq_loss"], 6) for s in steps])
     check(all(v == 0 for v in plain_calls.values()),
           "trainer: no plain version ran on CUDA tensors: %s" % plain_calls)
-    resumed_rel = {key: rel_diff(run_b, run_a, 3, key)
-                   for key in ("total_loss", "eq_loss")}
-    check(max(resumed_rel.values()) <= RESUME_LOSS_BAR,
-          "trainer: resumed B's step 3 against A's uninterrupted step 3 from "
-          "the same state, relative difference %s (<= %g)"
-          % ({key: "%.2e" % v for key, v in resumed_rel.items()},
-             RESUME_LOSS_BAR))
+    step3 = [next(s["metrics"] for s in run["steps"] if s["step"] == 3)
+             for run in (run_b, run_a)]
+    check(step3[0] == step3[1], "trainer: resumed B's step 3 equals A's "
+          "uninterrupted step 3 from the same state bit for bit (B %s, A %s)"
+          % tuple(step3))
+    final = (same_state(b.model.state_dict(), trainer_c.model.state_dict()),
+             same_state(b.optimizer.state_dict(),
+                        trainer_c.optimizer.state_dict()))
+    check(final == (True, True), "trainer: parameters and optimizer state "
+          "of B and C after step 4 bit-equal: %s" % (final,))
     pb = torch.cat([p.detach().double().flatten()
                     for p in b.model.parameters()])
     pc = torch.cat([p.detach().double().flatten()
                     for p in trainer_c.model.parameters()])
     cos = float(pb @ pc / (pb.norm() * pc.norm()))
-    check(cos >= RESUME_COSINE_BAR, "trainer: parameters of B and C after "
-          "step 4, cosine 1 - %.3e (>= %g)" % (1 - cos, RESUME_COSINE_BAR))
-    # two runs' steps differ once a backward has run: scatter-adds and
-    # cuDNN's backward sum in no fixed order, and Adam's first steps
-    # move every weight by about lr whatever its gradient's size
+    print("  info trainer: parameters of B and C after step 4, cosine 1 - "
+          "%.3e" % (1 - cos))
+    # the step is deterministic, so two runs part at no step, before or
+    # after a backward
     spread = {"%s@%d %s" % (key, step, pair): rel_diff(x, y, step, key)
               for key in ("total_loss", "eq_loss")
               for pair, x, y, at in (("A-C", run_a, run_c, (1, 2, 3)),
                                      ("B-C", run_b, run_c, (3, 4)))
               for step in at}
-    print("  info trainer: relative loss differences between runs (none at "
-          "step 1, where no backward has run yet): %s"
+    check(all(v == 0.0 for v in spread.values()),
+          "trainer: runs A and C at steps 1-3, B and C at steps 3-4 give "
+          "the same losses (relative differences %s)"
           % {key: "%.2e" % v for key, v in spread.items()})
     times = [s["ms"] for run in runs for s in run["steps"][1:]]
     print("  info trainer: equivariance step %.1f ms median (%.1f-%.1f) "
@@ -1949,7 +1962,9 @@ def phase_trainer(k, tmp, fp32_busy):
                step_ms_min=min(times), step_ms_max=max(times),
                timed_steps=len(times), peak_memory_gib=peak,
                launches_per_step=EQ_LAUNCHES_PER_STEP,
-               resume_step3_rel_loss=resumed_rel, resume_param_cosine=cos,
+               resume_step3_bit_equal=step3[0] == step3[1],
+               resume_state_bit_equal=final == (True, True),
+               resume_param_cosine=cos,
                run_rel_loss_spread=spread,
                eval_line=evals[0] if evals else None,
                profiled_step=dict(wall_ms=wall, device_ms=busy,
@@ -2983,6 +2998,25 @@ def phase_one_rank(k, phase6):
     return out
 
 
+def repeat_sharded_steps(k, mesh, conf, local, metrics, params):
+    """A second run of the sharded step's two steps from the checkpoint:
+    whether its losses and its parameters after them equal the first
+    run's (``metrics``, ``params``) bit for bit.  A reading for 9b."""
+    model, state, opt = k.step.create_train_state(
+        conf, k.TrainerConfig(), weights=str(NPZ))
+    k.pmesh.replicate(mesh, model, opt)
+    step_fn = k.pstep.make_sharded_train_step(model, opt, mesh)
+    again = []
+    for _ in metrics:
+        state, m = step_fn(state, local)
+        again.append(m)
+    return dict(losses_bit_equal=all(
+                    torch.equal(a[key], b[key])
+                    for a, b in zip(metrics, again) for key in a),
+                params_bit_equal=torch.equal(params,
+                                             flat(named(model, ""))))
+
+
 def parallel_rank(rank: int, init_method: str, out: str) -> int:
     """One rank of phase 9b (``chip_smoke.py --parallel-rank R INIT
     OUT``): phase 6's fp32 recipe from the checkpoint at B=2, its half of
@@ -3021,9 +3055,12 @@ def parallel_rank(rank: int, init_method: str, out: str) -> int:
                 device=str(mesh.device))
             if name == "threshold 1.0":  # a step after the first
                 t0 = time.perf_counter()
-                step_fn(state, local)
+                _, second = step_fn(state, local)
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
+                res[name]["repeat"] = repeat_sharded_steps(
+                    k, mesh, conf, local, [metrics, second],
+                    flat(named(model, "")))
             res[name]["ms"] = ms
             k.warp_ops.MASK_THRESHOLD = 1.0
             del model, state, opt, step_fn
@@ -3115,10 +3152,16 @@ def phase_two_ranks(k, tmp):
         print("  info %s: step ms %s on rank 0, %s on rank 1 (%s)"
               % (what, [round(x, 1) for x in r0["ms"]],
                  [round(x, 1) for x in r1["ms"]], nvidia_smi_line()))
+        if "repeat" in r0:
+            print("  info %s: a second run of the two steps from the "
+                  "checkpoint, bit-equal to the first (losses, parameters): "
+                  "rank 0 %s, rank 1 %s"
+                  % (what, r0["repeat"], r1["repeat"]))
         out[name] = dict(loss=loss, single_loss=single["total_loss"],
                          rel=rel, term_rel=rels,
                          grad_cosine=grad_cos, launches=r0["launches"],
-                         step_ms=[r0["ms"], r1["ms"]])
+                         step_ms=[r0["ms"], r1["ms"]],
+                         repeat=[r0.get("repeat"), r1.get("repeat")])
     return out
 
 
@@ -3820,7 +3863,14 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline",
               "batch", "hw", "iters")
 BENCH_RATES = ("value", "sgu_fallback_pairs_per_sec",
                "train_pairs_per_sec_fp32_256x832")
-REPRO_STEPS = 2  # uninterrupted fp32 steps a run of 11c
+REPRO_STEPS = 5  # uninterrupted steps a run of 11c
+# 11c's modes: phase 6's recipe at fp32 and bf16, 7a's equivariance pass
+# at fp32, and the SSIM photometric loss (its avg_pool2d runs on no other
+# path of this script) at fp32 (name: knobs, eq_loss_weight)
+REPRO_MODES = {"fp32": (TRAIN_KNOBS, 0.0),
+               "bf16": (dict(TRAIN_KNOBS, compute_dtype="bfloat16"), 0.0),
+               "fp32 eq": (TRAIN_KNOBS, 0.1),
+               "fp32 SSIM": (dict(TRAIN_KNOBS, photo_loss_type="SSIM"), 0.0)}
 
 
 def positive(x) -> bool:
@@ -4047,95 +4097,104 @@ def hold_sweep_frames(k):
     return dict(frames=frames, shapes_held=held, forwards=forwards)
 
 
-@contextlib.contextmanager
-def deterministic_algorithms():
-    """``torch.use_deterministic_algorithms(True, warn_only=True)`` and
-    cuDNN's deterministic algorithms for the block, the caller's settings
-    restored after it."""
-    cudnn = torch.backends.cudnn
-    saved = (torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled(),
-             cudnn.deterministic)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
-        cudnn.deterministic = saved[2]
-
-
-def repro_run(k, conf, batch):
-    """``REPRO_STEPS`` uninterrupted fp32 steps from the checkpoint: the
-    steps' metrics, the parameters after them and each step's ms."""
+def repro_run(k, conf, batch, eq_weight):
+    """``REPRO_STEPS`` uninterrupted steps of ``make_train_step`` from the
+    checkpoint: the steps' metrics, the parameters after them, each
+    step's ms and the run's peak memory (GiB)."""
     model, state, opt = k.step.create_train_state(conf, k.TrainerConfig(),
                                                   weights=str(NPZ))
-    step_fn = k.step.make_train_step(model, opt)
+    step_fn = k.step.make_train_step(model, opt, eq_loss_weight=eq_weight)
     metrics, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(REPRO_STEPS):
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append({key: v.clone() for key, v in m.items()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     return metrics, {n: p.detach().clone()
-                     for n, p in model.named_parameters()}, ms
+                     for n, p in model.named_parameters()}, ms, peak
+
+
+def raises_under_strict_mode(k, op) -> str:
+    """The message of the RuntimeError that ``op`` raises under the
+    package's ``deterministic_numerics``, or '' if it raises none."""
+    try:
+        with k.step.deterministic_numerics():
+            op()
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        return str(e)
+    return ""
 
 
 def phase_repro(k):
-    """11c: is card training reproducible run to run?  Two runs of
-    ``REPRO_STEPS`` fp32 steps of phase 6's recipe from the checkpoint,
-    first as the port runs them, then under ``deterministic_algorithms``:
-    whether the two runs' losses and parameters are bit-equal, each
-    step's ms, and the ops that warn for want of a deterministic kernel.
-    A measurement: no package default changes."""
-    conf = k.UPFlowConfig().updated(TRAIN_KNOBS)
+    """11c: card training is reproducible run to run.  For each of
+    ``REPRO_MODES`` two runs of ``REPRO_STEPS`` steps from the checkpoint,
+    as the package runs them (``make_train_step`` under its
+    ``deterministic_numerics``), must give bit-equal losses and
+    parameters.  A run between them with the package's manager replaced
+    by a null context for the block (a measurement-only patch, restored
+    after it) times what determinism costs: each mode's median step ms
+    after the first step, both ways, and the ratio; and each way's peak
+    memory.
+    ``bincount`` with weights, which has no deterministic CUDA kernel,
+    must raise under the manager: strict mode is on.  ``kthvalue``, which
+    raised nothing under it in torch 2.11, is a reading."""
     batch = train_batch(k)
     out = {}
-    for mode in ("default", "deterministic"):
-        ctx = (deterministic_algorithms() if mode == "deterministic"
-               else contextlib.nullcontext())
-        with ctx, warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if mode == "deterministic":
-                # ops without a deterministic CUDA kernel: their warnings
-                # show that the record sees such warnings at all
-                torch.bincount(torch.zeros(4, dtype=torch.long, device=DEV),
-                               weights=torch.ones(4, device=DEV))
-                torch.kthvalue(torch.arange(4.0, device=DEV), 2)
-                probe = [str(w.message)[:60] for w in caught]
-                del caught[:]
-                check(len(probe) > 0, "11c the warning record sees the "
-                      "warnings of bincount and kthvalue on the card: %s"
-                      % probe)
-            runs = [repro_run(k, conf, batch) for _ in range(2)]
-        (ma, pa, msa), (mb, pb, msb) = runs
+    probe = {"bincount": lambda: torch.bincount(
+                 torch.zeros(4, dtype=torch.long, device=DEV),
+                 weights=torch.ones(4, device=DEV)),
+             "kthvalue": lambda: torch.kthvalue(
+                 torch.arange(4.0, device=DEV), 2)}
+    raised = {name: raises_under_strict_mode(k, op)
+              for name, op in probe.items()}
+    check(bool(raised["bincount"]), "11c bincount with weights raises "
+          "under deterministic_numerics on the card: %s"
+          % raised["bincount"][:60])
+    print("  info 11c kthvalue under deterministic_numerics: %s"
+          % (raised["kthvalue"][:60] or "no error"))
+    for mode, (knobs, eq_weight) in REPRO_MODES.items():
+        conf = k.UPFlowConfig().updated(knobs)
+        ma, pa, msa, peak = repro_run(k, conf, batch, eq_weight)
+        saved = k.step.deterministic_numerics
+        k.step.deterministic_numerics = contextlib.nullcontext
+        try:
+            _, _, msc, peak_default = repro_run(k, conf, batch, eq_weight)
+        finally:
+            k.step.deterministic_numerics = saved
+        mb, pb, msb, _ = repro_run(k, conf, batch, eq_weight)
         losses_equal = all(torch.equal(a[key], b[key])
                            for a, b in zip(ma, mb) for key in a)
-        params_equal = all(torch.equal(pa[n], pb[n]) for n in pa)
-        rel = max(abs(float(a["total_loss"]) - float(b["total_loss"]))
-                  / abs(float(b["total_loss"])) for a, b in zip(ma, mb))
-        warned = sorted({"%s:%d: %s" % (
-            os.path.relpath(w.filename, ROOT) if w.filename.startswith(
-                str(ROOT)) else w.filename, w.lineno,
-            str(w.message).split(" does not have")[0][:120])
-            for w in caught if "determinis" in str(w.message)})
+        params_equal = pa.keys() == pb.keys() and all(
+            torch.equal(pa[n], pb[n]) for n in pa)
         losses = [[float(m["total_loss"]) for m in run] for run in
                   (ma, mb)]
-        check(all(np.isfinite(v) for run in losses for v in run),
-              "11c %s: two runs of %d fp32 steps, total losses %s"
-              % (mode, REPRO_STEPS, losses))
-        print("  info 11c %s: losses bit-equal %s (largest relative "
-              "difference %.3e), parameters bit-equal %s; step ms %s; ops "
-              "that warn: %s"
-              % (mode, losses_equal, rel, params_equal,
-                 [round(v, 1) for v in msa + msb], warned or "none"))
+        check(all(np.isfinite(v) for run in losses for v in run)
+              and losses_equal and params_equal,
+              "11c %s: two runs of %d steps, losses bit-equal %s, "
+              "parameters bit-equal %s; total losses %s"
+              % (mode, REPRO_STEPS, losses_equal, params_equal, losses))
+        del pa, pb
+        strict = statistics.median(msa[1:] + msb[1:])
+        default = statistics.median(msc[1:])
+        print("  info 11c %s: step ms %s deterministic (median after the "
+              "first %.1f), %s without the manager (%.1f), ratio %.4f; "
+              "peak %.2f / %.2f GiB (%s)"
+              % (mode, [round(v, 1) for v in msa + msb], strict,
+                 [round(v, 1) for v in msc], default, strict / default,
+                 peak, peak_default, nvidia_smi_line()))
         out[mode] = dict(losses_bit_equal=losses_equal,
-                         params_bit_equal=params_equal,
-                         max_rel_loss_diff=rel, total_losses=losses,
-                         step_ms=msa + msb, warned=warned)
-        del runs
+                         params_bit_equal=params_equal, total_losses=losses,
+                         step_ms=msa + msb, step_ms_default=msc,
+                         median_ms=strict, median_ms_default=default,
+                         ratio=strict / default, peak_memory_gib=peak,
+                         peak_memory_gib_default=peak_default)
+        torch.cuda.empty_cache()
+    out["strict_probe"] = {name: msg[:200] for name, msg in raised.items()}
     return out
 
 
@@ -4167,7 +4226,7 @@ def phase_bench(k):
     out["sweep_held"] = hold_sweep_frames(k)
     out["sweep_held_s"] = time.perf_counter() - t1
     torch.cuda.empty_cache()
-    print("phase 11c: reproducibility of two fp32 steps", flush=True)
+    print("phase 11c: training is reproducible run to run", flush=True)
     out["11c"] = phase_repro(k)
     out["seconds"] = time.perf_counter() - t0
     print("  info phase 11 took %.1f s (11a %.1f s, bench %.1f s, sweep %.1f "

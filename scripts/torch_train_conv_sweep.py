@@ -12,7 +12,8 @@ backward time goes, and what cuDNN's algorithm choice costs.
    bf16 GEMM with fp32 sums over the unfolded input
    (``torch.bmm(..., out_dtype=torch.float32)``), each held against the
    first weight gradient; and the whole rule
-   (``conv3x3_seg_vjp``).  Sums over one step's calls.
+   (``conv3x3_seg_vjp``).  Sums over one step's calls.  All of it under
+   ``train/step.py::deterministic_numerics``, as the step runs them.
 2. The training step of ``chip_smoke.py`` phase 6, fp32 and bf16, with
    ``cudnn.benchmark`` off and on in turns (off, on, on, off): median
    step ms of 3 steps after 2 warm-up steps, and the peak memory.
@@ -79,7 +80,7 @@ def conv_sweep(k):
                 x.float(), wt.shape, gb.float(), padding=d, dilation=d)
 
         row = {}
-        with cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                          allow_tf32=False):
             row["dx"] = event_ms(lambda: torch.nn.grad.conv2d_input(
                 x.shape, wb, gb, padding=d, dilation=d))
@@ -87,7 +88,7 @@ def conv_sweep(k):
             ref = dw()
             row["rule"] = event_ms(lambda: k.seg.conv3x3_seg_vjp(
                 x, wt, out if relu else None, d, gb.float()))
-        with cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+        with cudnn.flags(enabled=True, benchmark=True, deterministic=True,
                          allow_tf32=False):
             row["dw_benchmark"] = event_ms(dw)
             err_b = float((dw() - ref).abs().max() / ref.abs().max())
@@ -139,7 +140,8 @@ def main():
     k = cs.Port()
     print("device: %s; torch %s" % (cs.nvidia_smi_line(), torch.__version__))
     k.build.build()
-    conv_sweep(k)
+    with k.step.deterministic_numerics():
+        conv_sweep(k)
     step_ab(k)
     return 0
 

@@ -3,7 +3,8 @@
 The same knob surface as ``upflow_pytorch_tpu.config.UPFlowConfig``: the 22
 knobs of the reference ``UPFlow_net.config`` with their defaults, the
 extensions below them, and the ``updated`` / ``get_name`` helpers of the
-reference ``tools.abstract_config``; and ``TrainerConfig``, the trainer's
+reference ``tools.abstract_config``; ``KittiTrainDataConfig``, the KITTI
+multiview training data's knobs; and ``TrainerConfig``, the trainer's
 knobs.
 """
 
@@ -100,6 +101,22 @@ class UPFlowConfig(ConfigBase):
     @property
     def dim_corr(self) -> int:
         return (self.search_range * 2 + 1) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class KittiTrainDataConfig(ConfigBase):
+    """The reference ``kitti_data_with_start_point.config`` knobs with the
+    JAX package's defaults; the same knobs are the arguments of
+    ``data/kitti.py::KittiMultiviewDataset``, which nothing here builds
+    from this class."""
+
+    crop_size: Tuple[int, int] = (256, 832)
+    rho: int = 8
+    swap_images: bool = True
+    normalize: bool = True
+    repeat: Optional[int] = None
+    horizontal_flip_aug: bool = True
+    mv_type: Optional[str] = None  # '2015' | '2012'
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,11 +13,16 @@ context network and the 1x1 convs) take no gradient and no update.
 ``train_step(state, batch)`` runs ``forward_with_loss`` and its backward
 under ``fp32_numerics`` and one optimizer step; the parameters and the
 optimizer's state are updated in place, and the returned state counts the
-step.  With ``eq_loss_weight > 0`` the step adds the equivariance pass
-(``losses/equivariance.py``): a student forward on an affine transform of
-the pair, held against the detached teacher outputs of the step's own
-forward, its transforms drawn from the step count
-(``equivariance.step_generator``), so a resumed run draws the same ones.
+step.  The whole step runs under ``deterministic_numerics``: torch's
+deterministic algorithms in their strict form and cuDNN's deterministic
+algorithms, so two runs from the same state give the same losses and
+parameters bit for bit, on the card as on the CPU, as XLA's fixed order
+of sums gives the JAX package.  With ``eq_loss_weight > 0`` the step adds
+the equivariance pass (``losses/equivariance.py``): a student forward on
+an affine transform of the pair, held against the detached teacher
+outputs of the step's own forward, its transforms drawn from the step
+count (``equivariance.step_generator``), so a resumed run draws the same
+ones.
 
 With a ``mesh`` (``parallel/step.py::make_sharded_train_step``) the batch
 is this rank's slice of the global batch and the step computes what one
@@ -32,7 +37,8 @@ averaged, so every rank reports the global loss.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterable, NamedTuple, Optional, Tuple
+from typing import (Any, Dict, Iterable, Iterator, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 import torch.nn as nn
@@ -49,6 +55,25 @@ from upflow_pytorch_tpu_torch.parallel.reduce import (
 PWC_FROZEN_ROOTS = ("feature_pyramid_extractor", "flow_estimators",
                     "context_networks", "conv_1x1")
 METRICS = ("photo_loss", "smooth_loss", "census_loss", "msd_loss")
+
+
+@contextlib.contextmanager
+def deterministic_numerics() -> Iterator[None]:
+    """``torch.use_deterministic_algorithms(True)`` (strict: an op without
+    a deterministic kernel raises) and ``cudnn.deterministic`` for the
+    block, and the caller's three settings (enabled, warn-only, cuDNN's
+    flag) restored after it, also when the block raises."""
+    cudnn = torch.backends.cudnn
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             cudnn.deterministic)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        cudnn.deterministic = saved[2]
 
 
 class TrainState(NamedTuple):
@@ -118,33 +143,35 @@ def make_train_step(model: UPFlowNet, optimizer: torch.optim.Optimizer,
     ``msd_loss``, and ``eq_loss`` with ``eq_loss_weight > 0``) and
     ``total_loss``, as detached 0-dim tensors.  With ``mesh``
     (``parallel/mesh.py``) ``batch`` is this rank's slice of the global
-    batch and the metrics are the global batch's."""
+    batch and the metrics are the global batch's.  The step runs under
+    ``deterministic_numerics``."""
     trainable = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        set_learning_rate(optimizer, state.step)
-        model.zero_grad(set_to_none=True)
-        with (contextlib.nullcontext() if mesh is None
-              else global_normalisers(mesh)):
-            out = forward_with_loss(model, batch)
-            metrics = {k: out[k].detach() for k in METRICS
-                       if out[k] is not None}
-            total = out["total_loss"]
-            if eq_loss_weight > 0:
-                eq = eq_loss_weight * equivariance_pass(
-                    model, batch, out, step_generator(state.step),
-                    use_occ=eq_loss_use_occ, loss_type=eq_loss_type,
-                    mesh=mesh)
-                metrics["eq_loss"] = eq.detach()
-                total = total + eq
-        with fp32_numerics():
-            total.backward()
-        if mesh is not None:
-            average_gradients(mesh, trainable)
-        optimizer.step()
-        metrics["total_loss"] = total.detach()
-        if mesh is not None:
-            metrics = average_metrics(mesh, metrics)
+        with deterministic_numerics():
+            set_learning_rate(optimizer, state.step)
+            model.zero_grad(set_to_none=True)
+            with (contextlib.nullcontext() if mesh is None
+                  else global_normalisers(mesh)):
+                out = forward_with_loss(model, batch)
+                metrics = {k: out[k].detach() for k in METRICS
+                           if out[k] is not None}
+                total = out["total_loss"]
+                if eq_loss_weight > 0:
+                    eq = eq_loss_weight * equivariance_pass(
+                        model, batch, out, step_generator(state.step),
+                        use_occ=eq_loss_use_occ, loss_type=eq_loss_type,
+                        mesh=mesh)
+                    metrics["eq_loss"] = eq.detach()
+                    total = total + eq
+            with fp32_numerics():
+                total.backward()
+            if mesh is not None:
+                average_gradients(mesh, trainable)
+            optimizer.step()
+            metrics["total_loss"] = total.detach()
+            if mesh is not None:
+                metrics = average_metrics(mesh, metrics)
         return TrainState(state.params, optimizer.state,
                           state.step + 1), metrics
 
