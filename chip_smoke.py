@@ -1476,27 +1476,6 @@ def step_gradients(k, conf, batch):
             (forward_peak, torch.cuda.max_memory_allocated() / 2 ** 30))
 
 
-@contextlib.contextmanager
-def backward_ranges(k):
-    """Wraps each kernel op's backward rule in a profiler range
-    ``upflow_bwd::<op>``, so a profile attributes its device time."""
-    saved = {name: fn.backward for name, fn in k.functions.items()}
-
-    def ranged(name, backward):
-        def run(ctx, *grads):
-            with torch.profiler.record_function("upflow_bwd::" + name):
-                return backward(ctx, *grads)
-        return staticmethod(run)
-
-    for name, fn in k.functions.items():
-        fn.backward = ranged(name, saved[name])
-    try:
-        yield
-    finally:
-        for name, fn in k.functions.items():
-            fn.backward = staticmethod(saved[name])
-
-
 def kernel_kind(name: str) -> str:
     """A device kernel's kind in a training step's split, by its name."""
     low = name.lower()
@@ -1509,19 +1488,25 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def profile_train_step(k, step_fn, state, batch, tag):
+def profile_train_step(k, step_fn, state, batch, tag, forwards=False):
     """One training step under torch.profiler: device time split by kind
     and by backward rule.  Every device kernel counts by its name
     (``kernel_kind``), except those that the profiler links to a host op
-    inside a backward rule's range (``backward_ranges``), a forward's range
-    (``forward_ranges``: "teacher forward", "student forward") or the
-    optimizer's step, which count there.  Returns (state, split, rules,
-    busy ms, wall ms); the split and rules are None when the profiler saw
-    no device time."""
+    inside one of the program's spans of a backward rule
+    (``upflow.rule.<Function>``), with ``forwards`` of a forward
+    (``upflow.step.loss``: "teacher forward", ``upflow.step.equivariance``:
+    "student forward"), or inside the optimizer's step, which count there.
+    Returns (state, split, rules, busy ms, wall ms); the split and rules
+    are None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with backward_ranges(k), profile(
+    rule_of = {"upflow.rule." + fn.__name__: name
+               for name, fn in k.functions.items()}
+    forward_of = ({"upflow.step.loss": "teacher forward",
+                   "upflow.step.equivariance": "student forward"}
+                  if forwards else {})
+    with profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = step_fn(state, batch)
@@ -1534,12 +1519,11 @@ def profile_train_step(k, step_fn, state, batch, tag):
     by_name = {}
     events = prof.events()
     for e in events:
-        # the profiler mirrors each host range on the device's timeline
-        # as a user annotation: a span, not a kernel
+        # the profiler mirrors a user-scope host range (the optimizer's)
+        # on the device's timeline as a user annotation: not a kernel
         if e.device_type == DeviceType.CUDA and not (
                 getattr(e, "is_user_annotation", False)
-                or e.name.startswith(("upflow_bwd::", "upflow_fwd::",
-                                      "Optimizer."))):
+                or e.name.startswith(("upflow.", "Optimizer."))):
             us = e.time_range.elapsed_us()
             kinds[kernel_kind(e.name)] += us
             by_name[e.name] = by_name.get(e.name, 0.0) + us
@@ -1548,10 +1532,10 @@ def profile_train_step(k, step_fn, state, batch, tag):
             continue
         scope, parent = None, e
         while parent is not None and scope is None:
-            if parent.name.startswith("upflow_bwd::"):
-                scope = parent.name[len("upflow_bwd::"):]
-            elif parent.name.startswith("upflow_fwd::"):
-                scope = parent.name[len("upflow_fwd::"):] + " forward"
+            if parent.name in rule_of:
+                scope = rule_of[parent.name]
+            elif parent.name in forward_of:
+                scope = forward_of[parent.name]
             elif parent.name.startswith("Optimizer.step"):
                 scope = "optimizer"
             parent = parent.cpu_parent
@@ -1766,27 +1750,6 @@ class PairDataset:
         return {key: v[i] for key, v in self.data.items()}
 
 
-@contextlib.contextmanager
-def forward_ranges(k):
-    """Wraps the train step's two forwards in profiler ranges:
-    ``upflow_fwd::teacher`` (``forward_with_loss``) and
-    ``upflow_fwd::student`` (the equivariance pass)."""
-    saved = (k.step.forward_with_loss, k.step.equivariance_pass)
-
-    def ranged(name, fn):
-        def run(*args, **kwargs):
-            with torch.profiler.record_function("upflow_fwd::" + name):
-                return fn(*args, **kwargs)
-        return run
-
-    k.step.forward_with_loss = ranged("teacher", saved[0])
-    k.step.equivariance_pass = ranged("student", saved[1])
-    try:
-        yield
-    finally:
-        k.step.forward_with_loss, k.step.equivariance_pass = saved
-
-
 def make_trainer(k, exp_dir, dataset, bench):
     """A ``Trainer`` of phase 6's recipe with the equivariance pass, from
     the checkpoint's weights, whose every step is timed and has its
@@ -1946,9 +1909,8 @@ def phase_trainer(k, tmp, fp32_busy):
 
     batch = {key: torch.from_numpy(v[:4]).to(DEV)
              for key, v in data.items() if key != "gt_flow"}
-    with forward_ranges(k):
-        _, split, rules, busy, wall = profile_train_step(
-            k, step_fn, trainer_c.state, batch, "trainer eq")
+    _, split, rules, busy, wall = profile_train_step(
+        k, step_fn, trainer_c.state, batch, "trainer eq", forwards=True)
     student = None if split is None else split.get("student forward", 0.0)
     increment = (None if busy is None or fp32_busy is None
                  else (busy - fp32_busy) / busy)

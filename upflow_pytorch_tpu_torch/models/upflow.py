@@ -101,6 +101,7 @@ from upflow_pytorch_tpu_torch.ops.kernels.sgu_final import sgu_final
 from upflow_pytorch_tpu_torch.ops.normalize import normalize_features
 from upflow_pytorch_tpu_torch.ops.resize import (
     downsample_area, full_fp32_matmuls, upsample2d_flow_as, upsample_flow)
+from upflow_pytorch_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from upflow_pytorch_tpu_torch.parallel.spatial import WidthShard
@@ -284,35 +285,41 @@ class UPFlowNet(nn.Module):
             im1, im2 = im1[..., cols.lo:cols.hi], im2[..., cols.lo:cols.hi]
             level_cols = [shard.at(w) for w in
                           self.feature_pyramid_extractor.level_widths(width)]
-        x1_pyramid = self.feature_pyramid_extractor(im1.to(self.dtype), cols)
-        x2_pyramid = self.feature_pyramid_extractor(im2.to(self.dtype), cols)
+        with span("upflow.pyramid"):
+            x1_pyramid = self.feature_pyramid_extractor(im1.to(self.dtype),
+                                                        cols)
+            x2_pyramid = self.feature_pyramid_extractor(im2.to(self.dtype),
+                                                        cols)
         h0, w0 = x1_pyramid[0].shape[2:]
         flow_f = im1.new_zeros((b, 2, h0, w0))
         flow_b = im1.new_zeros((b, 2, h0, w0))
         flow_cols = level_cols[0]
         flows: Flows = []
         for level in range(self.conf.output_level + 1):
-            x1, x2 = x1_pyramid[level], x2_pyramid[level]
-            lc = level_cols[level]
-            flow_f_up, flow_b_up, res_f, res_b = self._decode_level(
-                level, flow_f, flow_b, x1, self.conv_1x1[level](x1, cols=lc),
-                x2, self.conv_1x1[level](x2, cols=lc), lc, flow_cols)
-            flow_f = flow_f_up + res_f
-            flow_b = flow_b_up + res_b
+            with span("upflow.level.", level):
+                x1, x2 = x1_pyramid[level], x2_pyramid[level]
+                lc = level_cols[level]
+                flow_f_up, flow_b_up, res_f, res_b = self._decode_level(
+                    level, flow_f, flow_b, x1,
+                    self.conv_1x1[level](x1, cols=lc), x2,
+                    self.conv_1x1[level](x2, cols=lc), lc, flow_cols)
+                flow_f = flow_f_up + res_f
+                flow_b = flow_b_up + res_b
             flow_cols = lc
             flows.append((flow_f, flow_b))
-        if self.conf.if_sgu_upsample:
-            up_conv = self.sgi_model.upsample_output_conv
-            flow_f_out, flow_b_out = self._sgu_pair(
-                flow_f, flow_b, up_conv(im1.to(self.dtype), cols),
-                up_conv(im2.to(self.dtype), cols),
-                output_hw=(height, width), cols=up_conv.out_cols(cols),
-                flow_cols=flow_cols)
-        else:
-            flow_f_out = upsample2d_flow_as(flow_f, (height, width), True,
-                                            flow_cols)
-            flow_b_out = upsample2d_flow_as(flow_b, (height, width), True,
-                                            flow_cols)
+        with span("upflow.upsample"):
+            if self.conf.if_sgu_upsample:
+                up_conv = self.sgi_model.upsample_output_conv
+                flow_f_out, flow_b_out = self._sgu_pair(
+                    flow_f, flow_b, up_conv(im1.to(self.dtype), cols),
+                    up_conv(im2.to(self.dtype), cols),
+                    output_hw=(height, width), cols=up_conv.out_cols(cols),
+                    flow_cols=flow_cols)
+            else:
+                flow_f_out = upsample2d_flow_as(flow_f, (height, width),
+                                                True, flow_cols)
+                flow_b_out = upsample2d_flow_as(flow_b, (height, width),
+                                                True, flow_cols)
         return flow_f_out, flow_b_out, flows[::-1]
 
 
@@ -403,22 +410,26 @@ def forward(model: UPFlowNet, im1, im2,
     (``parallel/spatial.py::WidthShard``) every output is this rank's
     columns ``shard.cols(w)`` of its width ``w`` (``UPFlowNet.forward``).
     """
-    conf = model.conf
-    device = next(model.parameters()).device
-    im1, im2 = _as_nchw(im1, device), _as_nchw(im2, device)
-    cols = None if shard is None else shard.at(im1.shape[3])
-    with torch.no_grad(), fp32_numerics():
-        flow_f, flow_b, flows = model(im1, im2, shard)
-        occ_fw, occ_bw = occ_check(flow_f, flow_b, conf.alpha_1,
-                                   conf.alpha_2, conf.occ_check_obj_out_all,
-                                   conf.occ_type, cols=cols)
-    return {
-        "flow_f_out": _nhwc(flow_f),
-        "flow_b_out": _nhwc(flow_b),
-        "occ_fw": _nhwc(occ_fw),
-        "occ_bw": _nhwc(occ_bw),
-        "flows": [(_nhwc(f), _nhwc(b)) for f, b in flows],
-    }
+    with span("upflow.forward"):
+        conf = model.conf
+        device = next(model.parameters()).device
+        with span("upflow.copy_in"):
+            im1, im2 = _as_nchw(im1, device), _as_nchw(im2, device)
+        cols = None if shard is None else shard.at(im1.shape[3])
+        with torch.no_grad(), fp32_numerics():
+            flow_f, flow_b, flows = model(im1, im2, shard)
+            with span("upflow.occlusion"):
+                occ_fw, occ_bw = occ_check(
+                    flow_f, flow_b, conf.alpha_1, conf.alpha_2,
+                    conf.occ_check_obj_out_all, conf.occ_type, cols=cols)
+        with span("upflow.copy_out"):
+            return {
+                "flow_f_out": _nhwc(flow_f),
+                "flow_b_out": _nhwc(flow_b),
+                "occ_fw": _nhwc(occ_fw),
+                "occ_bw": _nhwc(occ_bw),
+                "flows": [(_nhwc(f), _nhwc(b)) for f, b in flows],
+            }
 
 
 def _smooth_loss(conf: UPFlowConfig, ims, flows) -> torch.Tensor:

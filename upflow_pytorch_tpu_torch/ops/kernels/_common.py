@@ -9,6 +9,7 @@ from typing import Optional, Sequence
 import torch
 
 from upflow_pytorch_tpu_torch import _build
+from upflow_pytorch_tpu_torch.utils.profiling import span
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -87,17 +88,20 @@ def inner_contiguous(t: torch.Tensor) -> bool:
 
 def launch(op: str, wrapper, t: torch.Tensor, fn, *args) -> None:
     """Calls the C entry point ``fn(*args, stream)`` on the current stream
-    of ``t``'s device, counts it in ``wrapper.launches`` and raises if the
-    launch failed.  The current device is switched only when ``t`` lies on
-    another one, and the stream is read as a raw handle, so the common
-    case costs no context manager and no stream object."""
+    of ``t``'s device, inside the span ``upflow.kernel.<op>``, counts it in
+    ``wrapper.launches`` and raises if the launch failed.  The current
+    device is switched only when ``t`` lies on another one, and the stream
+    is read as a raw handle, so the common case costs no stream object.
+    The span is the host op that the profiler links the library's kernels
+    to: a launch through ctypes lies inside no torch op."""
     index = t.device.index
     wrapper.launches += 1
-    if index == torch.cuda.current_device():
-        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
+    with span("upflow.kernel.", op):
+        if index == torch.cuda.current_device():
             code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     _build.check_launch(op, code)
 
 

@@ -52,6 +52,7 @@ from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     INT, LONG, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
     launch, wants_grad)
+from upflow_pytorch_tpu_torch.utils.profiling import span
 
 CHUNK = 64  # input channels per K step of the kernel
 BLOCK_WIDTHS = (8, 16, 32, 64, 96, 128)  # the kernel's output tile widths
@@ -270,9 +271,10 @@ class Conv3x3SegFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, weight, out = ctx.saved_tensors
-        return conv3x3_seg_vjp(x, weight, out, ctx.dilation, g,
-                               ctx.needs_input_grad[:3]) + (None,) * 3
+        with span("upflow.rule.Conv3x3SegFn"):
+            x, weight, out = ctx.saved_tensors
+            return conv3x3_seg_vjp(x, weight, out, ctx.dilation, g,
+                                   ctx.needs_input_grad[:3]) + (None,) * 3
 
 
 def conv3x3_seg(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -54,6 +54,7 @@ from upflow_pytorch_tpu_torch.ops.kernels._common import (
 from upflow_pytorch_tpu_torch.ops.kernels.correlation import (  # noqa: F401
     KERNEL_DISP, SMS, SPLITS, TILES, channel_ranges, correlation_plain,
     correlation_vjp, launch_config, launch_tiles, staging_route)
+from upflow_pytorch_tpu_torch.utils.profiling import span
 
 
 def moments(f: torch.Tensor, across_channels: bool, cols=None
@@ -177,9 +178,10 @@ class CorrNormFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        f1, f2, aff, out = ctx.saved_tensors
-        return corr_norm_vjp(f1, f2, aff, out, ctx.leaky_slope,
-                             g) + (None, None)
+        with span("upflow.rule.CorrNormFn"):
+            f1, f2, aff, out = ctx.saved_tensors
+            return corr_norm_vjp(f1, f2, aff, out, ctx.leaky_slope,
+                                 g) + (None, None)
 
 
 def corr_norm(f1: torch.Tensor, f2: torch.Tensor, aff: torch.Tensor,

@@ -38,6 +38,7 @@ from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FLOAT, FP32_BF16, INT, PTR, SMS, check_cpu_input, check_cuda_input,
     count_cuda_call, launch, wants_grad)
+from upflow_pytorch_tpu_torch.utils.profiling import span
 
 KERNEL_DISP = 4  # the kernels' compiled displacement (csrc/corr_tile.cuh)
 # the kernel's tiles (rows, columns), tallest then widest first: a block
@@ -211,9 +212,10 @@ class CorrelationFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        f1, f2 = ctx.saved_tensors
-        d_f1, d_f2 = correlation_vjp(f1, f2, g, ctx.max_displacement)
-        return d_f1, d_f2, None, None
+        with span("upflow.rule.CorrelationFn"):
+            f1, f2 = ctx.saved_tensors
+            d_f1, d_f2 = correlation_vjp(f1, f2, g, ctx.max_displacement)
+            return d_f1, d_f2, None, None
 
 
 def correlation(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 4,

@@ -36,6 +36,7 @@ from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FLOAT, FP32_BF16, INT, PTR, SMS, check_columns, check_cpu_input,
     check_cuda_input, count_cuda_call, launch, wants_grad, whole_frame)
+from upflow_pytorch_tpu_torch.utils.profiling import span
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -127,9 +128,10 @@ class FeatureWarpFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _g_mask):
-        x, flow, mask = ctx.saved_tensors
-        d_x, d_flow = _w.warp_vjp(x, flow, g.float() * mask[:, None])
-        return d_x, d_flow, None
+        with span("upflow.rule.FeatureWarpFn"):
+            x, flow, mask = ctx.saved_tensors
+            d_x, d_flow = _w.warp_vjp(x, flow, g.float() * mask[:, None])
+            return d_x, d_flow, None
 
 
 def feature_warp(x: torch.Tensor, flow: torch.Tensor, thr: float,

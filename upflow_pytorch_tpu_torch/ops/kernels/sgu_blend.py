@@ -49,6 +49,7 @@ from upflow_pytorch_tpu_torch.ops.kernels._common import (
     FP32_BF16, INT, LONG, PTR, SMS, check_columns, check_cpu_input,
     check_cuda_input, count_cuda_call, launch, wants_grad, whole_frame)
 from upflow_pytorch_tpu_torch.ops.kernels.warp import warp_plain
+from upflow_pytorch_tpu_torch.utils.profiling import span
 
 BLOCK_X = 32  # threads along a row (csrc/sgu_blend.cu kBlockX)
 BLOCK_ROWS = (8, 4, 2, 1)  # block heights the wrapper chooses from
@@ -224,9 +225,10 @@ class SguBlendPairFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_1, g_2):
-        flow_1, x_out_1, flow_2, x_out_2 = ctx.saved_tensors
-        return (head_vjp(flow_1, x_out_1, g_1)
-                + head_vjp(flow_2, x_out_2, g_2))
+        with span("upflow.rule.SguBlendPairFn"):
+            flow_1, x_out_1, flow_2, x_out_2 = ctx.saved_tensors
+            return (head_vjp(flow_1, x_out_1, g_1)
+                    + head_vjp(flow_2, x_out_2, g_2))
 
 
 class SguBlendFn(torch.autograd.Function):
@@ -239,7 +241,8 @@ class SguBlendFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _w.sgu_blend_vjp(*ctx.saved_tensors, g)
+        with span("upflow.rule.SguBlendFn"):
+            return _w.sgu_blend_vjp(*ctx.saved_tensors, g)
 
 
 def sgu_blend_pair(flow_1: torch.Tensor, x_out_1: torch.Tensor,

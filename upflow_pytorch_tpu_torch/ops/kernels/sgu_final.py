@@ -41,6 +41,7 @@ from upflow_pytorch_tpu_torch.ops.kernels._common import (
 from upflow_pytorch_tpu_torch.ops.kernels.sgu_blend import sgu_blend_plain
 from upflow_pytorch_tpu_torch.ops.resize import (
     interp_taps, resize_vjp, upsample2d_as, upsample2d_flow_as)
+from upflow_pytorch_tpu_torch.utils.profiling import span
 
 Size = Tuple[int, int]
 
@@ -146,8 +147,9 @@ class SguFinalFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        flow_q, x_out = ctx.saved_tensors
-        return sgu_final_vjp(flow_q, x_out, ctx.out_hw, g) + (None,)
+        with span("upflow.rule.SguFinalFn"):
+            flow_q, x_out = ctx.saved_tensors
+            return sgu_final_vjp(flow_q, x_out, ctx.out_hw, g) + (None,)
 
 
 def sgu_final(flow_q: torch.Tensor, x_out: torch.Tensor, out_hw: Size,

@@ -21,6 +21,7 @@ from upflow_pytorch_tpu_torch.ops import warp as _w
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
     INT, PTR, check_columns, check_cpu_input, check_cuda_input,
     count_cuda_call, launch, wants_grad, whole_frame)
+from upflow_pytorch_tpu_torch.utils.profiling import span
 
 MAX_CHANNELS = 4  # the kernel's channel limit (csrc/warp.cu)
 
@@ -73,7 +74,8 @@ class WarpFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _w.warp_vjp(*ctx.saved_tensors, g)
+        with span("upflow.rule.WarpFn"):
+            return _w.warp_vjp(*ctx.saved_tensors, g)
 
 
 def warp(x: torch.Tensor, flow: torch.Tensor, x0: int = 0) -> torch.Tensor:

@@ -50,6 +50,7 @@ from upflow_pytorch_tpu_torch.models.upflow import (
     UPFlowNet, build_model, forward_with_loss, fp32_numerics)
 from upflow_pytorch_tpu_torch.parallel.reduce import (
     average_gradients, average_metrics, global_normalisers)
+from upflow_pytorch_tpu_torch.utils.profiling import span
 
 # the modules frozen by if_froze_pwc (the reference's froze_PWC)
 PWC_FROZEN_ROOTS = ("feature_pyramid_extractor", "flow_estimators",
@@ -148,27 +149,30 @@ def make_train_step(model: UPFlowNet, optimizer: torch.optim.Optimizer,
     trainable = [p for p in model.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        with deterministic_numerics():
-            set_learning_rate(optimizer, state.step)
+        with span("upflow.step"), deterministic_numerics():
             model.zero_grad(set_to_none=True)
             with (contextlib.nullcontext() if mesh is None
                   else global_normalisers(mesh)):
-                out = forward_with_loss(model, batch)
-                metrics = {k: out[k].detach() for k in METRICS
-                           if out[k] is not None}
-                total = out["total_loss"]
+                with span("upflow.step.loss"):
+                    out = forward_with_loss(model, batch)
+                    metrics = {k: out[k].detach() for k in METRICS
+                               if out[k] is not None}
+                    total = out["total_loss"]
                 if eq_loss_weight > 0:
-                    eq = eq_loss_weight * equivariance_pass(
-                        model, batch, out, step_generator(state.step),
-                        use_occ=eq_loss_use_occ, loss_type=eq_loss_type,
-                        mesh=mesh)
-                    metrics["eq_loss"] = eq.detach()
-                    total = total + eq
-            with fp32_numerics():
+                    with span("upflow.step.equivariance"):
+                        eq = eq_loss_weight * equivariance_pass(
+                            model, batch, out, step_generator(state.step),
+                            use_occ=eq_loss_use_occ,
+                            loss_type=eq_loss_type, mesh=mesh)
+                        metrics["eq_loss"] = eq.detach()
+                        total = total + eq
+            with span("upflow.step.backward"), fp32_numerics():
                 total.backward()
             if mesh is not None:
                 average_gradients(mesh, trainable)
-            optimizer.step()
+            with span("upflow.step.optimizer"):
+                set_learning_rate(optimizer, state.step)
+                optimizer.step()
             metrics["total_loss"] = total.detach()
             if mesh is not None:
                 metrics = average_metrics(mesh, metrics)

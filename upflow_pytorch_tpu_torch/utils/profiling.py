@@ -10,7 +10,9 @@ instrumentation is wall-clock prints (``tools.time_clock``,
 - ``time_jitted``: the latency of a callable after warm-up calls, by CUDA
   events when it runs on the card and by ``time.perf_counter`` on the
   CPU;
-- ``flops_of``: operations counted by ``torch.utils.flop_counter``.
+- ``flops_of``: operations counted by ``torch.utils.flop_counter``;
+- ``span(name)``: the program's own host ranges (``upflow.*``), live only
+  while a profiler records, so ``trace`` shows the port's span tree.
 
 The JAX module's ``start_server`` (a ``jax.profiler`` server for
 on-demand capture) has no PyTorch counterpart and is left out.
@@ -24,10 +26,47 @@ import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile
-from torch.utils.flop_counter import FlopCounterMode
 
 TRACE_FILE = "trace.json"
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, suffix: Any = None):
+    """A host range named ``name`` (with ``suffix`` appended, when given)
+    while a torch profiler records, else one shared null context.
+
+    The range is the profiler's own function-scope range, the kind it
+    opens for an operator and that torch opens around its compiled Triton
+    launches: the profiler links every device operation launched inside
+    it, through the C library too, to the range itself.  A
+    ``record_function`` range is user-scope: the kernels that the C
+    library launches inside one are linked to no host op (measured on the
+    H100, PERF.md), and it costs about ten times as much.  The ranges sit
+    in the profiler's timeline, on the clock of its device events, so each
+    idle gap of the device lies under the span the host was in.  With no
+    profiler recording the cost is one flag read: the name is joined only
+    on the recording branch, so the off path formats no string and
+    allocates nothing.  There is no setting: ``trace(log_dir)`` and any
+    other ``torch.profiler.profile`` turn them on.
+
+    The names (``README.md`` lists them): ``upflow.forward`` (the entry,
+    root) over ``upflow.copy_in``, ``upflow.pyramid``,
+    ``upflow.level.<i>``, ``upflow.upsample``, ``upflow.occlusion`` and
+    ``upflow.copy_out``; ``upflow.step`` (root) over ``upflow.step.loss``,
+    ``upflow.step.equivariance``, ``upflow.step.backward`` and
+    ``upflow.step.optimizer``; ``upflow.kernel.<op>`` around each C entry
+    point's call; ``upflow.rule.<Function>`` around each kernel op's
+    gradient rule.  Autograd runs a CUDA backward on its own device
+    thread, so on the card the rules' spans, and the kernels they launch,
+    lie on that thread and not under ``upflow.step.backward``."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name if suffix is None
+                                   else "%s%s" % (name, suffix))
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -99,6 +138,10 @@ def flops_of(fn: Callable, *args) -> Optional[float]:
     """Operations of one call of ``fn(*args)`` by ``FlopCounterMode`` (the
     aten operators it knows; the hand-written kernels are not counted);
     None when it counted none."""
+    # imported here: the flop counter imports triton where it is
+    # installed, which the spans' users (every kernel op) need not pay
+    from torch.utils.flop_counter import FlopCounterMode
+
     with FlopCounterMode(display=False) as counter:
         fn(*args)
     flops = counter.get_total_flops()
