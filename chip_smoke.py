@@ -41,11 +41,13 @@ Phases, each of which must pass:
    checkpoint ``assets/synthetic_trained.npz``, on three paths: the eval
    recipe without SGU (slice 1), with SGU (the served configuration), and
    with SGU at bf16.  For each path: count the kernel launches of each
-   forward (``conv3x3_seg`` by staging route, and its weight packs: none
-   after a model's first forward), then hold the kernel path against the
-   plain path on the card and time both.  Then one SGU request under
-   ``torch.set_float32_matmul_precision("high")`` keeps the SGU bars, and
-   the caller's setting reads the same afterwards.
+   forward inside ``upflow.eager_entry()`` (``conv3x3_seg`` by staging
+   route, and its weight packs: none after a model's first forward), then
+   hold the kernel path (a request's second and later forwards replay its
+   CUDA graph) against the plain path on the card and time both.  Then
+   one SGU request under ``torch.set_float32_matmul_precision("high")``
+   keeps the SGU bars, and the caller's setting reads the same
+   afterwards.  (Phases 5-11 count launches with the entry eager.)
 4. Profile one forward of each path at B=4, 384x1280, split its device
    time by kind and count its device kernels.
 5. Evaluate against ground truth: ``EvaluationBench`` with the port's
@@ -1046,7 +1048,8 @@ def plain_path(k):
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
     try:
-        yield
+        with k.upflow.eager_entry():  # a graph's replay ignores the swaps
+            yield
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -1059,7 +1062,8 @@ def library_route(k):
     saved = k.conv_ops.uses_kernel
     k.conv_ops.uses_kernel = lambda *args: False
     try:
-        yield
+        with k.upflow.eager_entry():
+            yield
     finally:
         k.conv_ops.uses_kernel = saved
 
@@ -1128,50 +1132,54 @@ def phase_serve(k, tag: str, ref_model=None):
         fn.cuda_calls = 0
     routes.update({"tma": 0, "cp.async": 0})
     cn_routes.update({"vec": 0, "word": 0})
-    for i, ((b, h, w, seed), (im1, im2)) in enumerate(zip(requests, pairs)):
-        before = {n: fn.launches for n, fn in k.dispatch.items()}
-        routes_before = dict(routes)
-        cn_before = dict(cn_routes)
-        packs_before = k.seg.pack_weight.calls
-        out = k.upflow.forward(model, im1, im2)
-        torch.cuda.synchronize()
-        delta = {n: fn.launches - before[n] for n, fn in k.dispatch.items()}
-        what = "%s request %dx%dx%d" % (tag, b, h, w)
-        check(delta == per_forward, "%s: launches %s" % (what, delta))
-        # conv3x3_seg: TMA staging on the aligned 384x1280 pyramid,
-        # cp.async copies on 375x1242's; weights packed at the model's
-        # first call only
-        convs = per_forward["conv3x3_seg"]
-        aligned = h % 64 == 0 and w % 64 == 0
-        ran = {r: n - routes_before[r] for r, n in routes.items()}
-        packs = k.seg.pack_weight.calls - packs_before
-        check(ran == {"tma": convs if aligned else 0,
-                      "cp.async": 0 if aligned else convs},
-              "%s: conv3x3_seg launches by staging route %s" % (what, ran))
-        # corr_norm: 4-pixel copies at the widths that are whole 4-pixel
-        # groups (all of 384x1280's levels, 375x1242's 156), 4-byte words
-        # at 375x1242's 39, 78 and 311
-        vec = 2 * sum(lw % 4 == 0 for _, lw in pyramid_hw(h, w)[1:])
-        ran = {r: n - cn_before[r] for r, n in cn_routes.items()}
-        check(ran == {"vec": vec, "word": per_forward["corr_norm"] - vec},
-              "%s: corr_norm launches by staging route %s" % (what, ran))
-        check(i == 0 or packs == 0,
-              "%s: %d pack_weight calls (the model's first forward packs "
-              "its kernel-route convs once)" % (what, packs))
-        for key, ch in (("flow_f_out", 2), ("flow_b_out", 2),
-                        ("occ_fw", 1), ("occ_bw", 1)):
-            t = out[key]
-            check(tuple(t.shape) == (b, h, w, ch) and t.is_cuda
-                  and bool(torch.isfinite(t).all()),
-                  "%s: %s %s finite on %s" % (what, key, tuple(t.shape),
-                                             t.device))
-        check(bool(((out["occ_fw"] == 0) | (out["occ_fw"] == 1)).all()),
-              "%s: occlusion mask in {0, 1}" % what)
-        check(len(out["flows"]) == 5, "%s: 5 levels" % what)
-        print("  info %s: mean flow (u, v) = (%.3f, %.3f); the frames are "
-              "shifted by (5, -3) px"
-              % ((what,) + tuple(out["flow_f_out"].mean(dim=(0, 1, 2))
-                                 .tolist())))
+    # eager: the launch counters count at a graph's capture, not its replay
+    with k.upflow.eager_entry():
+        for i, ((b, h, w, seed), (im1, im2)) in enumerate(
+                zip(requests, pairs)):
+            before = {n: fn.launches for n, fn in k.dispatch.items()}
+            routes_before = dict(routes)
+            cn_before = dict(cn_routes)
+            packs_before = k.seg.pack_weight.calls
+            out = k.upflow.forward(model, im1, im2)
+            torch.cuda.synchronize()
+            delta = {n: fn.launches - before[n]
+                     for n, fn in k.dispatch.items()}
+            what = "%s request %dx%dx%d" % (tag, b, h, w)
+            check(delta == per_forward, "%s: launches %s" % (what, delta))
+            # conv3x3_seg: TMA staging on the aligned 384x1280 pyramid,
+            # cp.async copies on 375x1242's; weights packed at the model's
+            # first call only
+            convs = per_forward["conv3x3_seg"]
+            aligned = h % 64 == 0 and w % 64 == 0
+            ran = {r: n - routes_before[r] for r, n in routes.items()}
+            packs = k.seg.pack_weight.calls - packs_before
+            check(ran == {"tma": convs if aligned else 0,
+                          "cp.async": 0 if aligned else convs},
+                  "%s: conv3x3_seg launches by staging route %s" % (what, ran))
+            # corr_norm: 4-pixel copies at the widths that are whole 4-pixel
+            # groups (all of 384x1280's levels, 375x1242's 156), 4-byte words
+            # at 375x1242's 39, 78 and 311
+            vec = 2 * sum(lw % 4 == 0 for _, lw in pyramid_hw(h, w)[1:])
+            ran = {r: n - cn_before[r] for r, n in cn_routes.items()}
+            check(ran == {"vec": vec, "word": per_forward["corr_norm"] - vec},
+                  "%s: corr_norm launches by staging route %s" % (what, ran))
+            check(i == 0 or packs == 0,
+                  "%s: %d pack_weight calls (the model's first forward packs "
+                  "its kernel-route convs once)" % (what, packs))
+            for key, ch in (("flow_f_out", 2), ("flow_b_out", 2),
+                            ("occ_fw", 1), ("occ_bw", 1)):
+                t = out[key]
+                check(tuple(t.shape) == (b, h, w, ch) and t.is_cuda
+                      and bool(torch.isfinite(t).all()),
+                      "%s: %s %s finite on %s" % (what, key, tuple(t.shape),
+                                                 t.device))
+            check(bool(((out["occ_fw"] == 0) | (out["occ_fw"] == 1)).all()),
+                  "%s: occlusion mask in {0, 1}" % what)
+            check(len(out["flows"]) == 5, "%s: 5 levels" % what)
+            print("  info %s: mean flow (u, v) = (%.3f, %.3f); the frames are "
+                  "shifted by (5, -3) px"
+                  % ((what,) + tuple(out["flow_f_out"].mean(dim=(0, 1, 2))
+                                     .tolist())))
     launches = {n: fn.launches for n, fn in k.dispatch.items()}
     plain_calls = {n: fn.cuda_calls for n, fn in k.plain.items()}
     check(all((v > 0) == (per_forward[n] > 0) for n, v in launches.items()),
@@ -4407,35 +4415,39 @@ def main(argv) -> int:
     print("phase 4: profile one forward of each path", flush=True)
     kernels_per_forward = {tag: phase_profile(k, models[tag], pairs[tag], tag)
                            for tag in PATHS}
-    print("phase 5: evaluate against ground truth", flush=True)
-    phase_eval(k, models)
-    del models, pairs
-    print("phase 6: train", flush=True)
-    train = phase_train(k)
-    print("phase 7: the Trainer", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        trainer_c, pair, train["trainer"] = phase_trainer(
-            k, Path(tmp), train["fp32"]["profiled_step"]["device_ms"])
-        train["trainer"]["pth"] = phase_pth(k, trainer_c.model, pair,
-                                            Path(tmp))
-        del trainer_c
-    train["trainer"]["learning"] = phase_learn(k)
-    print("phase 8: KITTI and Sintel data, the native decoder, the CLIs",
-          flush=True)
-    t0 = time.perf_counter()
-    print("phase 8a", flush=True)
-    print(json.dumps({"phase_8a": phase_shapes(k)}), flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        root, pth = phase_data(k, Path(tmp))
-        print("  info phase 8 took %.1f s" % (time.perf_counter() - t0))
-        print("phase 9: data parallelism on the card", flush=True)
+    # phases 5-11 count launches over whole evaluations, CLIs, runs and
+    # steps, and the counters count at a graph's capture, not its replay:
+    # the entry runs eagerly from here on
+    with k.upflow.eager_entry():
+        print("phase 5: evaluate against ground truth", flush=True)
+        phase_eval(k, models)
+        del models, pairs
+        print("phase 6: train", flush=True)
+        train = phase_train(k)
+        print("phase 7: the Trainer", flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer_c, pair, train["trainer"] = phase_trainer(
+                k, Path(tmp), train["fp32"]["profiled_step"]["device_ms"])
+            train["trainer"]["pth"] = phase_pth(k, trainer_c.model, pair,
+                                                Path(tmp))
+            del trainer_c
+        train["trainer"]["learning"] = phase_learn(k)
+        print("phase 8: KITTI and Sintel data, the native decoder, the CLIs",
+              flush=True)
         t0 = time.perf_counter()
-        parallel = phase_parallel(k, root, Path(tmp), pth, train)
-        print("  info phase 9 took %.1f s" % (time.perf_counter() - t0))
-        print("phase 10: width sharding on the card", flush=True)
-        spatial = phase_spatial(k, Path(tmp))
-    print("phase 11: the port's bench and its batch sweep", flush=True)
-    bench = phase_bench(k)
+        print("phase 8a", flush=True)
+        print(json.dumps({"phase_8a": phase_shapes(k)}), flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            root, pth = phase_data(k, Path(tmp))
+            print("  info phase 8 took %.1f s" % (time.perf_counter() - t0))
+            print("phase 9: data parallelism on the card", flush=True)
+            t0 = time.perf_counter()
+            parallel = phase_parallel(k, root, Path(tmp), pth, train)
+            print("  info phase 9 took %.1f s" % (time.perf_counter() - t0))
+            print("phase 10: width sharding on the card", flush=True)
+            spatial = phase_spatial(k, Path(tmp))
+        print("phase 11: the port's bench and its batch sweep", flush=True)
+        bench = phase_bench(k)
 
     print(json.dumps({"forward_ms": timing,
                       "device_kernels_per_forward": kernels_per_forward}))

@@ -15,13 +15,18 @@ a map whose width is sharded: the input is this rank's columns of a map
 ``cols.width`` wide, the output this rank's columns of the resized map,
 from the rows ``[lo, hi)`` of the global column matrix over the input
 window their taps reach.
+
+The interpolation and pool matrices are device constants, made once per
+size and device and kept in bounded caches.  A CUDA graph reads them by
+address, so ``keeping_constants`` lists the ones a capture looks up and
+its owner holds them after the caches evict them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Iterator, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,7 +89,39 @@ def _interp_matrix_np(out_size: int, in_size: int) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=256)
+_kept: Optional[List[object]] = None  # the list of ``keeping_constants``
+
+
+def _device_constant(maxsize: int):
+    """``functools.lru_cache(maxsize)`` for a function that makes a
+    constant on a device; inside ``keeping_constants`` each lookup is also
+    appended to its list."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def get(*args):
+            out = cached(*args)
+            if _kept is not None:
+                _kept.append(out)
+            return out
+        return get
+    return wrap
+
+
+@contextlib.contextmanager
+def keeping_constants() -> Iterator[List[object]]:
+    """Yields a list that receives every device constant looked up in the
+    block (the interpolation and pool matrices, the taps)."""
+    global _kept
+    saved, _kept = _kept, []
+    try:
+        yield _kept
+    finally:
+        _kept = saved
+
+
+@_device_constant(maxsize=256)
 def _interp_matrix(out_size: int, in_size: int,
                    device: torch.device) -> torch.Tensor:
     """The matrix on ``device``, kept after its first use: a copy from host
@@ -93,7 +130,7 @@ def _interp_matrix(out_size: int, in_size: int,
     return torch.from_numpy(_interp_matrix_np(out_size, in_size)).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+@_device_constant(maxsize=64)
 def interp_taps(out_size: int, in_size: int, device: torch.device
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The nonzero entries of each row of ``_interp_matrix_np(out_size,
@@ -176,7 +213,7 @@ def resize_vjp(g: torch.Tensor, in_hw: Tuple[int, int]) -> torch.Tensor:
     return gf
 
 
-@functools.lru_cache(maxsize=64)
+@_device_constant(maxsize=64)
 def _pool_matrix(out_size: int, in_size: int,
                  device: torch.device) -> torch.Tensor:
     """(out_size, in_size) area-pool matrix on ``device``, kept there: bin
