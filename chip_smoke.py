@@ -200,10 +200,27 @@ Phases, each of which must pass:
    with the package's ``deterministic_numerics`` replaced by a null
    context times what determinism costs (median step ms both ways, the
    ratio, peak memory); ``bincount`` with weights must raise under the manager.
+12. RAFT (``models/raft.py``; ``python3 chip_smoke.py --raft`` runs phases
+   1 and 12 alone).  The correlation lookup kernel against its plain
+   version (corr.py's ``bilinear_sampler``) at the cell's 47x156 grid of
+   both directions, at a ragged 17x45 grid of 3 items and at 48x160 of 4,
+   coordinates partly and wholly outside every level included, at fp32
+   and bf16 output, the same bits on a second call, its device ms beside
+   its bound and the plain version's ms; ``conv3x3_seg`` at each 3x3
+   conv of a request: the encoders' three shapes without an activation,
+   the update block's five with ReLU or none, on the channel ranges of
+   its buffers that it reads and writes; then the bf16 entry at
+   375x1242: one eager request's launches (24 lookups, 24 iterations, no
+   plain version on the card), a capture and replays bit for bit the
+   eager request, the forward ms from the graph and eagerly, the request
+   through the plain lookup and conv within 0.1 px EPE of the kernels',
+   and a profiled request's ``upflow.raft.*`` spans and device ms by
+   span.
 
 The line before the last is the card's name and power limit; the line
-before that holds the kernels' numbers as JSON, and the one before that
-the training step's (with the Trainer's under ``trainer``); the kernels'
+before that holds the kernels' numbers as JSON, the one before that
+RAFT's, and the one before that the training step's (with the Trainer's
+under ``trainer``); the kernels'
 line also holds each kernel's launches in phase 9a's sharded step, and
 in phase 10b's width-sharded forward, and the cases phase 10a held it
 at on a rank's columns.  The last line,
@@ -323,6 +340,7 @@ KERNEL_OF = (("corr_plain_kernel", "correlation"),
              ("sgu_blend_kernel", "sgu_blend"),
              ("sgu_final_kernel", "sgu_final"),
              ("conv3x3_seg_kernel", "conv3x3_seg"),
+             ("corr_lookup_kernel", "corr_lookup"),  # RAFT's
              ("warp_kernel", "warp"))
 # the kernels' other rows: row 5 of the TPU kernels (_window_warp_resident)
 # is served by the image warp kernel, and the bf16 rows are the bf16
@@ -4218,8 +4236,10 @@ class Port:
         from upflow_pytorch_tpu_torch.config import UPFlowConfig
         from upflow_pytorch_tpu_torch.data import synthetic
         from upflow_pytorch_tpu_torch.eval import bench
-        from upflow_pytorch_tpu_torch.models import upflow
+        from upflow_pytorch_tpu_torch.config import RAFTConfig
+        from upflow_pytorch_tpu_torch.models import raft, upflow
         from upflow_pytorch_tpu_torch.ops import conv as conv_ops
+        from upflow_pytorch_tpu_torch.ops.kernels import corr_lookup as cl
         from upflow_pytorch_tpu_torch.ops import warp as warp_ops
         from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as seg
         from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as cn
@@ -4248,6 +4268,7 @@ class Port:
         self.build, self.UPFlowConfig = _build, UPFlowConfig
         self.step, self.TrainerConfig = step, TrainerConfig
         self.upflow = upflow
+        self.raft, self.cl, self.RAFTConfig = raft, cl, RAFTConfig
         self.pmesh, self.pstep, self.dryrun = pmesh, pstep, dryrun
         self.warp_ops, self.cn, self.corr, self.fw, self.warp = (
             warp_ops, cn, corr, fw, warp)
@@ -4311,6 +4332,251 @@ SOURCES.update({row: SOURCES[kernel] for row, kernel in SERVED_BY.items()
 # the rows that the bf16 path runs: their launches are counted there
 BF16_ROWS = ("conv3x3_seg", "correlation_bf16", "feature_warp_bf16",
              "corr_norm_bf16", "sgu_blend_bf16")
+
+
+RAFT_LOOKUPS = (("b1_375x1242", 2, 47, 156, 20.0),  # the cell's grid
+                ("odd_17x45", 3, 17, 45, 60.0),  # a ragged edge, 3 items
+                ("b2_384x1280", 4, 48, 160, 30.0))
+RAFT_FRAME = (375, 1242)
+RAFT_GRID = (47, 156)  # the 1/8 grid of the frame padded to 376x1248
+# the request through the plain lookup and conv3x3_seg against the kernels'
+# (flow EPE, px, the worse direction): both round at the same points and
+# part by summation order alone, 0.031 px on the H100 over 24 iterations;
+# a kernel that drops a bias, a ReLU or a channel range moves the flow by
+# pixels
+RAFT_PLAIN_EPE = 0.1
+RAFT_FORWARDS = 20
+RAFT_SPANS = ("upflow.raft.encoders", "upflow.raft.corr_volume",
+              "upflow.raft.lookup", "upflow.raft.update",
+              "upflow.raft.upsample", "upflow.kernel.corr_lookup")
+# the lookup's bar: the kernel skips grid_sample's normalising round trip,
+# which moves a coordinate by a few fp32 ulps of ~150 px (<1e-4 px), so a
+# value by less than 1e-4 of the volume's largest; at bf16 the two round
+# that to bf16, so they may also part by one bf16 ulp (at most 2^-7 of
+# the value)
+RAFT_LOOKUP_REL = 1e-4
+
+
+def lookup_case(k, n, h, w, amp, seed):
+    """A random bf16 feature pair's pyramid and coordinates around the
+    grid, some pixels pushed partly or wholly outside every level."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    f1 = torch.randn(n, 256, h, w, device=DEV, generator=g).bfloat16()
+    f2 = torch.randn(n, 256, h, w, device=DEV, generator=g).bfloat16()
+    pyramid = k.raft.corr_pyramid(f1, f2)
+    rng = np.random.RandomState(seed)
+    coords = k.raft.coords_grid(n, h, w, DEV) + make_flow(rng, n, h, w, amp)
+    coords[:, 0, 0, :5] = torch.tensor([-6.5, w + 3.2, -1e7, 1e7, w - 1.0])
+    return pyramid, coords.contiguous()
+
+
+def phase_raft(k):
+    """RAFT (``models/raft.py``): the lookup kernel against its plain
+    version, ``conv3x3_seg`` at RAFT's shapes and buffer ranges, and the
+    entry at 375x1242 eagerly, from its graph and on the plain versions.
+    Returns the phase's numbers."""
+    out = {"lookup": [], "card": nvidia_smi_line()}
+    for name, n, h, w, amp in RAFT_LOOKUPS:
+        pyramid, coords = lookup_case(k, n, h, w, amp, len(out["lookup"]))
+        scale = pyramid[0].abs().max().item()
+        row = {"case": name, "n": n, "grid": [h, w],
+               "levels": [list(v.shape[2:]) for v in pyramid]}
+        for dtype in (torch.float32, torch.bfloat16):
+            got = k.cl.corr_lookup_cuda(pyramid, coords, dtype).float()
+            ref = k.cl.corr_lookup_plain(pyramid, coords, dtype).float()
+            diff = (got - ref).abs()
+            bar = RAFT_LOOKUP_REL * scale
+            if dtype == torch.bfloat16:
+                bar = bar + 2.0 ** -7 * ref.abs()
+            ok = bool((diff <= bar).all()) and bool(torch.isfinite(got).all())
+            check(ok, "corr_lookup %s %s: max |kernel - plain| %.3e (volume "
+                  "max %.3f)" % (name, str(dtype)[6:], diff.max().item(),
+                                 scale))
+            row["max_abs_err_" + str(dtype)[6:]] = diff.max().item()
+        # a second call gives the same bits
+        a = k.cl.corr_lookup_cuda(pyramid, coords, torch.bfloat16)
+        b = k.cl.corr_lookup_cuda(pyramid, coords, torch.bfloat16)
+        check(torch.equal(a, b), "corr_lookup %s: the same bits twice" % name)
+        px = n * h * w
+        # a pixel's 10x10 footprint on each level, as much as it holds
+        nbytes = px * (8 + sum(4 * min(10, v.shape[2]) * min(10, v.shape[3])
+                               for v in pyramid) + 324 * 2)
+        row["ms"] = time_ms(lambda: k.cl.corr_lookup_cuda(
+            pyramid, coords, torch.bfloat16))
+        row["device_ms"], _ = device_ms(lambda: k.cl.corr_lookup_cuda(
+            pyramid, coords, torch.bfloat16), "corr_lookup_kernel")
+        row["plain_ms"] = time_ms(lambda: k.cl.corr_lookup_plain(
+            pyramid, coords, torch.bfloat16), reps=5, inner=2)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, px * 324 * 7)
+        print("  info corr_lookup %s: kernel %s ms (device %s), plain %s, "
+              "bound %s ms (%s)" % (name, fmt(row["ms"]),
+                                    fmt(row["device_ms"]),
+                                    fmt(row["plain_ms"]), fmt(row["bound_ms"]),
+                                    row["bound_by"]), flush=True)
+        out["lookup"].append(row)
+        del pyramid
+    # conv3x3_seg at every shape and buffer range a RAFT request gives it
+    for what, ok in raft_conv_cases(k):
+        check(ok[0], "conv3x3_seg %s: %s" % (what, ok[1]))
+
+    # the entry at 375x1242, bf16
+    conf = k.RAFTConfig(compute_dtype="bfloat16")
+    model = k.upflow.build_model(conf, seed=5)
+    h, w = RAFT_FRAME
+    im1, im2 = textured_pair(1, h, w, 31)
+    im1, im2 = im1 * 255.0, im2 * 255.0
+    with k.upflow.eager_entry():
+        zero_counts(k)
+        k.cl.corr_lookup.launches = 0
+        k.cl.corr_lookup_plain.cuda_calls = 0
+        iters0 = k.raft.RAFTNet.iterations
+        eager = k.upflow.forward(model, im1, im2)
+        torch.cuda.synchronize()
+        launches = {"corr_lookup": k.cl.corr_lookup.launches,
+                    "conv3x3_seg": k.seg.conv3x3_seg.launches,
+                    "iterations": k.raft.RAFTNet.iterations - iters0}
+    check(launches["corr_lookup"] == conf.iters
+          and launches["iterations"] == conf.iters
+          and k.cl.corr_lookup_plain.cuda_calls == 0
+          and k.seg.conv3x3_seg_plain.cuda_calls == 0,
+          "RAFT request: %s, no plain version on the card" % launches)
+    check(all(bool(torch.isfinite(eager[key]).all())
+              for key in ("flow_f_out", "flow_b_out")),
+          "RAFT flows finite (mean |flow| %.2f px)"
+          % eager["flow_f_out"].norm(dim=-1).mean().item())
+    f = k.upflow.forward
+    c0, r0 = f.graph_captures, f.graph_replays
+    outs = [k.upflow.forward(model, im1, im2) for _ in range(4)]
+    torch.cuda.synchronize()
+    check(f.graph_captures - c0 == 1 and f.graph_replays - r0 == 2,
+          "RAFT entry: one capture and two replays after the key's first "
+          "call (%d, %d)" % (f.graph_captures - c0, f.graph_replays - r0))
+    same = all(torch.equal(o[key], eager[key]) for o in outs[1:]
+               for key in ("flow_f_out", "flow_b_out", "occ_fw", "occ_bw"))
+    check(same, "RAFT graph replays bit for bit the eager request")
+    out["launches"] = launches
+    out["forward_ms"] = wall_ms(lambda: k.upflow.forward(model, im1, im2),
+                                reps=RAFT_FORWARDS)
+    out["eager_forward_ms"] = wall_ms(lambda: eager_call(k, model, im1, im2),
+                                      reps=3)
+    out["device_ms"] = time_ms(lambda: k.upflow.forward(model, im1, im2),
+                               reps=5, inner=4)
+    # the whole request through the plain lookup and conv
+    with raft_plain(k):
+        plain = k.upflow.forward(model, im1, im2)
+    out["plain_path_epe_px"] = epe = max(
+        (eager[key] - plain[key]).norm(dim=-1).mean().item()
+        for key in ("flow_f_out", "flow_b_out"))
+    check(epe <= RAFT_PLAIN_EPE, "RAFT request through the plain lookup and "
+          "conv3x3_seg: %.4f px EPE from the kernels' (bar %.2f)"
+          % (epe, RAFT_PLAIN_EPE))
+    # a profiled request: the spans and the lookup kernel under its span
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        k.upflow.forward(model, im1, im2)
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = [e.name for e in events if e.device_type == DeviceType.CPU]
+    out["device_ops"] = sum(1 for e in events
+                            if e.device_type == DeviceType.CUDA)
+    spans = {s: names.count(s) for s in RAFT_SPANS}
+    check(all(spans.values()) and spans["upflow.raft.lookup"] == conf.iters
+          and spans["upflow.raft.update"] == conf.iters,
+          "RAFT spans in a profiled request: %s" % spans)
+    by_span = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        parent, anc = e, []
+        while parent is not None:
+            anc.append(parent.name)
+            parent = parent.cpu_parent
+        top = next((a for a in anc if a.startswith("upflow.raft.")), "other")
+        by_span[top] = by_span.get(top, 0.0) + sum(
+            kk.duration for kk in e.kernels) / 1e3
+    out["device_ms_by_span"] = by_span
+    out["spans"] = spans
+    print("  info RAFT 375x1242 bf16: forward %s ms from the graph (eager "
+          "%s), device %s ms, %d device operations; by span %s" % (
+              fmt(out["forward_ms"]), fmt(out["eager_forward_ms"]),
+              fmt(out["device_ms"]), out["device_ops"],
+              {s: round(v, 3) for s, v in by_span.items()}), flush=True)
+    return out
+
+
+def raft_conv_cases(k):
+    """``conv3x3_seg`` against its plain version at each 3x3 stride-1 conv
+    of a bf16 RAFT request at 375x1242 (two items: both directions), on
+    the buffers the request gives it: the encoders' convs without an
+    activation (a norm follows), and the update block's with ReLU or none,
+    reading and writing channel ranges of ``cf`` (256 channels), ``hx``
+    (384) and the heads' map (512) as ``BasicUpdateBlock.step`` does.  A
+    write into a range leaves the buffer's other channels as they were.
+    Yields (what, (ok, description))."""
+    rng = np.random.RandomState(12)
+    h, w = RAFT_GRID
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(DEV)
+
+    def case(what, x, cout, relu, buf=None, chans=None):
+        cin = x.shape[1]
+        wt = rand(cout, cin, 3, 3) / np.sqrt(9 * cin)
+        bias = rand(cout) * 0.1
+        before = None if buf is None else buf.clone()
+        got = k.seg.conv3x3_seg_cuda(x, wt, bias, 1, relu,
+                                     None if buf is None else buf[:, chans])
+        ref = k.seg.conv3x3_seg_plain(x, wt, bias, 1, relu).float()
+        _, (ok, desc) = conv_agreement(got.float(), ref)
+        if relu:
+            ok = ok and bool((got >= 0).all())
+        if buf is not None:
+            keep = torch.ones(buf.shape[1], dtype=torch.bool, device=DEV)
+            keep[chans] = False
+            ok = ok and torch.equal(buf[:, keep], before[:, keep])
+        return "%s, %d->%d at %dx%dx%d" % (what, cin, cout, x.shape[0],
+                                           x.shape[2], x.shape[3]), (ok, desc)
+
+    for cin, (hh, ww) in ((64, (4 * h, 4 * w)), (96, (2 * h, 2 * w)),
+                          (128, (h, w))):
+        yield case("encoder, no activation", rand(2, cin, hh, ww).bfloat16(),
+                   cin, False)
+    relu = k.seg.RELU
+    cf = rand(2, 256, h, w).bfloat16()
+    hx = rand(2, 384, h, w).bfloat16()
+    heads = rand(2, 512, h, w).bfloat16()
+    yield case("convc2 ReLU into cf[:, :192]", rand(2, 256, h, w).bfloat16(),
+               192, relu, cf, slice(0, 192))
+    yield case("convf2 ReLU into cf[:, 192:]", rand(2, 128, h, w).bfloat16(),
+               64, relu, cf, slice(192, 256))
+    yield case("conv ReLU of cf into hx[:, 256:382]", cf, 126, relu, hx,
+               slice(256, 382))
+    yield case("heads ReLU of hx[:, :128]", hx[:, :128], 512, relu)
+    yield case("flow head of heads[:, :256]", heads[:, :256], 2, False)
+
+
+def eager_call(k, model, im1, im2):
+    with k.upflow.eager_entry():
+        return k.upflow.forward(model, im1, im2)
+
+
+@contextlib.contextmanager
+def raft_plain(k):
+    """RAFT's lookup and ``conv3x3_seg`` on their plain versions."""
+    swaps = [(k.raft, "corr_lookup", k.cl.corr_lookup_plain),
+             (k.conv_ops, "conv3x3_seg", k.seg.conv3x3_seg_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        with k.upflow.eager_entry():
+            yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def kernels_line(rows, launches, one_rank, spatial, bench):
@@ -4403,6 +4669,10 @@ def main(argv) -> int:
           "fp32 matrix products run in full fp32 (allow_tf32 %s, precision "
           "%s)" % (torch.backends.cuda.matmul.allow_tf32,
                    torch.get_float32_matmul_precision()))
+    if argv[:1] == ["--raft"]:  # phases 1 and 12 alone
+        print("phase 12: RAFT", flush=True)
+        print(json.dumps({"raft": phase_raft(k)}), flush=True)
+        return finish(name)
     print("phase 2: kernels against their plain versions", flush=True)
     rows = phase_kernels(k)
     print("phase 3: serve requests", flush=True)
@@ -4448,13 +4718,20 @@ def main(argv) -> int:
             spatial = phase_spatial(k, Path(tmp))
         print("phase 11: the port's bench and its batch sweep", flush=True)
         bench = phase_bench(k)
+    print("phase 12: RAFT", flush=True)
+    raft = phase_raft(k)
 
     print(json.dumps({"forward_ms": timing,
                       "device_kernels_per_forward": kernels_per_forward}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"raft": raft}))
     print(json.dumps(kernels_line(rows, launches, parallel["9a"], spatial,
                                   bench)))
     print(smi)
+    return finish(name)
+
+
+def finish(name: str) -> int:
     if failures:
         print("chip_smoke: %d check(s) failed:\n  %s"
               % (len(failures), "\n  ".join(failures)), file=sys.stderr)

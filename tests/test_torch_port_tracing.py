@@ -21,18 +21,19 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
+from upflow_pytorch_tpu_torch.config import (
+    RAFTConfig, TrainerConfig, UPFlowConfig)
 from upflow_pytorch_tpu_torch.data.synthetic import make_dataset
 from upflow_pytorch_tpu_torch.models import upflow as pupflow
 from upflow_pytorch_tpu_torch.ops.kernels import (
-    _common, conv3x3_seg, corr_norm, correlation, feature_warp, sgu_blend,
-    sgu_final, warp)
+    _common, conv3x3_seg, corr_lookup, corr_norm, correlation, feature_warp,
+    sgu_blend, sgu_final, warp)
 from upflow_pytorch_tpu_torch.train import step as pstep
 from upflow_pytorch_tpu_torch.utils import profiling
 
 PACKAGE = Path(pupflow.__file__).resolve().parents[1]
-KERNEL_MODULES = (conv3x3_seg, corr_norm, correlation, feature_warp,
-                  sgu_blend, sgu_final, warp)
+KERNEL_MODULES = (conv3x3_seg, corr_lookup, corr_norm, correlation,
+                  feature_warp, sgu_blend, sgu_final, warp)
 
 # the training recipe of the determinism tests (SGU, the normalised cost
 # volume, census, the distillation) on B=2 64x128 crops
@@ -51,6 +52,16 @@ SERVING = [("upflow.forward", None), ("upflow.copy_in", "upflow.forward"),
            ("upflow.pyramid", "upflow.forward")] + [
     ("upflow.level.%d" % i, "upflow.forward") for i in range(5)] + [
     ("upflow.upsample", "upflow.forward"),
+    ("upflow.occlusion", "upflow.forward"),
+    ("upflow.copy_out", "upflow.forward")]
+# a RAFT request of ``RAFT_ITERS`` updates (``models/raft.py``)
+RAFT_ITERS = 2
+RAFT = [("upflow.forward", None), ("upflow.copy_in", "upflow.forward"),
+        ("upflow.raft.encoders", "upflow.forward"),
+        ("upflow.raft.corr_volume", "upflow.forward")] + [
+    (name, "upflow.forward") for _ in range(RAFT_ITERS)
+    for name in ("upflow.raft.lookup", "upflow.raft.update")] + [
+    ("upflow.raft.upsample", "upflow.forward"),
     ("upflow.occlusion", "upflow.forward"),
     ("upflow.copy_out", "upflow.forward")]
 STEP = {"upflow.step": None, "upflow.step.loss": "upflow.step",
@@ -138,6 +149,14 @@ def test_forward_holds_every_serving_span_nested(sgu):
     model = pupflow.build_model(conf, "cpu", seed=0)
     _, events = profiled(lambda: pupflow.forward(model, *pair()))
     assert [(e.name, owner(e)) for e in events] == SERVING
+
+
+def test_raft_forward_holds_its_spans_nested():
+    """A RAFT request opens the entry's spans and RAFT's own: the encoders,
+    the volume, each iteration's lookup and update, the upsampling."""
+    model = pupflow.build_model(RAFTConfig(iters=RAFT_ITERS), "cpu", seed=0)
+    _, events = profiled(lambda: pupflow.forward(model, *pair(hw=(124, 150))))
+    assert [(e.name, owner(e)) for e in events] == RAFT
 
 
 @pytest.mark.parametrize("eq_weight", [0.0, 0.1])
@@ -282,15 +301,15 @@ def kernel_ops():
 
 def test_every_span_of_the_table_is_in_the_package():
     assert span_literals() == sorted(
-        [n for n, _ in SERVING if not n.startswith("upflow.level.")]
-        + list(STEP) + ["upflow.level.<suffix>", "upflow.kernel.<suffix>"]
-        + ["upflow.rule.%s" % fn.__name__ for fn in functions()])
+        {n for n, _ in SERVING + RAFT if not n.startswith("upflow.level.")}
+        | set(STEP) | {"upflow.level.<suffix>", "upflow.kernel.<suffix>"}
+        | {"upflow.rule.%s" % fn.__name__ for fn in functions()})
 
 
 def test_every_kernel_op_is_named():
-    assert kernel_ops() == ["conv3x3_seg", "corr_norm", "correlation",
-                            "feature_warp", "sgu_blend", "sgu_blend_pair",
-                            "sgu_final", "warp"]
+    assert kernel_ops() == ["conv3x3_seg", "corr_lookup", "corr_norm",
+                            "correlation", "feature_warp", "sgu_blend",
+                            "sgu_blend_pair", "sgu_final", "warp"]
 
 
 @pytest.mark.parametrize("name", span_literals() + [

@@ -3,7 +3,8 @@
 The same knob surface as ``upflow_pytorch_tpu.config.UPFlowConfig``: the 22
 knobs of the reference ``UPFlow_net.config`` with their defaults, the
 extensions below them, and the ``updated`` / ``get_name`` helpers of the
-reference ``tools.abstract_config``; ``KittiTrainDataConfig``, the KITTI
+reference ``tools.abstract_config``; ``RAFTConfig``, the RAFT network
+served on the same entry; ``KittiTrainDataConfig``, the KITTI
 multiview training data's knobs; and ``TrainerConfig``, the trainer's
 knobs.
 """
@@ -101,6 +102,61 @@ class UPFlowConfig(ConfigBase):
     @property
     def dim_corr(self) -> int:
         return (self.search_range * 2 + 1) ** 2
+
+
+@dataclasses.dataclass(frozen=True)
+class RAFTConfig(ConfigBase):
+    """RAFT (Teed & Deng, ECCV 2020; princeton-vl/RAFT ``core/raft.py``),
+    the full model, served on the same entry as UPFlow
+    (``models/upflow.py::forward``).
+
+    The widths are the published ones and fixed (the properties below),
+    as are ``InputPadder``'s 'kitti' padding and the entry's occlusion
+    check with UPFlow's eval settings; the fields are what a deployment
+    chooses: the update iterations (``evaluate.py`` runs 24 on KITTI) and
+    the compute dtype (bfloat16 in place of RAFT's fp16
+    ``--mixed_precision``)."""
+
+    iters: int = 24
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+
+    # the entry's occlusion check: UPFlowConfig's defaults
+    occ_type = "for_back_check"
+    alpha_1 = 0.1
+    alpha_2 = 0.5
+    occ_check_obj_out_all = "obj"
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError("compute_dtype must be one of %s, got %r"
+                             % (" or ".join(map(repr, COMPUTE_DTYPES)),
+                                self.compute_dtype))
+        if self.iters < 1:
+            raise ValueError("iters must be at least 1, got %d" % self.iters)
+
+    @property
+    def feature_dim(self) -> int:  # the feature encoder's output
+        return 256
+
+    @property
+    def hidden_dim(self) -> int:
+        return 128
+
+    @property
+    def context_dim(self) -> int:
+        return 128
+
+    @property
+    def encoder_dims(self) -> Tuple[int, ...]:  # conv1, layer1..3
+        return (64, 64, 96, 128)
+
+    @property
+    def corr_levels(self) -> int:
+        return 4
+
+    @property
+    def corr_radius(self) -> int:
+        return 4
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,5 @@
-// 3x3 stride-1 dilated convolution + bias + LeakyReLU, bf16 in and out,
-// fp32 accumulation, for Hopper.
+// 3x3 stride-1 dilated convolution + bias + LeakyReLU (or ReLU), bf16 in
+// and out, fp32 accumulation, for Hopper.
 //
 // Replaces the TPU kernel upflow_pytorch_tpu/ops/pallas/conv.py
 // (_conv3x3_seg_fwd, _seg_kernel / _seg_kernel_stored):
@@ -53,7 +53,8 @@
 //   producer warpgroup copies each line from the 4-byte word that holds
 //   its first pixel with cp.async, and the consumers shift each line by
 //   its own half-word offset, zeroing pixels outside the image.
-// - The epilogue adds the bias, applies the LeakyReLU, rounds once, stages
+// - The epilogue adds the bias, applies the activation (relu 1: the
+//   LeakyReLU of slope 0.1; 2: RAFT's ReLU; 0: none), rounds once, stages
 //   the tile in shared memory and writes each channel's 64 pixels along W
 //   (16-byte stores where the row allows), masking columns past W and
 //   channels past Cout.
@@ -495,7 +496,7 @@ conv3x3_seg_kernel(const __grid_constant__ CUtensorMap wmap,
     const int col = (r >> 2) * 8 + 2 * (lane & 3) + (r & 1);
     const int co = n0 + col;
     float v = __fadd_rn(acc[r], co < Cout ? __ldg(bias + co) : 0.0f);
-    if (relu && !(v >= 0.0f)) v = __fmul_rn(v, 0.1f);
+    if (relu && !(v >= 0.0f)) v = relu == 2 ? 0.0f : __fmul_rn(v, 0.1f);
     stage[col * kEpiPitch + px] = __float2bfloat16_rn(v);
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
@@ -616,7 +617,8 @@ int launch_route(const __nv_bfloat16* x, long long x_bstride,
 // x: bf16 channel range (B, Cin, H, W), each item contiguous, batch stride
 // x_bstride elements; wp: weights packed for the block width nb (8, 16,
 // 32, 64, 96 or 128 output channels); bias: (Cout,) fp32; out: bf16
-// channel range (B, Cout, H, W) with batch stride out_bstride.  tma picks
+// channel range (B, Cout, H, W) with batch stride out_bstride.  relu: 0
+// none, 1 LeakyReLU 0.1, 2 ReLU.  tma picks
 // the TMA producer (W * 2, x_bstride * 2 and x multiples of 16 bytes) or
 // the ragged one; vec_out says out's rows take 16-byte stores.  Current
 // device.

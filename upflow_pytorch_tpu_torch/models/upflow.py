@@ -57,6 +57,10 @@ dense stacks concatenate instead of writing into buffers, and with
 activations in the backward.  Internally NCHW; ``forward`` and
 ``forward_with_loss`` take and return NHWC.
 
+The entry serves RAFT too (``models/raft.py::RAFTNet``, built by
+``build_model`` from a ``RAFTConfig``): the same copy in, occlusion check,
+NHWC outputs, graphs, counters and spans.
+
 ``forward`` serves a request from a CUDA graph where it can
 (``EntryGraph``): the first call at a key (``graph_key``: the images'
 shapes, the device, the configuration, the mask threshold, cuDNN's
@@ -87,7 +91,8 @@ from __future__ import annotations
 import collections
 import contextlib
 from typing import (
-    TYPE_CHECKING, Any, Dict, Iterator, List, Optional, Sequence, Tuple)
+    TYPE_CHECKING, Any, Dict, Iterator, List, Optional, Sequence, Tuple,
+    Union)
 
 import numpy as np
 import torch
@@ -99,7 +104,7 @@ from torch.utils.checkpoint import checkpoint
 
 from upflow_pytorch_tpu_torch.checkpoint.convert import params_from_jax
 from upflow_pytorch_tpu_torch.checkpoint.npz_io import load_npz_flat
-from upflow_pytorch_tpu_torch.config import UPFlowConfig
+from upflow_pytorch_tpu_torch.config import RAFTConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.losses.census import census_loss
 from upflow_pytorch_tpu_torch.losses.photometric import photo_loss_multi_type
 from upflow_pytorch_tpu_torch.losses.smoothness import (
@@ -109,6 +114,7 @@ from upflow_pytorch_tpu_torch.models.blocks import (
     ContextNetwork, ConvBlock, FeatureExtractor, FlowEstimatorDense,
     SGUModel)
 from upflow_pytorch_tpu_torch.models.occlusion import occ_check
+from upflow_pytorch_tpu_torch.models.raft import RAFTNet, load_state
 from upflow_pytorch_tpu_torch.ops import warp as _warp
 from upflow_pytorch_tpu_torch.ops.correlation import correlation
 from upflow_pytorch_tpu_torch.ops.kernels.corr_norm import warp_norm_corr
@@ -123,6 +129,7 @@ if TYPE_CHECKING:
     from upflow_pytorch_tpu_torch.parallel.spatial import WidthShard
 
 Flows = List[Tuple[torch.Tensor, torch.Tensor]]
+Net = Union["UPFlowNet", RAFTNet]  # what the entry serves
 
 
 class UPFlowNet(nn.Module):
@@ -371,16 +378,27 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-def build_model(conf: UPFlowConfig = UPFlowConfig(), device=None,
-                weights: Optional[str] = None, seed: int = 0) -> UPFlowNet:
+def build_model(conf: Union[UPFlowConfig, RAFTConfig] = UPFlowConfig(),
+                device=None, weights: Optional[str] = None,
+                seed: int = 0) -> Net:
     """The network in eval mode on ``device`` (CUDA unless ``"cpu"`` is
     asked for).  Weights: Kaiming-normal from a ``torch.Generator`` seeded
     with ``seed``, or, with ``weights``, a JAX ``.npz`` snapshot (such as
     ``assets/synthetic_trained.npz``) loaded strictly through
     ``params_from_jax``; snapshot entries the model lacks (the SGU
     weights, when it is built without SGU) are listed in
-    ``model.skipped_keys``."""
+    ``model.skipped_keys``.
+
+    A ``RAFTConfig`` builds ``RAFTNet`` with RAFT's initialisation from
+    the seed (``models/raft.py::init_weights``), or with ``weights`` a
+    RAFT state dict saved by ``torch.save``, such as a published
+    checkpoint."""
     device = _resolve_device(device)
+    if isinstance(conf, RAFTConfig):
+        model = RAFTNet(conf, torch.Generator().manual_seed(seed))
+        if weights is not None:
+            load_state(model, weights)
+        return model.to(device).eval()
     model = UPFlowNet(conf, torch.Generator().manual_seed(seed))
     model.skipped_keys = []
     if weights is not None:
@@ -440,7 +458,7 @@ def eager_entry() -> Iterator[None]:
         _eager_blocks -= 1
 
 
-def eager_reason(model: UPFlowNet, device: torch.device,
+def eager_reason(model: Net, device: torch.device,
                  shard: Optional[WidthShard] = None) -> Optional[str]:
     """Why ``forward`` must run ``model`` eagerly on ``device`` (one of
     ``EAGER_REASONS``), or None where a graph may serve the call: no CUDA
@@ -466,7 +484,7 @@ def eager_reason(model: UPFlowNet, device: torch.device,
     return None
 
 
-def graph_key(model: UPFlowNet, shape1: Sequence[int],
+def graph_key(model: Net, shape1: Sequence[int],
               shape2: Sequence[int], device: torch.device
               ) -> Tuple[tuple, tuple]:
     """What the captured work depends on that a call can observe, as (the
@@ -520,7 +538,7 @@ class EntryGraph:
     device constants it reads.  A call copies the images in, replays on
     the current stream and returns clones of the outputs."""
 
-    def __init__(self, model: UPFlowNet, shape1: Sequence[int],
+    def __init__(self, model: Net, shape1: Sequence[int],
                  shape2: Sequence[int], device: torch.device):
         self.device = device
         self.im1 = torch.empty(tuple(shape1), dtype=torch.float32,
@@ -554,7 +572,7 @@ class EntryGraph:
         return out
 
 
-def _outputs(model: UPFlowNet, im1: torch.Tensor, im2: torch.Tensor,
+def _outputs(model: Net, im1: torch.Tensor, im2: torch.Tensor,
              shard: Optional[WidthShard] = None, cols=None
              ) -> Dict[str, Any]:
     """The network, the occlusion check and the NHWC outputs on NCHW fp32
@@ -576,7 +594,7 @@ def _outputs(model: UPFlowNet, im1: torch.Tensor, im2: torch.Tensor,
         }
 
 
-def forward(model: UPFlowNet, im1, im2,
+def forward(model: Net, im1, im2,
             shard: Optional[WidthShard] = None) -> Dict[str, Any]:
     """Inference forward (``UPFlow_net.forward`` with if_loss=False): flows
     and analytic occlusion masks.
@@ -588,7 +606,9 @@ def forward(model: UPFlowNet, im1, im2,
     the compute dtype, and each a tensor of its own.  Runs under
     ``fp32_numerics``.  With ``shard`` (``parallel/spatial.py::
     WidthShard``) every output is this rank's columns ``shard.cols(w)`` of
-    its width ``w`` (``UPFlowNet.forward``).
+    its width ``w`` (``UPFlowNet.forward``).  A ``RAFTNet`` serves the
+    same outputs, ``flows`` its final pair and its 1/8 pair, and raises
+    on a shard.
 
     On the card the call is served by the model's ``EntryGraph`` for its
     ``graph_key`` where ``eager_reason`` finds none: the key's first call

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from upflow_pytorch_tpu_torch.ops.kernels.conv3x3_seg import (
-    conv3x3_seg, packed_params)
+    conv3x3_seg, packed_params, slope)
 
 KERNEL_MIN_CHANNELS = 64
 KERNEL_MIN_ROWS = 8
@@ -52,9 +52,10 @@ def uses_kernel(cin: int, h: int, w: int, kernel_size: int, stride: int,
 def conv_plain_route(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, stride: int,
                      padding: Union[int, Tuple[int, int]], dilation: int,
-                     relu: bool) -> torch.Tensor:
-    """``nn.Conv(dtype=bfloat16)`` + ``nn.leaky_relu`` on a bf16 map;
-    ``padding`` pads rows and columns alike, or is (rows, columns)."""
+                     relu) -> torch.Tensor:
+    """``nn.Conv(dtype=bfloat16)`` + ``nn.leaky_relu`` on a bf16 map (or
+    ReLU with ``relu=RELU``, as ``conv3x3_seg`` takes it); ``padding``
+    pads rows and columns alike, or is (rows, columns)."""
     w = weight.to(torch.bfloat16)
     if x.is_cuda:
         y = F.conv2d(x, w, None, stride, padding, dilation)
@@ -68,13 +69,15 @@ def conv_plain_route(x: torch.Tensor, weight: torch.Tensor,
     if relu:
         # the product with the bf16 slope, rounded: the fp32 slope of
         # F.leaky_relu gives another value on a fifth of the negatives
-        y = torch.where(y >= 0, y, y * torch.tensor(0.1, dtype=y.dtype))
+        y = torch.where(y >= 0, y,
+                        y * torch.tensor(slope(relu), dtype=y.dtype))
     return y
 
 
 def conv_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              stride: int, padding: int, dilation: int, relu: bool,
-              out: Optional[torch.Tensor] = None, owner=None,
+              stride: int, padding: Union[int, Tuple[int, int]],
+              dilation: int, relu, out: Optional[torch.Tensor] = None,
+              owner=None,
               width: Optional[int] = None) -> torch.Tensor:
     """One ``ConvBlock`` at bf16 on the route its shape selects; writes
     into ``out`` when it is given and returns it.  On the kernel route

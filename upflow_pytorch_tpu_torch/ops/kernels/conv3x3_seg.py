@@ -7,8 +7,10 @@ Replaces ``upflow_pytorch_tpu/ops/pallas/conv.py::_conv3x3_seg_fwd``:
 3x3, stride 1, dilation ``d`` with zero padding ``d``; bf16 input and
 weights (rounded from the fp32 parameters), exact products summed in fp32,
 the fp32 bias and the LeakyReLU (slope 0.1, in fp32) applied to the sum,
-one round-to-nearest-even to bf16.  Bound by operations on the H100; the
-source note in the ``.cu`` file says how the design meets that.
+one round-to-nearest-even to bf16.  ``relu``: True for that LeakyReLU,
+False for none, ``RELU`` for RAFT's ReLU (``models/raft.py``).  Bound by
+operations on the H100; the source note in the ``.cu`` file says how the
+design meets that.
 
 ``x`` and ``out`` may be channel ranges of larger NCHW buffers (each batch
 item contiguous, any batch stride): the dense stacks of
@@ -60,6 +62,18 @@ TMA_ALIGN = 16  # bytes: TMA's rule for the base address and every stride
 MAX_DILATION = 16  # the kernel's windows reach 16 pixels left and right
 
 Packed = Tuple[torch.Tensor, torch.Tensor]  # (packed weights, fp32 bias)
+RELU = "relu"  # the ``relu`` argument of RAFT's ReLU: negatives to 0
+
+
+def epilogue(relu) -> int:
+    """The kernel's activation code of ``relu``: 0 none, 1 the LeakyReLU
+    of slope 0.1, 2 ReLU."""
+    return 2 if relu == RELU else int(bool(relu))
+
+
+def slope(relu) -> float:
+    """The activation's slope below zero (``relu`` not False)."""
+    return 0.0 if relu == RELU else 0.1
 
 
 def block_width(cout: int) -> int:
@@ -141,7 +155,7 @@ def conv3x3_seg_plain(x: torch.Tensor, weight: torch.Tensor,
                        padding=dilation, dilation=dilation)
     acc = acc + bias.float()[None, :, None, None]
     if relu:
-        acc = torch.where(acc >= 0, acc, acc * 0.1)
+        acc = torch.where(acc >= 0, acc, acc * slope(relu))
     y = acc.to(torch.bfloat16)
     if out is None:
         return y
@@ -195,7 +209,7 @@ def conv3x3_seg_cuda(x: torch.Tensor, weight: torch.Tensor,
     conv3x3_seg.route_launches[route] += 1
     launch(op, conv3x3_seg, x, fn, x.data_ptr(), x.stride(0), wp.data_ptr(),
            bias32.data_ptr(), out.data_ptr(), out.stride(0), b, cin, cout, h,
-           w, int(dilation), int(bool(relu)), nb, int(route == "tma"),
+           w, int(dilation), epilogue(relu), nb, int(route == "tma"),
            int(vec_out))
     return out
 
@@ -209,10 +223,11 @@ def _conv3x3_seg(x, weight, bias, dilation, relu, out, packed):
 
 def conv3x3_seg_vjp(x: torch.Tensor, weight: torch.Tensor,
                     out: Optional[torch.Tensor], dilation: int,
-                    g: torch.Tensor, needs=(True, True, True)):
+                    g: torch.Tensor, needs=(True, True, True),
+                    relu=True):
     """(d_x, d_weight, d_bias) of ``conv3x3_seg`` given its bf16 output
-    ``out`` (None without the LeakyReLU) and the output's cotangent ``g``;
-    an entry whose ``needs`` is False is None.
+    ``out`` (None without the activation, ``relu`` the activation) and the
+    output's cotangent ``g``; an entry whose ``needs`` is False is None.
 
     ``d_x`` is a bf16 convolution with fp32 sums: cuDNN's on the card; on
     the CPU, whose bf16 convolution differs from one with fp32 sums, an
@@ -225,7 +240,7 @@ def conv3x3_seg_vjp(x: torch.Tensor, weight: torch.Tensor,
     """
     g = g.float()
     if out is not None:
-        g = torch.where(out >= 0, g, g * 0.1)
+        g = torch.where(out >= 0, g, g * slope(relu))
     gb = g.to(torch.bfloat16)
     d_x = d_w = d_b = None
     if needs[0]:
@@ -266,7 +281,7 @@ class Conv3x3SegFn(torch.autograd.Function):
     def forward(ctx, x, weight, bias, dilation, relu, packed):
         out = _conv3x3_seg(x, weight, bias, dilation, relu, None, packed)
         ctx.save_for_backward(x, weight, out if relu else None)
-        ctx.dilation = dilation
+        ctx.dilation, ctx.relu = dilation, relu
         return out
 
     @staticmethod
@@ -274,20 +289,21 @@ class Conv3x3SegFn(torch.autograd.Function):
         with span("upflow.rule.Conv3x3SegFn"):
             x, weight, out = ctx.saved_tensors
             return conv3x3_seg_vjp(x, weight, out, ctx.dilation, g,
-                                   ctx.needs_input_grad[:3]) + (None,) * 3
+                                   ctx.needs_input_grad[:3],
+                                   ctx.relu) + (None,) * 3
 
 
 def conv3x3_seg(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                 dilation: int = 1, relu: bool = True,
                 out: Optional[torch.Tensor] = None,
                 packed: Optional[Packed] = None) -> torch.Tensor:
-    """bf16 3x3 conv + bias (+ LeakyReLU): the kernel for CUDA tensors, the
-    plain version for CPU tensors; through ``Conv3x3SegFn`` under
-    autograd, where ``out`` must be None.  ``x``: (B, Cin, H, W) bf16;
-    ``weight``: (Cout, Cin, 3, 3); ``bias``: (Cout,); ``out``: an optional
-    (B, Cout, H, W) bf16 destination, such as a channel slot of a dense
-    buffer; ``packed``: the weights as ``packed_params`` gives them,
-    packed here when it is None."""
+    """bf16 3x3 conv + bias (+ LeakyReLU, or ReLU with ``relu=RELU``):
+    the kernel for CUDA tensors, the plain version for CPU tensors;
+    through ``Conv3x3SegFn`` under autograd, where ``out`` must be None.
+    ``x``: (B, Cin, H, W) bf16; ``weight``: (Cout, Cin, 3, 3); ``bias``:
+    (Cout,); ``out``: an optional (B, Cout, H, W) bf16 destination, such
+    as a channel slot of a dense buffer; ``packed``: the weights as
+    ``packed_params`` gives them, packed here when it is None."""
     if wants_grad(x, weight, bias):
         if out is not None:
             raise ValueError("conv3x3_seg: under autograd the output is a "
