@@ -14,11 +14,14 @@ Phases, each of which must pass:
    function.  The SGU kernels are held at inter-flows of every TPU tier's
    magnitude and beyond, the image warp also at the magnitudes of the
    TPU's windowed planar warp.  The bf16 path's kernels are held at bf16:
-   ``conv3x3_seg`` at every distinct conv shape of a bf16 forward (and two
-   ragged shapes of 375x1242), the correlations and the feature warp at
-   bf16 inputs.  The plain correlation is held at every decode level of
-   both request sizes (B=4 384x1280, B=1 375x1242), must give the same
-   bits on a second call, and prints its grid and its device ms beside
+   ``conv3x3_seg`` at every distinct conv shape of a bf16 forward (and the
+   ragged shapes of the B=1 375x1242 requests, UPFlow's and RAFT's, each
+   also bit for bit against the TMA route on its input zero-extended to
+   the pitched width, and timed beside it with the pitched copy's device
+   ms), the correlations and the feature warp at bf16 inputs.  The plain
+   correlation is held at every decode level of both request sizes (B=4
+   384x1280, B=1 375x1242), must give the same bits on a second call, and
+   prints its grid and its device ms beside
    ``corr_norm``'s at the same shape; the final SGU stage is held at both
    sizes.  The feature warp is timed at all 18 of its calls in an
    SGU forward (the 8 cost-volume warps and the SGU's 10 warps of the
@@ -29,14 +32,15 @@ Phases, each of which must pass:
    windows, and each reading prints its attempt.  ``conv3x3_seg`` is
    timed as the model calls it (weights packed once) and packing on
    every call, and each shape prints its
-   staging route (TMA or cp.async), device ms, cuDNN's device ms, its
+   staging route (TMA or pitched), device ms, cuDNN's device ms, its
    bound and the host's share of a call (CUDA-event time beyond device
    time); the image warp prints the same beside ``grid_sample``.  The SGU
    blend runs both directions of a level in one launch from raw heads
    (fp32 and bf16) at decode levels 1-4 of both sizes and three
    inter-flow magnitudes, bit for bit against its plain version, and
    prints device ms, bound and wrapper-inclusive ms per level and per
-   forward.
+   forward.  ``python3 chip_smoke.py --kernels`` runs phases 1 and 2
+   alone and prints ``conv3x3_seg``'s rows as one JSON line.
 3. Serve requests through ``build_model`` / ``forward`` with the
    checkpoint ``assets/synthetic_trained.npz``, on three paths: the eval
    recipe without SGU (slice 1), with SGU (the served configuration), and
@@ -108,7 +112,7 @@ Phases, each of which must pass:
    shapes of B=1 376x1241, 370x1224, 374x1238 and 436x1024 and B=4
    384x768 (the three cost-volume kernels also at bf16); ``conv3x3_seg``
    at every bf16 conv shape of those pyramids on its own staging route
-   and, where that is TMA, on the cp.async route too, each shape's route
+   and, where that is TMA, on the pitched route too, each shape's route
    printed, and a bf16 forward at each size launching it as the shapes
    say.  (b) The native PNG decoder's state (``native: built`` and its
    path, or its build error); built, it decodes every PNG of the trees
@@ -480,12 +484,14 @@ def grid_sample(x, grid):
 
 def conv_shapes(b=MAIN_B, hw=(MAIN_H, MAIN_W), ragged=True):
     """Every conv3x3_seg call of one bf16 SGU forward at ``b`` x ``hw``
-    (B=4, 384x1280 by default), and with ``ragged`` two ragged ones of
-    375x1242 (B=1): (what, b, h, w, cin, cout,
-    dilation, relu, calls per forward, buffer).  ``buffer`` is
-    (channels, start) of the dense buffer whose range [start, start + cin)
-    is the conv's input and [start - cout, start) its output slot, or None
-    for a standalone tensor."""
+    (B=4, 384x1280 by default), and with ``ragged`` the ragged ones of the
+    B=1 375x1242 serving requests (names "ragged ...", 0 calls a forward):
+    two of UPFlow's level 4 (94x311), every conv of its level 3 (47x156)
+    and the five of RAFT's update block (2x47x156).  Each is (what, b, h,
+    w, cin, cout, dilation, relu, calls per forward, buffer).  ``buffer``
+    is (channels, start) of the dense buffer whose range [start, start +
+    cin) is the conv's input and [start - cout, start) its output slot
+    (where start >= cout), or None for a standalone tensor."""
     out = []
 
     def stack(tag, b, h, w, feat, fs, head, per_forward, extra):
@@ -497,31 +503,45 @@ def conv_shapes(b=MAIN_B, hw=(MAIN_H, MAIN_W), ragged=True):
         out.append(("%s head" % tag, b, h, w, feat, head, 1, False,
                     per_forward, (feat + extra, 0)))
 
-    levels = pyramid_hw(*hw)
-    for level in (3, 4):
-        h, w = levels[level]
-        tag = "L%d" % level
+    def level(b, h, w, lv, sgu_calls, calls=2):
+        tag = "L%d" % lv
         stack("estimator " + tag, b, h, w, 563, (128, 128, 96, 64, 32), 2,
-              2, 2)
+              calls, 2)
         cin = 565
         for i, (f, d) in enumerate(zip((128, 128, 128, 96, 64, 32),
                                        (1, 2, 4, 8, 16, 1))):
             out.append(("context %s conv%d" % (tag, i), b, h, w, cin, f,
-                        d, True, 2, (565, 0) if i == 0 else None))
+                        d, True, calls, (565, 0) if i == 0 else None))
             cin = f
-        # the SGU estimator runs at level 3, and at 96 x 320 for level 4
-        # and for the final stage
         stack("sgu " + tag, b, h, w, 184, (32, 32, 32, 16, 8), 3,
-              2 if level == 3 else 4, 0)
+              sgu_calls, 0)
+
+    levels = pyramid_hw(*hw)
+    # the SGU estimator runs at level 3, and at 96 x 320 for level 4 and
+    # for the final stage
+    level(b, *levels[3], 3, 2)
+    level(b, *levels[4], 4, 4)
     h, w = levels[3]
     out.append(("pyramid level2_conv1", b, h, w, 64, 64, 1, True, 2, None))
     if not ragged:
         return out
+    n = len(out)
     h, w = pyramid_hw(375, 1242)[4]
-    out.append(("ragged estimator conv1", 1, h, w, 115, 128, 1, True, 0,
+    out.append(("estimator conv1", 1, h, w, 115, 128, 1, True, 0,
                 (565, 448)))
-    out.append(("ragged context conv4", 1, h, w, 96, 64, 16, True, 0, None))
-    return out
+    out.append(("context conv4", 1, h, w, 96, 64, 16, True, 0, None))
+    h, w = pyramid_hw(375, 1242)[3]
+    level(1, h, w, 3, 0, 0)
+    out.append(("pyramid level2_conv1", 1, h, w, 64, 64, 1, True, 0, None))
+    # RAFT's update block, both directions ("relu": conv3x3_seg.RELU)
+    h, w = RAFT_GRID
+    out += [("raft convc2", 2, h, w, 256, 192, 1, "relu", 0, None),
+            ("raft convf2", 2, h, w, 128, 64, 1, "relu", 0, None),
+            ("raft conv", 2, h, w, 256, 126, 1, "relu", 0, None),
+            ("raft heads of hx", 2, h, w, 128, 512, 1, "relu", 0, (384, 0)),
+            ("raft flow head of heads", 2, h, w, 256, 2, 1, False, 0,
+             (512, 0))]
+    return out[:n] + [("ragged " + s[0],) + s[1:] for s in out[n:]]
 
 
 def conv_agreement(got, ref):
@@ -968,7 +988,9 @@ def phase_kernels(k):
 
     # kernel 6: conv3x3_seg at every conv shape of the bf16 forward, reading
     # and writing channel ranges of a dense buffer where the model does,
-    # under conv_agreement's bar
+    # under conv_agreement's bar; the ragged shapes of the B=1 375x1242
+    # requests also bit for bit against the TMA route on the input
+    # zero-extended to the pitched width, and timed beside it
     total = 0
     for what, b, h, w, cin, cout, d, relu, per_forward, buf in conv_shapes():
         total += per_forward
@@ -985,12 +1007,13 @@ def phase_kernels(k):
         weight = randn(cout, cin, 3, 3) * (2.0 / (9 * cin)) ** 0.5
         bias = randn(cout) * 0.1
         route = k.seg.staging_route(w, x.stride(0), x.data_ptr())
-        want = "cp.async" if what.startswith("ragged") else "tma"
+        ragged = what.startswith("ragged")
+        want = "pitched" if ragged else "tma"
         before = dict(k.seg.conv3x3_seg.route_launches)
         got = k.seg.conv3x3_seg(x, weight, bias, d, relu, out=out).float()
         ran = {r: n - before[r]
                for r, n in k.seg.conv3x3_seg.route_launches.items()}
-        other = "tma" if want == "cp.async" else "cp.async"
+        other = "tma" if ragged else "pitched"
         check(route == want and ran == {want: 1, other: 0},
               "conv3x3_seg %s staged by the %s route (launches %s)"
               % (what, route, ran))
@@ -1003,24 +1026,60 @@ def phase_kernels(k):
         # timed as the model calls it (weights packed once), and packing
         # on every call
         packed = k.seg.packed_params(torch.nn.Module(), weight, bias)
+        call = (lambda x=x, weight=weight, bias=bias, d=d, relu=relu,
+                out=out, packed=packed: k.seg.conv3x3_seg(
+                    x, weight, bias, d, relu, out=out, packed=packed))
+        ext = {}
+        if ragged:
+            wp = k.seg.pitched_width(w, d)
+            x_ext = F.pad(x, (0, wp - w))
+            out_ext = torch.empty((b, cout, h, wp), dtype=torch.bfloat16,
+                                  device=DEV)
+            ext_route = k.seg.staging_route(wp, x_ext.stride(0),
+                                            x_ext.data_ptr())
+            k.seg.conv3x3_seg(x_ext, weight, bias, d, relu, out=out_ext,
+                              packed=packed)
+            same = torch.equal(got, out_ext[..., :w].float())
+            check(ext_route == "tma" and same,
+                  "conv3x3_seg %s: the pitched route equals the %s route "
+                  "on the input zero-extended to %d columns, cropped, bit "
+                  "for bit (%d values differ)"
+                  % (what, ext_route, wp,
+                     int((got != out_ext[..., :w].float()).sum().item())))
+            all_ms, _ = device_ms(call, None, 11)
+            ext["tma_ext_device_ms"], _ = device_ms(
+                lambda: k.seg.conv3x3_seg(x_ext, weight, bias, d, relu,
+                                          out=out_ext, packed=packed),
+                KERNEL_KEY["conv3x3_seg"], 11)
+            ext["pitched_width"] = wp
         row = record(
             "conv3x3_seg", [b, cin, h, w, cout, d], diff.max().item(),
-            lambda: k.seg.conv3x3_seg(x, weight, bias, d, relu, out=out,
-                                      packed=packed),
-            lambda: k.seg.conv3x3_seg_plain(x, weight, bias, d, relu),
+            call, lambda: k.seg.conv3x3_seg_plain(x, weight, bias, d, relu),
             2 * px * (cin + cout) + 2 * 9 * cin * cout + 4 * cout,
             2 * 9 * px * cin * cout, per_forward=per_forward,
             library=lambda: F.conv2d(x, wb, bb, padding=d, dilation=d),
             ops_per_s=BF16_OPS_PER_S, reps=11, inner=5, route=route,
             pack_per_call_ms=time_ms(
                 lambda: k.seg.conv3x3_seg(x, weight, bias, d, relu,
-                                          out=out), 11, 5))
+                                          out=out), 11, 5), **ext)
+        if ragged:
+            # the copy: every device kernel of a call but the conv's
+            row["copy_device_ms"] = (None if all_ms is None
+                                     or row["device_ms"] is None
+                                     else all_ms - row["device_ms"])
         print("  info conv3x3_seg %s: route %s, device ms %s, cuDNN device "
               "ms %s, bound %.4f; events %.4f ms prepacked, %.4f packing "
               "per call, host %s ms"
               % (what, route, fmt(row["device_ms"]),
                  fmt(row["library_device_ms"]), row["bound_ms"], row["ms"],
                  row["pack_per_call_ms"], fmt(row["host_ms"])))
+        if ragged:
+            print("  info conv3x3_seg %s (%d, %d->%d, %dx%d, d=%d): pitched "
+                  "kernel %s device ms + copy %s (width %d), TMA on the "
+                  "zero-extended map %s"
+                  % (what, b, cin, cout, h, w, d, fmt(row["device_ms"]),
+                     fmt(row["copy_device_ms"]), wp,
+                     fmt(row["tma_ext_device_ms"])))
     check(total == BF16_LAUNCHES_PER_FORWARD["conv3x3_seg"],
           "conv3x3_seg shapes cover %d calls of a bf16 forward" % total)
     return rows
@@ -1148,7 +1207,7 @@ def phase_serve(k, tag: str, ref_model=None):
         fn.launches = 0
     for fn in k.plain.values():
         fn.cuda_calls = 0
-    routes.update({"tma": 0, "cp.async": 0})
+    routes.update({"tma": 0, "pitched": 0})
     cn_routes.update({"vec": 0, "word": 0})
     # eager: the launch counters count at a graph's capture, not its replay
     with k.upflow.eager_entry():
@@ -1165,14 +1224,14 @@ def phase_serve(k, tag: str, ref_model=None):
             what = "%s request %dx%dx%d" % (tag, b, h, w)
             check(delta == per_forward, "%s: launches %s" % (what, delta))
             # conv3x3_seg: TMA staging on the aligned 384x1280 pyramid,
-            # cp.async copies on 375x1242's; weights packed at the model's
+            # pitched copies on 375x1242's; weights packed at the model's
             # first call only
             convs = per_forward["conv3x3_seg"]
             aligned = h % 64 == 0 and w % 64 == 0
             ran = {r: n - routes_before[r] for r, n in routes.items()}
             packs = k.seg.pack_weight.calls - packs_before
             check(ran == {"tma": convs if aligned else 0,
-                          "cp.async": 0 if aligned else convs},
+                          "pitched": 0 if aligned else convs},
                   "%s: conv3x3_seg launches by staging route %s" % (what, ran))
             # corr_norm: 4-pixel copies at the widths that are whole 4-pixel
             # groups (all of 384x1280's levels, 375x1242's 156), 4-byte words
@@ -2228,7 +2287,7 @@ def phase_shapes(k):
     fp32 and bf16, sgu_blend (levels 1-4, three inter-flow tiers) and the
     image warp and sgu_final at full resolution at fp32; conv3x3_seg at
     every conv shape of the bf16 forward, on its own staging route and,
-    where that is TMA, also on the cp.async route (the input one bf16
+    where that is TMA, also on the pitched route (the input one bf16
     element off a 16-byte boundary).  A bf16 forward at each size must
     launch conv3x3_seg as often as those shapes say."""
     held = {}
@@ -2369,7 +2428,7 @@ def hold_frame(k, b, h, w, rng, gen, hold, bf16_model, tag):
                 k.sf.tile_rows(b, h, w), k.sf.TILE_W,
                 "16-byte" if w % 4 == 0 else "4-byte", amp, err))
     # conv3x3_seg at every conv shape of the bf16 forward at this size
-    routes = {"tma": 0, "cp.async": 0}
+    routes = {"tma": 0, "pitched": 0}
     for what, cb, ch, cw, cin, cout, d, relu, per_forward, buf in \
             conv_shapes(b, (h, w), ragged=False):
         weight = randn(cout, cin, 3, 3) * (2.0 / (9 * cin)) ** 0.5
@@ -4675,6 +4734,9 @@ def main(argv) -> int:
         return finish(name)
     print("phase 2: kernels against their plain versions", flush=True)
     rows = phase_kernels(k)
+    if argv[:1] == ["--kernels"]:  # phases 1 and 2 alone
+        print(json.dumps({"conv3x3_seg": rows["conv3x3_seg"]}), flush=True)
+        return finish(name)
     print("phase 3: serve requests", flush=True)
     launches, timing, models, pairs = {}, [], {}, {}
     for tag in PATHS:

@@ -234,18 +234,73 @@ def test_staging_route_rule(shape):
     """The wrapper's staging route by TMA's 16-byte rule, for each conv of
     ``chip_smoke.conv_shapes()`` as the model lays it out (a channel range
     of its dense buffer, from a 512-byte aligned allocation): TMA at the
-    aligned 384 x 1280 pyramid, cp.async copies at the 94 x 311 rows.  A
-    real CPU tensor of the same layout gives the same answer."""
+    aligned 384 x 1280 pyramid, a pitched copy at the 94 x 311 and 47 x 156
+    rows.  A real CPU tensor of the same layout gives the same answer."""
     what, b, h, w, cin, cout, d, relu, per_forward, buf = shape
     channels, start = buf if buf is not None else (cin, 0)
     route = pseg.staging_route(w, channels * h * w, 512 + 2 * start * h * w)
-    assert route == ("tma" if w % 8 == 0 else "cp.async")
-    assert route == ("cp.async" if what.startswith("ragged") else "tma")
+    assert route == ("tma" if w % 8 == 0 else "pitched")
+    assert route == ("pitched" if what.startswith("ragged") else "tma")
     full = torch.empty((1, channels, h, 8 if w % 8 == 0 else 7),
                        dtype=BF16)
     x = full[:, start:start + cin]
     assert pseg.staging_route(x.shape[3], x.stride(0), x.data_ptr()) == (
-        "tma" if full.data_ptr() % 16 == 0 and w % 8 == 0 else "cp.async")
+        "tma" if full.data_ptr() % 16 == 0 and w % 8 == 0 else "pitched")
+
+
+def _pitched_conv_model(x, weight, d):
+    """The pitched route's addressing (``csrc/conv3x3_seg.cu``, the
+    Pitched tiling) in plain PyTorch: the input zero-extended to the
+    pitched width and flattened per channel; tiles of 128 flat pixels; K
+    step (tap row ky) a window of the flat pixels [f0 - p, f0 + 128 + p)
+    shifted by (ky - 1) d Wp, zero outside the plane as TMA fills it and
+    nowhere else; tap kx the window from p + (kx - 1) d; the result cropped
+    to the caller's columns.  Returns (output, the box starts)."""
+    b, cin, h, w = x.shape
+    wp = pseg.pitched_width(w, d)
+    n = h * wp
+    flat = torch.nn.functional.pad(x, (0, wp - w)).reshape(b, cin, n)
+    pad = 8 if d <= 8 else 16
+    f0 = torch.arange(-(-n // 128)) * 128
+    out = torch.zeros((b, weight.shape[0], f0.numel(), 128),
+                      dtype=x.dtype)
+    starts = []
+    for ky in range(3):
+        start = f0 - pad + (ky - 1) * d * wp
+        starts += start.tolist()
+        idx = start[:, None] + torch.arange(128 + 2 * pad)
+        inside = (idx >= 0) & (idx < n)
+        win = flat[:, :, idx.clamp(0, n - 1)] * inside
+        for kx in range(3):
+            off = pad + (kx - 1) * d
+            out += torch.einsum("oc,bctp->botp", weight[:, :, ky, kx],
+                                win[..., off:off + 128])
+    out = out.reshape(b, -1, f0.numel() * 128)[..., :n]
+    return out.reshape(b, -1, h, wp)[..., :w], starts
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("w", [156, 311, 621])
+def test_pitched_addressing(w, d):
+    """The pitched route's addressing equals ``F.conv2d`` with padding d:
+    a column tap past either end of a row reads the copy's zero columns
+    (Wp >= W + d), a row tap above or below the image falls outside the
+    flat plane, and every box starts at a multiple of 8 elements (16
+    bytes), as TMA requires.  The input is a channel range of a dense
+    buffer with an odd batch stride, which the wrapper stages pitched.
+    Integer values in float64 make every sum exact."""
+    gen = torch.Generator().manual_seed(w * 17 + d)
+    bstride = 9 * 19 * w | 1  # 9 channels of 19 x w, and one element
+    buf = torch.randint(-3, 4, (2 * bstride,), generator=gen).double()
+    x = buf.as_strided((2, 5, 19, w), (bstride, 19 * w, w, 1), 2 * 19 * w)
+    assert pseg.staging_route(w, x.stride(0), 512) == "pitched"
+    weight = torch.randint(-3, 4, (3, 5, 3, 3), generator=gen).double()
+    wp = pseg.pitched_width(w, d)
+    assert wp % 8 == 0 and w + d <= wp < w + d + 8
+    got, starts = _pitched_conv_model(x, weight, d)
+    assert all(s % 8 == 0 for s in starts)
+    ref = torch.nn.functional.conv2d(x, weight, padding=d, dilation=d)
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("view,want", [

@@ -21,45 +21,57 @@
 // the tensor cores, and not the memory, limit.  Design: an implicit GEMM
 // on wgmma, M = pixels, N = output channels, K = 9 taps x Cin.
 //
-// - A block owns 2 rows x 64 columns of pixels and NB output channels
-//   (the whole Cout of every conv up to 128: each input byte is staged
-//   once per pixel tile).  Two consumer warpgroups, one per row, each run
-//   wgmma m64nNBk16 with fp32 accumulators in registers.
-// - K steps over (64-channel chunk, tap row ky).  A step brings one
-//   window per row, the pixels [x0 - p, x0 + 64 + p) of 64 channels at
-//   row y + (ky-1) d (p = d rounded up to 8), which holds all three column
-//   taps, and the three taps' NB x 64 weights, packed once per model in
-//   the order the steps run, K-major and already swizzled (pack_weight in
+// - A block owns 128 pixels and NB output channels (the whole Cout of
+//   every conv up to 128: each input byte is staged once per pixel tile).
+//   Two consumer warpgroups, 64 pixels each, run wgmma m64nNBk16 with fp32
+//   accumulators in registers.
+// - K steps over (64-channel chunk, tap row ky).  A step brings the window
+//   of 64 channels that holds all three column taps of the tile's pixels,
+//   and the three taps' NB x 64 weights, packed once per model in the
+//   order the steps run, K-major and already swizzled (pack_weight in
 //   ops/kernels/conv3x3_seg.py), so one bulk copy lands them in wgmma's
 //   layout.  Each tap's A operand is the window shifted by p + (kx-1) d
-//   pixels, stored pixel-major (one 128-byte line per channel, 128-byte
-//   swizzle) and read by wgmma as an MN-major operand.
+//   pixels (p = d rounded up to 8), stored pixel-major (one 128-byte line
+//   per channel, 128-byte swizzle) and read by wgmma as an MN-major
+//   operand.
 // - The shift is a copy in shared memory: TMA takes a box only from a
 //   column that is a multiple of 8 bf16 (16 bytes; any other raises an
 //   illegal-instruction fault on the H100), so no box can start at the
-//   tap's own column.  Each consumer warpgroup shifts its row into one of
-//   two A buffers while the tensor cores run the previous tap.  A window
-//   serves three taps, so each input byte crosses L2 three times per
-//   chunk rather than nine.
+//   tap's own column.  Each consumer warpgroup shifts its 64 pixels into
+//   one of two A buffers while the tensor cores run the previous tap.  A
+//   window serves three taps, so each input byte crosses L2 three times
+//   per chunk rather than nine.
 // - A ring of 2-3 stages with full/empty mbarriers between the producer
-//   warpgroup and the consumers; each consumer keeps one wgmma group in
+//   thread and the consumers; each consumer keeps one wgmma group in
 //   flight and releases a stage once the products that read it are done.
-// - Two producers fill the same windows.  Where the input's rows, batch
-//   stride and address are multiples of 16 bytes, one thread loads them
-//   by TMA through a 4-D tensor map over (W, H, Cin, B), which zero-fills
-//   every coordinate outside the image or past Cin, negative ones
-//   included: the SAME padding and the channel tail cost no code.
-//   Elsewhere (KITTI's 375 x 1242 pyramid, rows of 311 or 156 pixels) the
-//   producer warpgroup copies each line from the 4-byte word that holds
-//   its first pixel with cp.async, and the consumers shift each line by
-//   its own half-word offset, zeroing pixels outside the image.
+// - One thread loads the windows by TMA, which zero-fills every
+//   coordinate outside the tensor or past Cin, negative ones included: the
+//   SAME padding and the channel tail cost no code.  A tensor map needs
+//   rows, strides and address in multiples of 16 bytes, so the input is
+//   tiled one of two ways:
+//   - Aligned (such are the input ranges themselves): a tile is 2 rows x 64
+//     columns, a warpgroup a row, through a 4-D map over (W, H, Cin, B).
+//     A step loads one window a row, the pixels [x0 - p, x0 + 64 + p) of
+//     row y + (ky-1) d.
+//   - Pitched (any other input, such as KITTI's 375 x 1242 pyramid with
+//     rows of 311 or 156 pixels): the caller passes a contiguous copy
+//     (B, Cin, H, Wp) whose rows are padded with zeros to Wp, a multiple of
+//     8 with Wp >= W + d.  A tile is 128 consecutive flat pixels [f0, f0 +
+//     128) of the (H Wp) plane, through a 3-D map over (H Wp, Cin, B).  A
+//     step loads one window, the flat pixels [f0 - p, f0 + 128 + p) shifted
+//     by (ky-1) d Wp: a row above or below the image lies outside the plane
+//     and is zero-filled, and a column tap past either end of a row lands in
+//     the zero columns [W, Wp) of that row or of the one before, since Wp -
+//     W >= d.  The sums are those of the aligned tiling on the zero-extended
+//     map, bit for bit.
 // - The epilogue adds the bias, applies the activation (relu 1: the
 //   LeakyReLU of slope 0.1; 2: RAFT's ReLU; 0: none), rounds once, stages
-//   the tile in shared memory and writes each channel's 64 pixels along W
-//   (16-byte stores where the row allows), masking columns past W and
-//   channels past Cout.
+//   the tile in shared memory and writes each channel's pixels, masking
+//   pixels outside the image and channels past Cout, in 8-pixel groups on
+//   the aligned tiling (16-byte stores where the row allows) and 4-pixel
+//   groups on the pitched one (8-byte stores where the address allows).
 //
-// The tensor map is encoded with cuTensorMapEncodeTiled, reached through
+// The tensor maps are encoded with cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the library needs no link to libcuda.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -71,20 +83,22 @@
 
 namespace {
 
-constexpr int kTileW = 64;    // pixels of a tile row: one 128-byte line
-constexpr int kTileH = 2;     // rows of a tile: one per consumer warpgroup
+constexpr int kTileW = 64;    // pixels a consumer warpgroup computes
+constexpr int kTileH = 2;     // consumer warpgroups: rows of an aligned tile
+constexpr int kTilePx = kTileH * kTileW;  // pixels of a tile
 constexpr int kChunk = 64;    // input channels per K step
 constexpr int kThreads = 384; // two consumer warpgroups, one producer
-constexpr int kRowBytes = kChunk * kTileW * 2;    // one row's A: 8 KB
+constexpr int kRowBytes = kChunk * kTileW * 2;    // one warpgroup's A: 8 KB
 constexpr int kABytes = kTileH * kRowBytes;        // a tap's A: 16 KB
 constexpr int kEpiPitch = kTileW + 8;  // bf16 per staged output channel
-// A step's window: per row and channel the pixels [x0 - p, x0 + 64 + p)
-// with p = d rounded up to 8 (8 or 16), which hold all three column taps;
-// its line pitch is (64 + 2p) * 2 bytes on the TMA route and 16 bytes more
-// on the ragged one, which copies from the 4-byte word left of x0 - p.
+// A step's window, p = d rounded up to 8 (8 or 16): per channel the pixels
+// [x0 - p, x0 + 64 + p) of each of an aligned tile's two rows, or the flat
+// pixels [f0 - p, f0 + 128 + p) of a pitched tile; a line of (64 + 2p) * 2
+// or (128 + 2p) * 2 bytes.
 constexpr int kMaxPad = 16;
-constexpr int kMaxWinPitch = (kTileW + 2 * kMaxPad) * 2 + 16;  // 208 bytes
-constexpr int kWinBytes = kTileH * kChunk * kMaxWinPitch;       // 26 KB
+constexpr int kWinBytes = kTileH * kChunk * (kTileW + 2 * kMaxPad) * 2;
+static_assert(kChunk * (kTilePx + 2 * kMaxPad) * 2 <= kWinBytes,
+              "a pitched window fits the stage");
 constexpr int kBarBytes = 64;  // the ring's mbarriers
 
 // Depth of the ring for an output width: 2 where a stage's three B tiles
@@ -155,6 +169,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same from a 3-D tensor map.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 // A contiguous bulk copy (16-byte multiple) into shared memory.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
@@ -182,47 +208,6 @@ __device__ __forceinline__ void fence_regs(float* d) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// The producer of the ragged route: the 128 window lines (row y, channel
-// c) of a step, each from the 4-byte word that holds its first pixel
-// x0 - p, 33 + p words a line, copied with cp.async.  A word with no pixel
-// in the image, and every word of a row outside the image or of a channel
-// past Cin, is zero-filled; a word holding one wanted pixel lies inside
-// that pixel's aligned word, so no copy leaves the tensor.  Completion is
-// counted on ``bar``.
-__device__ __forceinline__ void fetch_rows(unsigned char* win, int pitch,
-                                           const unsigned short* xb,
-                                           uint64_t* bar, int lane, int warp,
-                                           int xw, int ys, int c0, int pad,
-                                           int Cin, int H, int W,
-                                           long long plane) {
-  const int n_words = 33 + pad;
-  for (int j = 0; j < 32; ++j) {
-    const int line = warp * 32 + j;
-    const int y = line >> 6, c = line & 63;
-    const int yy = ys + y, cc = c0 + c;
-    const bool row_ok = yy >= 0 && yy < H && cc < Cin;
-    const unsigned short* first =
-        xb + (row_ok ? cc * plane + static_cast<long long>(yy) * W + xw : 0);
-    const uintptr_t addr = reinterpret_cast<uintptr_t>(first);
-    const int odd = static_cast<int>(addr >> 1) & 1;
-    const uintptr_t word0 = addr & ~static_cast<uintptr_t>(3);
-    unsigned char* dst = win + (y * kChunk + c) * pitch;
-    for (int k = lane; k < n_words; k += 32) {
-      const int xa = xw - odd + 2 * k;  // the word's first pixel
-      const bool any = row_ok && xa + 1 >= 0 && xa < W;
-      asm volatile(
-          "cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-              smem_u32(dst + 4 * k)),
-          "l"(any ? word0 + 4 * k : reinterpret_cast<uintptr_t>(xb)),
-          "r"(any ? 4 : 0)
-          : "memory");
-    }
-  }
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
 // Writes 16-byte group q of A line ``line`` (128-byte lines, swizzled as
 // TMA and wgmma lay them out).
 __device__ __forceinline__ void store_a(unsigned char* dst, int line, int q,
@@ -232,8 +217,8 @@ __device__ __forceinline__ void store_a(unsigned char* dst, int line, int q,
       make_uint4(r[0], r[1], r[2], r[3]);
 }
 
-// The TMA route's realignment, run by the consumer warpgroup that reads
-// the row: its 64 channel lines of the window from pixel offset 8 g + S,
+// The realignment, run by each consumer warpgroup for its 64 pixels: the
+// 64 channel lines of the window from pixel offset 8 g + S,
 // written as the tap's A.  Each lane moves one 16-byte group of a line
 // per pass (8 lanes a line, 4 lines a pass, 16 lines a warp): it reads the
 // one or two window groups the shifted group covers and joins them, word
@@ -283,80 +268,47 @@ __device__ __forceinline__ void realign_at(int offset, unsigned char* dst,
   }
 }
 
-// The ragged route's realignment: line c of the window starts at the word
-// that holds pixel x0 - p, one pixel early where that pixel's address is
-// odd (``par0``: the parity of the batch item's base, in pixels), so the
-// tap's pixels start at ``offset`` plus that pixel.  Pixels outside
-// [0, W) are zeroed: a word at the edge of a row holds a pixel of the next
-// or the previous one.
-__device__ __forceinline__ void realign_rows(unsigned char* dst,
-                                             const unsigned char* win,
-                                             int pitch, int offset, int par0,
-                                             long long plane, int W, int xw,
-                                             int xs, int yy, int c0,
-                                             int lane, int warp) {
-  const int q = lane & 7;
-  uint32_t keep[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int x = xs + 8 * q + 2 * k;
-    keep[k] = (x >= 0 && x < W ? 0xFFFFu : 0u) |
-              (x + 1 >= 0 && x + 1 < W ? 0xFFFF0000u : 0u);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int line = warp * 16 + j * 4 + (lane >> 3);
-    const int odd = static_cast<int>(
-        (par0 + (c0 + line) * plane + static_cast<long long>(yy) * W + xw) &
-        1);
-    const int o = offset + odd;
-    const uint32_t* src = reinterpret_cast<const uint32_t*>(
-                              win + line * pitch) +
-                          (o >> 1) + 4 * q;
-    uint32_t r[4];
-    if (o & 1) {
-      uint32_t w[5];
-#pragma unroll
-      for (int k = 0; k < 5; ++k) w[k] = src[k];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        r[k] = __funnelshift_r(w[k], w[k + 1], 16) & keep[k];
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) r[k] = src[k] & keep[k];
-    }
-    store_a(dst, line, q, r);
-  }
-}
+// The tilings, by the TMA boxes a step loads (the kernel's second template
+// argument, so a profile's kernel names tell them apart): an aligned tile
+// loads a box for each of its two rows, a pitched one a box of 128 + 2p
+// flat pixels.
+constexpr int kAligned = 2;
+constexpr int kPitched = 1;
 
-// K step i = (64-channel chunk, tap row ky): the window's origin.
+// K step i = (64-channel chunk, tap row ky): the window's origin, on the
+// aligned tiling (column x0 - p of row y0 + (ky-1) d) or on the pitched
+// one (flat pixel f0 - p + (ky-1) d Wp, a multiple of 8 since f0, p and
+// Wp are).
 struct Step {
   int xw, ys, c0;
 };
 
+template <bool kFlat>
 __device__ __forceinline__ Step step_at(int i, int x0, int y0, int d,
-                                        int pad) {
+                                        int pad, int Wp) {
   const int kc = i / 3, ky = i - 3 * kc;
+  if (kFlat) return {x0 - pad + (ky - 1) * d * Wp, 0, kc * kChunk};
   return {x0 - pad, y0 + (ky - 1) * d, kc * kChunk};
 }
 
-// x: bf16 (B, .., H, W) channel range of Cin channels, batch stride
-// x_bstride elements (read through ``wmap`` on the TMA route).  wp: the
-// weights packed as (ceil(Cout / NB), ceil(Cin / 64), 9, NB, 64) bf16,
-// 16-byte groups of each 128-byte row swizzled, zero where Cin or Cout is
-// padded.  bias: (Cout,) fp32.  out: bf16 range of Cout channels, batch
-// stride out_bstride; vec_out: its rows take 16-byte stores.  d <= 16.
-// Grid (tiles_x * tiles_y, ceil(Cout / NB), B).
-template <int NB, bool kTma>
+// wmap: the input's tensor map, over a bf16 (B, .., H, W) channel range of
+// Cin channels (Aligned) or over a contiguous (B, Cin, H, Wp) copy whose
+// columns [W, Wp) are zero (Pitched).  wp: the weights packed as
+// (ceil(Cout / NB), ceil(Cin / 64), 9, NB, 64) bf16, 16-byte groups of
+// each 128-byte row swizzled, zero where Cin or Cout is padded.  bias:
+// (Cout,) fp32.  out: bf16 range of Cout channels, batch stride
+// out_bstride; vec_out: its rows take 16-byte stores.  d <= 16.  Grid
+// (tiles, ceil(Cout / NB), B): tiles_x * tiles_y 2 x 64 tiles (Aligned) or
+// ceil(H Wp / 128) flat tiles (Pitched).
+template <int NB, int kBoxes>
 __global__ void __launch_bounds__(kThreads, Pipe<NB>::kBlocksPerSM)
 conv3x3_seg_kernel(const __grid_constant__ CUtensorMap wmap,
-                   const __nv_bfloat16* __restrict__ x, long long x_bstride,
                    const __nv_bfloat16* __restrict__ wp,
                    const float* __restrict__ bias,
                    __nv_bfloat16* __restrict__ out, long long out_bstride,
-                   int Cin, int Cout, int H, int W, int d, int relu,
+                   int Cin, int Cout, int H, int W, int Wp, int d, int relu,
                    int tiles_x, int vec_out) {
+  constexpr bool kFlat = kBoxes == kPitched;
   constexpr int kBBytes = NB * kChunk * 2;  // one tap's weights
   // a stage: the window and the weights of its three taps
   constexpr int kStageBytes = kWinBytes + 3 * kBBytes;
@@ -368,35 +320,30 @@ conv3x3_seg_kernel(const __grid_constant__ CUtensorMap wmap,
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kBarBytes + 1023) &
       ~static_cast<uintptr_t>(1023));
-  // two A buffers, one per tap in flight; each warpgroup owns its row
+  // two A buffers, one per tap in flight; each warpgroup owns its half
   unsigned char* abuf = ring + kStages * kStageBytes;
 
-  const int x0 = (blockIdx.x % tiles_x) * kTileW;
-  const int y0 = (blockIdx.x / tiles_x) * kTileH;
+  // the tile's first pixel: column x0 of row y0, or flat pixel x0
+  const int x0 = kFlat ? blockIdx.x * kTilePx
+                       : (blockIdx.x % tiles_x) * kTileW;
+  const int y0 = kFlat ? 0 : (blockIdx.x / tiles_x) * kTileH;
   const int n0 = blockIdx.y * NB;
   const int b = blockIdx.z;
   const int n_chunks = (Cin + kChunk - 1) / kChunk;
   const int steps = 3 * n_chunks;
   const int pad = d <= 8 ? 8 : kMaxPad;
-  const int pitch = (kTileW + 2 * pad) * 2 + (kTma ? 0 : 16);
+  const int pitch = ((kFlat ? kTilePx : kTileW) + 2 * pad) * 2;
   const int wg = threadIdx.x >> 7;
   const int t = threadIdx.x & 127;
   const int warp = t >> 5, lane = t & 31;
   const long long plane = static_cast<long long>(H) * W;
-  const unsigned short* xb =
-      reinterpret_cast<const unsigned short*>(x) + b * x_bstride;
 
   if (threadIdx.x == 0) {
-    if (kTma) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&wmap))
-                   : "memory");
-    }
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&wmap))
+                 : "memory");
     for (int s = 0; s < kStages; ++s) {
-      // TMA: one arrival, with the bytes the copies bring; ragged: that
-      // arrival (the weights) and one from each producer thread when its
-      // cp.async copies have landed
-      mbar_init(full + s, kTma ? 1 : 129);
+      mbar_init(full + s, 1);   // the producer's arrival, with its bytes
       mbar_init(empty + s, 8);  // one per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -404,58 +351,48 @@ conv3x3_seg_kernel(const __grid_constant__ CUtensorMap wmap,
   __syncthreads();
 
   if (wg == 2) {
-    // ---- producer: one thread issues the copies (TMA route), or the
-    // warpgroup copies the window (ragged route) ----
-    if (kTma && t != 0) return;
+    // ---- producer: one thread issues the copies ----
+    if (t != 0) return;
     const __nv_bfloat16* wblk =
         wp + static_cast<size_t>(blockIdx.y) * 9 * n_chunks * NB * kChunk;
+    const int win_bytes = kBoxes * kChunk * pitch;
     for (int i = 0; i < steps; ++i) {
       const int s = i % kStages;
       mbar_wait(empty + s, ((i / kStages) & 1) ^ 1);
-      const Step st = step_at(i, x0, y0, d, pad);
+      const Step st = step_at<kFlat>(i, x0, y0, d, pad, Wp);
       unsigned char* win = ring + s * kStageBytes;
-      if (t == 0) {
-        const int row_bytes = kChunk * pitch;
-        mbar_arrive_tx(full + s, 3 * kBBytes + (kTma ? 2 * row_bytes : 0));
-        if (kTma) {
-          tma_load_4d(win, &wmap, full + s, st.xw, st.ys, st.c0, b);
-          tma_load_4d(win + row_bytes, &wmap, full + s, st.xw, st.ys + 1,
-                      st.c0, b);
-        }
-        // the weights of taps (ky, 0..2) lie together
-        bulk_load(win + kWinBytes,
-                  wblk + static_cast<size_t>(3 * i) * NB * kChunk,
-                  3 * kBBytes, full + s);
+      mbar_arrive_tx(full + s, 3 * kBBytes + win_bytes);
+      if (kFlat) {
+        tma_load_3d(win, &wmap, full + s, st.xw, st.c0, b);
+      } else {
+        tma_load_4d(win, &wmap, full + s, st.xw, st.ys, st.c0, b);
+        tma_load_4d(win + kChunk * pitch, &wmap, full + s, st.xw, st.ys + 1,
+                    st.c0, b);
       }
-      if (!kTma) {
-        fetch_rows(win, pitch, xb, full + s, lane, warp, st.xw, st.ys,
-                   st.c0, pad, Cin, H, W, plane);
-      }
+      // the weights of taps (ky, 0..2) lie together
+      bulk_load(win + kWinBytes,
+                wblk + static_cast<size_t>(3 * i) * NB * kChunk, 3 * kBBytes,
+                full + s);
     }
     return;
   }
 
-  // ---- consumers: warpgroup wg computes tile row y0 + wg ----
+  // ---- consumers: warpgroup wg computes the tile's row y0 + wg, or its
+  // flat pixels x0 + 64 wg .. ----
   float acc[kAcc];  // written first by the scale-d = 0 product
-  const int par0 = static_cast<int>(reinterpret_cast<uintptr_t>(xb) >> 1) & 1;
   for (int i = 0; i < steps; ++i) {
     const int s = i % kStages;
     mbar_wait(full + s, (i / kStages) & 1);
-    const Step st = step_at(i, x0, y0, d, pad);
-    const unsigned char* win = ring + s * kStageBytes + wg * kChunk * pitch;
+    const unsigned char* win =
+        ring + s * kStageBytes + (kFlat ? 0 : wg * kChunk * pitch);
 #pragma unroll
     for (int kx = 0; kx < 3; ++kx) {
-      // shift this row's window into the tap's A (while the tensor cores
-      // run the previous tap), then multiply
+      // shift this warpgroup's pixels of the window into the tap's A
+      // (while the tensor cores run the previous tap), then multiply
       const int tap = 3 * i + kx;
       unsigned char* a = abuf + (tap & 1) * kABytes + wg * kRowBytes;
-      const int offset = pad + (kx - 1) * d;
-      if (kTma) {
-        realign_at(offset, a, win, pitch, lane, warp);
-      } else {
-        realign_rows(a, win, pitch, offset, par0, plane, W, st.xw,
-                     x0 + (kx - 1) * d, st.ys + wg, st.c0, lane, warp);
-      }
+      realign_at((kFlat ? wg * kTileW : 0) + pad + (kx - 1) * d, a, win,
+                 pitch, lane, warp);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
       const uint32_t au = smem_u32(a);
@@ -500,9 +437,36 @@ conv3x3_seg_kernel(const __grid_constant__ CUtensorMap wmap,
     stage[col * kEpiPitch + px] = __float2bfloat16_rn(v);
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+  __nv_bfloat16* ob = out + b * out_bstride;
+  if (kFlat) {
+    // thread t writes pixels 4 (t % 16) .. + 3 of every eighth channel
+    // from t / 16: those in the image, by one 8-byte store where the
+    // destination allows, by 4-byte or 2-byte stores elsewhere
+    const int px = 4 * (t & 15);
+    const int f = x0 + wg * kTileW + px;
+    const int yy = f / Wp, xx = f - yy * Wp;  // 4 pixels of one row
+    if (yy >= H || xx >= W) return;
+    const int n = W - xx < 4 ? W - xx : 4;
+    __nv_bfloat16* dst = ob + static_cast<size_t>(yy) * W + xx;
+    for (int col = t >> 4; col < NB && n0 + col < Cout; col += 8) {
+      __nv_bfloat16* o = dst + (n0 + col) * plane;
+      const __nv_bfloat16* src = stage + col * kEpiPitch + px;
+      const int a = static_cast<int>(reinterpret_cast<uintptr_t>(o) & 7);
+      if (n == 4 && a == 0) {
+        *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(src);
+      } else if (n == 4 && a == 4) {
+        const uint2 v = *reinterpret_cast<const uint2*>(src);
+        reinterpret_cast<uint32_t*>(o)[0] = v.x;
+        reinterpret_cast<uint32_t*>(o)[1] = v.y;
+      } else {
+        for (int e = 0; e < n; ++e) o[e] = src[e];
+      }
+    }
+    return;
+  }
   const int yy = y0 + wg;
   if (yy >= H) return;
-  __nv_bfloat16* orow = out + b * out_bstride + static_cast<size_t>(yy) * W;
+  __nv_bfloat16* orow = ob + static_cast<size_t>(yy) * W;
   for (int idx = t; idx < NB * 8; idx += 128) {
     const int col = idx >> 3, px = (idx & 7) * 8;
     const int co = n0 + col, xx = x0 + px;
@@ -543,99 +507,119 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The input range as a 4-D tensor (W, H, Cin, B) with boxes of ``box_w``
-// x 1 x 64 x 1, no swizzle, zero fill out of bounds.
+// The input's tensor map, no swizzle, zero fill out of bounds, boxes of
+// ``box_w`` pixels x 64 channels: over (W, H, Cin, B), a row high, where
+// the input is the caller's range (row pitch Wp = W); over (H Wp, Cin, B)
+// where it is a pitched copy (Wp > W).
 int encode_input_map(CUtensorMap* map, const __nv_bfloat16* x,
                      long long x_bstride, int B, int Cin, int H, int W,
-                     int box_w) {
+                     int Wp, int box_w) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(W),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(Cin),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(W) * 2, static_cast<cuuint64_t>(H) * W * 2,
-      static_cast<cuuint64_t>(x_bstride) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_w), 1, kChunk, 1};
+  const cuuint64_t row = static_cast<cuuint64_t>(Wp) * 2;  // bytes
+  const cuuint64_t plane = row * H;
+  const cuuint64_t bstride = static_cast<cuuint64_t>(x_bstride) * 2;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<__nv_bfloat16*>(x), dims, strides, box,
-                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint32_t bw = static_cast<cuuint32_t>(box_w);
+  CUresult r;
+  if (Wp != W) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(H) * Wp,
+                                static_cast<cuuint64_t>(Cin),
+                                static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[2] = {plane, bstride};
+    const cuuint32_t box[3] = {bw, kChunk, 1};
+    r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+           const_cast<__nv_bfloat16*>(x), dims, strides, box, elem,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dims[4] = {
+        static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
+        static_cast<cuuint64_t>(Cin), static_cast<cuuint64_t>(B)};
+    const cuuint64_t strides[3] = {row, plane, bstride};
+    const cuuint32_t box[4] = {bw, 1, kChunk, 1};
+    r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+           const_cast<__nv_bfloat16*>(x), dims, strides, box, elem,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int NB, bool kTma>
-int launch(const CUtensorMap& wmap, const __nv_bfloat16* x,
-           long long x_bstride, const __nv_bfloat16* wp, const float* bias,
-           __nv_bfloat16* out, long long out_bstride, int B, int Cin,
-           int Cout, int H, int W, int d, int relu, int vec_out,
-           cudaStream_t stream) {
+template <int NB, int kBoxes>
+int launch(const CUtensorMap& wmap, const __nv_bfloat16* wp,
+           const float* bias, __nv_bfloat16* out, long long out_bstride,
+           int B, int Cin, int Cout, int H, int W, int Wp, int d, int relu,
+           int vec_out, cudaStream_t stream) {
   constexpr size_t smem =
       kBarBytes + 1023 +
       Pipe<NB>::kStages * (kWinBytes + 3 * NB * kChunk * 2) + 2 * kABytes;
   static upflow::PerDevice attrs;
   const cudaError_t e = attrs.once([] {
-    return cudaFuncSetAttribute(conv3x3_seg_kernel<NB, kTma>,
+    return cudaFuncSetAttribute(conv3x3_seg_kernel<NB, kBoxes>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem));
   });
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_x = (W + kTileW - 1) / kTileW;
-  const int tiles_y = (H + kTileH - 1) / kTileH;
-  const dim3 grid(tiles_x * tiles_y, (Cout + NB - 1) / NB, B);
-  conv3x3_seg_kernel<NB, kTma><<<grid, kThreads, smem, stream>>>(
-      wmap, x, x_bstride, wp, bias, out, out_bstride, Cin, Cout, H, W, d,
-      relu, tiles_x, vec_out);
+  const int tiles = kBoxes == kPitched
+                        ? static_cast<int>((static_cast<long long>(H) * Wp +
+                                            kTilePx - 1) / kTilePx)
+                        : tiles_x * ((H + kTileH - 1) / kTileH);
+  const dim3 grid(tiles, (Cout + NB - 1) / NB, B);
+  conv3x3_seg_kernel<NB, kBoxes><<<grid, kThreads, smem, stream>>>(
+      wmap, wp, bias, out, out_bstride, Cin, Cout, H, W, Wp, d, relu,
+      tiles_x, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NB>
-int launch_route(const __nv_bfloat16* x, long long x_bstride,
-                 const __nv_bfloat16* wp, const float* bias,
-                 __nv_bfloat16* out, long long out_bstride, int B, int Cin,
-                 int Cout, int H, int W, int d, int relu, int tma,
-                 int vec_out, cudaStream_t stream) {
-  CUtensorMap wmap = {};
-  if (!tma) {
-    return launch<NB, false>(wmap, x, x_bstride, wp, bias, out, out_bstride,
-                             B, Cin, Cout, H, W, d, relu, vec_out, stream);
-  }
+int launch_tiling(const __nv_bfloat16* x, long long x_bstride,
+                  const __nv_bfloat16* wp, const float* bias,
+                  __nv_bfloat16* out, long long out_bstride, int B, int Cin,
+                  int Cout, int H, int W, int Wp, int d, int relu,
+                  int vec_out, cudaStream_t stream) {
   const int pad = d <= 8 ? 8 : kMaxPad;
-  const int e = encode_input_map(&wmap, x, x_bstride, B, Cin, H, W,
-                                 kTileW + 2 * pad);
+  CUtensorMap wmap = {};
+  const int e = encode_input_map(&wmap, x, x_bstride, B, Cin, H, W, Wp,
+                                 (Wp != W ? kTilePx : kTileW) + 2 * pad);
   if (e != 0) return e;
-  return launch<NB, true>(wmap, x, x_bstride, wp, bias, out, out_bstride, B,
-                          Cin, Cout, H, W, d, relu, vec_out, stream);
+  if (Wp != W) {
+    return launch<NB, kPitched>(wmap, wp, bias, out, out_bstride, B, Cin,
+                               Cout, H, W, Wp, d, relu, vec_out, stream);
+  }
+  return launch<NB, kAligned>(wmap, wp, bias, out, out_bstride, B, Cin, Cout,
+                             H, W, Wp, d, relu, vec_out, stream);
 }
 
 }  // namespace
 
-// x: bf16 channel range (B, Cin, H, W), each item contiguous, batch stride
-// x_bstride elements; wp: weights packed for the block width nb (8, 16,
-// 32, 64, 96 or 128 output channels); bias: (Cout,) fp32; out: bf16
-// channel range (B, Cout, H, W) with batch stride out_bstride.  relu: 0
-// none, 1 LeakyReLU 0.1, 2 ReLU.  tma picks
-// the TMA producer (W * 2, x_bstride * 2 and x multiples of 16 bytes) or
-// the ragged one; vec_out says out's rows take 16-byte stores.  Current
-// device.
+// x: bf16 (B, Cin, H, Wp), each item contiguous, batch stride x_bstride
+// elements, its address, Wp * 2 and x_bstride * 2 multiples of 16 bytes:
+// the caller's channel range (Wp = W), or a copy of it whose rows are
+// padded with zeros to Wp >= W + d (the pitched route).  wp: weights
+// packed for the block width nb (8, 16, 32, 64, 96 or 128 output
+// channels); bias: (Cout,) fp32; out: bf16 channel range (B, Cout, H, W)
+// with batch stride out_bstride.  relu: 0 none, 1 LeakyReLU 0.1, 2 ReLU.
+// vec_out says out's rows take 16-byte stores.  Current device.
 extern "C" int upflow_conv3x3_seg(const __nv_bfloat16* x,
                                   long long x_bstride,
                                   const __nv_bfloat16* wp, const float* bias,
                                   __nv_bfloat16* out, long long out_bstride,
                                   int B, int Cin, int Cout, int H, int W,
-                                  int d, int relu, int nb, int tma,
+                                  int Wp, int d, int relu, int nb,
                                   int vec_out, void* stream) {
   if (B == 0 || H == 0 || W == 0 || Cout == 0) return 0;
-  if (d < 1 || d > kMaxPad) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1 || d > kMaxPad || (Wp != W && Wp < W + d) || Wp % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define UPFLOW_CONV_CASE(N)                                                \
   case N:                                                                  \
-    return launch_route<N>(x, x_bstride, wp, bias, out, out_bstride, B,    \
-                           Cin, Cout, H, W, d, relu, tma, vec_out, s);
+    return launch_tiling<N>(x, x_bstride, wp, bias, out, out_bstride, B,   \
+                            Cin, Cout, H, W, Wp, d, relu, vec_out, s);
   switch (nb) {
     UPFLOW_CONV_CASE(8)
     UPFLOW_CONV_CASE(16)

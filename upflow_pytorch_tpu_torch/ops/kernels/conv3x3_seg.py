@@ -18,11 +18,16 @@ item contiguous, any batch stride): the dense stacks of
 into its slot of one buffer, which is what the TPU kernel's channel
 segments were for.
 
-The kernel stages its input by one of two routes, chosen from the input's
-layout alone (``staging_route``): TMA where its rows, its batch stride and
-its address are multiples of 16 bytes, 4-byte cp.async copies elsewhere
-(KITTI's 375 x 1242 pyramid).  Each route counts its launches in
-``conv3x3_seg.route_launches``.
+The kernel loads its input by TMA, which needs rows, batch stride and
+address in multiples of 16 bytes.  ``staging_route`` decides from the
+input's layout alone: "tma" where the input range meets that (the 384 x
+1280 pyramid), "pitched" elsewhere (KITTI's 375 x 1242 pyramid, rows of
+311 or 156 pixels).  A pitched input is first copied, inside the call,
+into a contiguous map whose rows are zero-extended to ``pitched_width``
+columns; the kernel tiles that copy by 128 flat pixels and writes only the
+caller's columns.  The outputs are those of the TMA route on the
+zero-extended map, bit for bit.  ``conv3x3_seg.route_launches`` counts
+each route.
 
 The weights go in packed (``pack_weight``).  The model packs them once:
 ``packed_params`` keeps the packed copy and the fp32 bias on the module
@@ -133,10 +138,17 @@ def staging_route(w: int, batch_stride: int, data_ptr: int) -> str:
     """How the kernel stages a bf16 input range of width ``w``: "tma" when
     its rows (and so its planes), its batch stride (elements) and its
     address are multiples of 16 bytes, as TMA's tensor map needs;
-    "cp.async" (4-byte copies) otherwise."""
+    "pitched" (a zero-extended copy, ``pitched_width``) otherwise."""
     ok = (2 * w % TMA_ALIGN == 0 and 2 * batch_stride % TMA_ALIGN == 0
           and data_ptr % TMA_ALIGN == 0)
-    return "tma" if ok else "cp.async"
+    return "tma" if ok else "pitched"
+
+
+def pitched_width(w: int, dilation: int) -> int:
+    """The row pitch of a pitched input's copy: the least multiple of 8
+    (16 bytes) that is at least ``w + dilation``, so that a column tap past
+    either end of a row reads zeros of the copy's columns [w, pitch)."""
+    return -(-(w + dilation) // 8) * 8
 
 
 def conv3x3_seg_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -201,15 +213,21 @@ def conv3x3_seg_cuda(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError("%s: packed weights do not fit a (%d, %d, 3, 3) "
                          "conv on %s" % (op, cout, cin, x.device))
     route = staging_route(w, x.stride(0), x.data_ptr())
+    xs, pitch = x, w
+    if route == "pitched":
+        pitch = pitched_width(w, dilation)
+        xs = x.new_empty((b, cin, h, pitch))
+        xs[..., w:].zero_()
+        xs[..., :w].copy_(x)
     vec_out = (w * 2 % 16 == 0 and out.stride(0) * 2 % 16 == 0
                and out.data_ptr() % 16 == 0)
     fn = _build.kernel_fn("upflow_conv3x3_seg",
                           [PTR, LONG, PTR, PTR, PTR, LONG, INT, INT, INT,
                            INT, INT, INT, INT, INT, INT, INT, PTR])
     conv3x3_seg.route_launches[route] += 1
-    launch(op, conv3x3_seg, x, fn, x.data_ptr(), x.stride(0), wp.data_ptr(),
-           bias32.data_ptr(), out.data_ptr(), out.stride(0), b, cin, cout, h,
-           w, int(dilation), epilogue(relu), nb, int(route == "tma"),
+    launch(op, conv3x3_seg, x, fn, xs.data_ptr(), xs.stride(0),
+           wp.data_ptr(), bias32.data_ptr(), out.data_ptr(), out.stride(0),
+           b, cin, cout, h, w, pitch, int(dilation), epilogue(relu), nb,
            int(vec_out))
     return out
 
@@ -313,4 +331,4 @@ def conv3x3_seg(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 conv3x3_seg.launches = 0
-conv3x3_seg.route_launches = {"tma": 0, "cp.async": 0}
+conv3x3_seg.route_launches = {"tma": 0, "pitched": 0}
