@@ -45,7 +45,7 @@ Phases, each of which must pass:
    checkpoint ``assets/synthetic_trained.npz``, on three paths: the eval
    recipe without SGU (slice 1), with SGU (the served configuration), and
    with SGU at bf16.  For each path: count the kernel launches of each
-   forward inside ``upflow.eager_entry()`` (``conv3x3_seg`` by staging
+   forward inside ``entry.eager_entry()`` (``conv3x3_seg`` by staging
    route, and its weight packs: none after a model's first forward), then
    hold the kernel path (a request's second and later forwards replay its
    CUDA graph) against the plain path on the card and time both.  Then
@@ -1125,7 +1125,7 @@ def plain_path(k):
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
     try:
-        with k.upflow.eager_entry():  # a graph's replay ignores the swaps
+        with k.entry.eager_entry():  # a graph's replay ignores the swaps
             yield
     finally:
         for mod, name, fn in saved:
@@ -1139,7 +1139,7 @@ def library_route(k):
     saved = k.conv_ops.uses_kernel
     k.conv_ops.uses_kernel = lambda *args: False
     try:
-        with k.upflow.eager_entry():
+        with k.entry.eager_entry():
             yield
     finally:
         k.conv_ops.uses_kernel = saved
@@ -1189,7 +1189,7 @@ def phase_serve(k, tag: str, ref_model=None):
     sgu = knobs["if_sgu_upsample"]
     conf = k.UPFlowConfig().updated(knobs)
     t0 = time.perf_counter()
-    model = k.upflow.build_model(conf, weights=str(NPZ))
+    model = k.entry.build_model(conf, weights=str(NPZ))
     print("  %s model on %s in %.1f s: %d parameters, snapshot arrays "
           "skipped: %s" % (tag, next(model.parameters()).device,
                            time.perf_counter() - t0,
@@ -1210,14 +1210,14 @@ def phase_serve(k, tag: str, ref_model=None):
     routes.update({"tma": 0, "pitched": 0})
     cn_routes.update({"vec": 0, "word": 0})
     # eager: the launch counters count at a graph's capture, not its replay
-    with k.upflow.eager_entry():
+    with k.entry.eager_entry():
         for i, ((b, h, w, seed), (im1, im2)) in enumerate(
                 zip(requests, pairs)):
             before = {n: fn.launches for n, fn in k.dispatch.items()}
             routes_before = dict(routes)
             cn_before = dict(cn_routes)
             packs_before = k.seg.pack_weight.calls
-            out = k.upflow.forward(model, im1, im2)
+            out = k.entry.forward(model, im1, im2)
             torch.cuda.synchronize()
             delta = {n: fn.launches - before[n]
                      for n, fn in k.dispatch.items()}
@@ -1275,7 +1275,7 @@ def phase_serve(k, tag: str, ref_model=None):
             heads = []
             hook = (model.sgi_model.dense_estimator_mask.register_forward_hook(
                 lambda mod, args, out: heads.append(out[1])) if sgu else None)
-            fast = k.upflow.forward(model, im1, im2)
+            fast = k.entry.forward(model, im1, im2)
             if hook is not None:
                 hook.remove()
                 print("  info %s: max |inter-flow| (u, v) px per SGU stage, "
@@ -1283,14 +1283,14 @@ def phase_serve(k, tag: str, ref_model=None):
                       % (what, sgu_extrema(heads, (h, w))))
             before = {n: fn.launches for n, fn in k.dispatch.items()}
             with plain_path(k):
-                plain = k.upflow.forward(model, im1, im2)
+                plain = k.entry.forward(model, im1, im2)
             torch.cuda.synchronize()
             check(all(fn.launches == before[n]
                       for n, fn in k.dispatch.items()),
                   "%s: the plain path launched no kernel" % what)
             if knobs.get("compute_dtype") == "bfloat16":
                 with plain_path(k), library_route(k):
-                    lib = k.upflow.forward(model, im1, im2)
+                    lib = k.entry.forward(model, im1, im2)
                 occ = max((plain[key] != lib[key]).float().mean().item()
                           for key in ("occ_fw", "occ_bw"))
                 print("  info %s: floor, plain path vs library route: flow "
@@ -1314,13 +1314,13 @@ def phase_serve(k, tag: str, ref_model=None):
                   % (what, levels))
             if ref_model is not None:
                 mean, p999 = flow_diffs(
-                    fast, k.upflow.forward(ref_model, im1, im2))
+                    fast, k.entry.forward(ref_model, im1, im2))
                 print("  info %s: against the fp32 SGU kernel path, flow "
                       "|diff| mean %.3e px, p99.9 %.3e px" % (what, mean,
                                                               p999))
-            fast_ms = wall_ms(lambda: k.upflow.forward(model, im1, im2))
+            fast_ms = wall_ms(lambda: k.entry.forward(model, im1, im2))
             with plain_path(k):
-                plain_ms = wall_ms(lambda: k.upflow.forward(model, im1, im2))
+                plain_ms = wall_ms(lambda: k.entry.forward(model, im1, im2))
             timing.append(dict(path=tag, request=[b, h, w],
                                kernel_ms=fast_ms, plain_ms=plain_ms))
             print("  info %s: forward %.2f ms (kernels), %.2f ms (plain "
@@ -1342,12 +1342,12 @@ def phase_tf32_request(k, model, pair):
     bar_mean, bar_p999, bar_occ = AGREEMENT["sgu"]
     k.warp_ops.MASK_THRESHOLD = RELAXED_THRESHOLD
     try:
-        exact = k.upflow.forward(model, im1, im2)
+        exact = k.entry.forward(model, im1, im2)
         with plain_path(k):
-            plain = k.upflow.forward(model, im1, im2)
+            plain = k.entry.forward(model, im1, im2)
         torch.set_float32_matmul_precision("high")
         try:
-            fast = k.upflow.forward(model, im1, im2)
+            fast = k.entry.forward(model, im1, im2)
             torch.cuda.synchronize()
             after = torch.get_float32_matmul_precision()
         finally:
@@ -1386,12 +1386,12 @@ def phase_profile(k, model, pair, tag):
     from torch.profiler import ProfilerActivity, profile
 
     im1, im2 = pair
-    k.upflow.forward(model, im1, im2)
+    k.entry.forward(model, im1, im2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        k.upflow.forward(model, im1, im2)
+        k.entry.forward(model, im1, im2)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -1547,13 +1547,13 @@ def step_gradients(k, conf, batch):
     """The gradient of one step's total loss by parameter name, from the
     checkpoint's weights, the step's loss terms, and the peak memory (GiB)
     of its forward and of the whole step."""
-    model = k.upflow.build_model(conf, weights=str(NPZ))
+    model = k.entry.build_model(conf, weights=str(NPZ))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = k.upflow.forward_with_loss(model, batch)
     torch.cuda.synchronize()
     forward_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    with k.upflow.fp32_numerics():
+    with k.resize.fp32_numerics():
         out["total_loss"].backward()
     torch.cuda.synchronize()
     return ({n: p.grad for n, p in model.named_parameters()},
@@ -2033,7 +2033,7 @@ def phase_pth(k, model_c, pair, tmp):
     paths = {"zip": tmp / "c_zip.pth", "legacy": tmp / "c_legacy.pth"}
     torch.save(sd, paths["zip"])
     torch.save(sd, paths["legacy"], _use_new_zipfile_serialization=False)
-    want = k.upflow.forward(model_c, *pair)
+    want = k.entry.forward(model_c, *pair)
     out = {}
 
     def fresh(knobs, name):
@@ -2047,7 +2047,7 @@ def phase_pth(k, model_c, pair, tmp):
     for fmt_name, path in paths.items():
         trainer = fresh(TRAIN_KNOBS, "pth_" + fmt_name)
         report = trainer.load_pretrained(str(path))
-        got = k.upflow.forward(trainer.model, *pair)
+        got = k.entry.forward(trainer.model, *pair)
         differ = sum(int((got[key] != want[key]).sum())
                      for key in ("flow_f_out", "flow_b_out"))
         mean = max((got[key] - want[key]).abs().mean().item()
@@ -2068,14 +2068,14 @@ def phase_pth(k, model_c, pair, tmp):
 
     bf16 = dict(TRAIN_KNOBS, compute_dtype="bfloat16")
     trainer = fresh(bf16, "pth_bf16")
-    k.upflow.forward(trainer.model, *pair)
+    k.entry.forward(trainer.model, *pair)
     report = trainer.load_pretrained(str(paths["zip"]))
     packs = k.seg.pack_weight.calls
-    got = k.upflow.forward(trainer.model, *pair)
+    got = k.entry.forward(trainer.model, *pair)
     packs = k.seg.pack_weight.calls - packs
     npz = tmp / "c.npz"
     k.npz_io.save_params_npz(str(npz), model_c)
-    ref = k.upflow.forward(k.upflow.build_model(
+    ref = k.entry.forward(k.entry.build_model(
         k.UPFlowConfig().updated(bf16), weights=str(npz)), *pair)
     differ = sum(int((got[key] != ref[key]).sum())
                  for key in ("flow_f_out", "flow_b_out"))
@@ -2131,8 +2131,8 @@ def phase_learn(k):
         conf, k.TrainerConfig(lr=LEARN_LR), seed=0)
 
     with recording(k) as calls:
-        k.upflow.forward(model, data["im1"][:LEARN_BATCH],
-                         data["im2"][:LEARN_BATCH])
+        k.entry.forward(model, data["im1"][:LEARN_BATCH],
+                        data["im2"][:LEARN_BATCH])
     for name, ((owner, attr), (p_owner, p_attr), bar) in RECORDED.items():
         kernel = getattr(getattr(k, owner), attr)
         plain = getattr(getattr(k, p_owner), p_attr)
@@ -2161,7 +2161,7 @@ def phase_learn(k):
     step_fn = k.step.make_train_step(model, opt)
 
     def eval_epe():
-        es = [k.synthetic.epe(k.upflow.forward(
+        es = [k.synthetic.epe(k.entry.forward(
             model, data["im1"][i:i + LEARN_BATCH],
             data["im2"][i:i + LEARN_BATCH])["flow_f_out"].cpu().numpy(),
             gt[i:i + LEARN_BATCH])
@@ -2298,8 +2298,8 @@ def phase_shapes(k):
 
     rng = np.random.RandomState(8)
     gen = torch.Generator(device=DEV).manual_seed(8)
-    bf16_model = k.upflow.build_model(k.UPFlowConfig().updated(BF16_KNOBS),
-                                      weights=str(NPZ))
+    bf16_model = k.entry.build_model(k.UPFlowConfig().updated(BF16_KNOBS),
+                                     weights=str(NPZ))
     out = {"B=%d %dx%d" % size: hold_frame(k, *size, rng, gen, hold,
                                            bf16_model, "8a")
            for size in SHAPE_SIZES}
@@ -2474,7 +2474,7 @@ def hold_frame(k, b, h, w, rng, gen, hold, bf16_model, tag):
     im1, im2 = textured_pair(b, h, w, seed=b * h + w)
     launches_from_zero(k)
     before = dict(k.seg.conv3x3_seg.route_launches)
-    k.upflow.forward(bf16_model, im1, im2)
+    k.entry.forward(bf16_model, im1, im2)
     got, _ = launch_counts(k)
     ran = {r: n - before[r]
            for r, n in k.seg.conv3x3_seg.route_launches.items()}
@@ -2806,7 +2806,7 @@ def phase_sintel(k, root, tmp, pth, ref):
     """Phase 8e: ``SintelEvalDataset`` (final pass, 436x1024) through the
     port's bench, held to the JAX package's; then
     ``scripts/torch_train_sintel.py`` at ``--crop 384 768 --batch 4``."""
-    model = k.upflow.build_model(k.cli["kitti_eval"].EVAL_CONF)
+    model = k.entry.build_model(k.cli["kitti_eval"].EVAL_CONF)
     k.torch_import.load_pretrained_params(str(pth), model)
     dataset = k.sintel.SintelEvalDataset(str(root), "final")
     launches_from_zero(k)
@@ -2874,8 +2874,8 @@ def phase_data(k, tmp):
     print("  info trees written in %.1f s: %s"
           % (time.perf_counter() - t0, {n: len(s) for n, s in splits.items()}))
     pth = tmp / "synthetic_trained.pth"
-    model = k.upflow.build_model(k.cli["kitti_eval"].EVAL_CONF,
-                                 weights=str(NPZ))
+    model = k.entry.build_model(k.cli["kitti_eval"].EVAL_CONF,
+                                weights=str(NPZ))
     torch.save(k.torch_import.params_to_torch_state_dict(model), pth)
     del model
     for name, fn in (("8b", lambda: phase_native(k, root, tmp)),
@@ -3583,7 +3583,7 @@ TRACED_OPS = (("upflow", "normalize_features"), ("upflow", "_correlation"),
               ("upflow", "upsample2d_flow_as"), ("cn", "moments"),
               ("upflow", "warp_norm_corr"), ("warp_ops", "flow_warp_masked"),
               ("warp_ops", "sgu_blend_pair"), ("upflow", "sgu_final"),
-              ("upflow", "occ_check"))
+              ("entry", "occ_check"))
 
 
 def trace_difference(k, model, im1, im2, shard):
@@ -3655,9 +3655,9 @@ def trace_difference(k, model, im1, im2, shard):
         saved.append((module, fn, op))
         setattr(module, fn, wrapped)
     try:
-        k.upflow.forward(model, im1, im2)
+        k.entry.forward(model, im1, im2)
         whole_run, record = record, None
-        k.upflow.forward(model, im1, im2, shard)
+        k.entry.forward(model, im1, im2, shard)
     finally:
         for h in hooks:
             h.remove()
@@ -3701,7 +3701,7 @@ def spatial_rank(rank: int, world: int, init_method: str, out: str) -> int:
         models, windows = {}, set()
         for path, (name, b, h, w, seed) in jobs:
             if path not in models:
-                models[path] = k.upflow.build_model(
+                models[path] = k.entry.build_model(
                     k.UPFlowConfig().updated(SPATIAL_PATHS[path][0]),
                     weights=str(NPZ))
             step = k.pstep.make_sharded_eval_step(models[path], mesh,
@@ -3833,11 +3833,11 @@ def phase_spatial(k, tmp):
     refs = {}
     k.warp_ops.MASK_THRESHOLD = RELAXED_THRESHOLD
     for path, (knobs, _) in SPATIAL_PATHS.items():
-        model = k.upflow.build_model(k.UPFlowConfig().updated(knobs),
-                                     weights=str(NPZ))
+        model = k.entry.build_model(k.UPFlowConfig().updated(knobs),
+                                    weights=str(NPZ))
         reqs = SPATIAL_REQUESTS + ([SPATIAL_UNEVEN] if path == "sgu" else [])
         for name, b, h, w, seed in reqs:
-            res = k.upflow.forward(model, *textured_pair(b, h, w, seed))
+            res = k.entry.forward(model, *textured_pair(b, h, w, seed))
             refs[path, name] = {key: res[key].cpu() for key in
                                 ("flow_f_out", "flow_b_out", "occ_fw",
                                  "occ_bw")}
@@ -4109,7 +4109,7 @@ def hold_sweep_frames(k):
         for b in SWEEP_BATCHES:
             im1, im2 = (hb.as_nchw(data[key][:b], DEV)
                         for key in ("im1", "im2"))
-            with torch.no_grad(), k.upflow.fp32_numerics():
+            with torch.no_grad(), k.resize.fp32_numerics():
                 zero_counts(k)
                 got = model(im1, im2)[:2]
                 torch.cuda.synchronize()
@@ -4296,8 +4296,9 @@ class Port:
         from upflow_pytorch_tpu_torch.data import synthetic
         from upflow_pytorch_tpu_torch.eval import bench
         from upflow_pytorch_tpu_torch.config import RAFTConfig
-        from upflow_pytorch_tpu_torch.models import raft, upflow
+        from upflow_pytorch_tpu_torch.models import entry, raft, upflow
         from upflow_pytorch_tpu_torch.ops import conv as conv_ops
+        from upflow_pytorch_tpu_torch.ops import resize
         from upflow_pytorch_tpu_torch.ops.kernels import corr_lookup as cl
         from upflow_pytorch_tpu_torch.ops import warp as warp_ops
         from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as seg
@@ -4326,7 +4327,7 @@ class Port:
 
         self.build, self.UPFlowConfig = _build, UPFlowConfig
         self.step, self.TrainerConfig = step, TrainerConfig
-        self.upflow = upflow
+        self.entry, self.upflow, self.resize = entry, upflow, resize
         self.raft, self.cl, self.RAFTConfig = raft, cl, RAFTConfig
         self.pmesh, self.pstep, self.dryrun = pmesh, pstep, dryrun
         self.warp_ops, self.cn, self.corr, self.fw, self.warp = (
@@ -4480,16 +4481,16 @@ def phase_raft(k):
 
     # the entry at 375x1242, bf16
     conf = k.RAFTConfig(compute_dtype="bfloat16")
-    model = k.upflow.build_model(conf, seed=5)
+    model = k.entry.build_model(conf, seed=5)
     h, w = RAFT_FRAME
     im1, im2 = textured_pair(1, h, w, 31)
     im1, im2 = im1 * 255.0, im2 * 255.0
-    with k.upflow.eager_entry():
+    with k.entry.eager_entry():
         zero_counts(k)
         k.cl.corr_lookup.launches = 0
         k.cl.corr_lookup_plain.cuda_calls = 0
         iters0 = k.raft.RAFTNet.iterations
-        eager = k.upflow.forward(model, im1, im2)
+        eager = k.entry.forward(model, im1, im2)
         torch.cuda.synchronize()
         launches = {"corr_lookup": k.cl.corr_lookup.launches,
                     "conv3x3_seg": k.seg.conv3x3_seg.launches,
@@ -4503,9 +4504,9 @@ def phase_raft(k):
               for key in ("flow_f_out", "flow_b_out")),
           "RAFT flows finite (mean |flow| %.2f px)"
           % eager["flow_f_out"].norm(dim=-1).mean().item())
-    f = k.upflow.forward
+    f = k.entry.forward
     c0, r0 = f.graph_captures, f.graph_replays
-    outs = [k.upflow.forward(model, im1, im2) for _ in range(4)]
+    outs = [k.entry.forward(model, im1, im2) for _ in range(4)]
     torch.cuda.synchronize()
     check(f.graph_captures - c0 == 1 and f.graph_replays - r0 == 2,
           "RAFT entry: one capture and two replays after the key's first "
@@ -4514,15 +4515,15 @@ def phase_raft(k):
                for key in ("flow_f_out", "flow_b_out", "occ_fw", "occ_bw"))
     check(same, "RAFT graph replays bit for bit the eager request")
     out["launches"] = launches
-    out["forward_ms"] = wall_ms(lambda: k.upflow.forward(model, im1, im2),
+    out["forward_ms"] = wall_ms(lambda: k.entry.forward(model, im1, im2),
                                 reps=RAFT_FORWARDS)
     out["eager_forward_ms"] = wall_ms(lambda: eager_call(k, model, im1, im2),
                                       reps=3)
-    out["device_ms"] = time_ms(lambda: k.upflow.forward(model, im1, im2),
+    out["device_ms"] = time_ms(lambda: k.entry.forward(model, im1, im2),
                                reps=5, inner=4)
     # the whole request through the plain lookup and conv
     with raft_plain(k):
-        plain = k.upflow.forward(model, im1, im2)
+        plain = k.entry.forward(model, im1, im2)
     out["plain_path_epe_px"] = epe = max(
         (eager[key] - plain[key]).norm(dim=-1).mean().item()
         for key in ("flow_f_out", "flow_b_out"))
@@ -4535,7 +4536,7 @@ def phase_raft(k):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        k.upflow.forward(model, im1, im2)
+        k.entry.forward(model, im1, im2)
         torch.cuda.synchronize()
     events = prof.events()
     names = [e.name for e in events if e.device_type == DeviceType.CPU]
@@ -4618,8 +4619,8 @@ def raft_conv_cases(k):
 
 
 def eager_call(k, model, im1, im2):
-    with k.upflow.eager_entry():
-        return k.upflow.forward(model, im1, im2)
+    with k.entry.eager_entry():
+        return k.entry.forward(model, im1, im2)
 
 
 @contextlib.contextmanager
@@ -4631,7 +4632,7 @@ def raft_plain(k):
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
     try:
-        with k.upflow.eager_entry():
+        with k.entry.eager_entry():
             yield
     finally:
         for mod, name, fn in saved:
@@ -4750,7 +4751,7 @@ def main(argv) -> int:
     # phases 5-11 count launches over whole evaluations, CLIs, runs and
     # steps, and the counters count at a graph's capture, not its replay:
     # the entry runs eagerly from here on
-    with k.upflow.eager_entry():
+    with k.entry.eager_entry():
         print("phase 5: evaluate against ground truth", flush=True)
         phase_eval(k, models)
         del models, pairs

@@ -34,15 +34,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from upflow_pytorch_tpu_torch import bench  # noqa: E402
-from upflow_pytorch_tpu_torch.models.upflow import (  # noqa: E402
-    _resolve_device)
+from upflow_pytorch_tpu_torch.utils.misc import (  # noqa: E402
+    resolve_device)
 
 DEFAULTS = {"batches": "4,8,16", "iters": "20", "h": "384", "w": "1280"}
 
 
 def sweep(device, batches: Sequence[int], iters: int, hw) -> Dict[str, Any]:
     """One JSON line a batch, then the summary, which it returns."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     on_card = device.type == "cuda"
     model, used_ckpt = bench.load_model(bench.CONF, device)
     overhead = bench._dispatch_overhead(device, iters)

@@ -72,7 +72,7 @@ def record_calls(seg, run):
 def request_calls(root, torch, np):
     """{model: {call: count}} over one eager request of each model."""
     from upflow_pytorch_tpu_torch.config import RAFTConfig, UPFlowConfig
-    from upflow_pytorch_tpu_torch.models import upflow
+    from upflow_pytorch_tpu_torch.models import entry
     from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as seg
 
     def config(name):
@@ -84,17 +84,17 @@ def request_calls(root, torch, np):
     h, w = FRAME
     im1, im2 = (rng.rand(1, h, w, 3).astype(np.float32) for _ in range(2))
     out = {}
-    model = upflow.build_model(
+    model = entry.build_model(
         UPFlowConfig().updated(config("upflow_sgu_bf16_eval")["upflow"]),
         weights=os.path.join(root, "assets", "synthetic_trained.npz"))
-    with upflow.eager_entry():
+    with entry.eager_entry():
         out["upflow"] = record_calls(
-            seg, lambda: upflow.forward(model, im1, im2))
-    model = upflow.build_model(
+            seg, lambda: entry.forward(model, im1, im2))
+    model = entry.build_model(
         RAFTConfig().updated(config("raft_kitti_bf16_eval")["raft"]), seed=5)
-    with upflow.eager_entry():
+    with entry.eager_entry():
         out["raft"] = record_calls(
-            seg, lambda: upflow.forward(model, im1 * 255.0, im2 * 255.0))
+            seg, lambda: entry.forward(model, im1 * 255.0, im2 * 255.0))
     del model
     torch.cuda.synchronize()
     return out

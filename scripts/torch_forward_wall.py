@@ -57,15 +57,15 @@ def main() -> int:
     b, h, w, seed = cs.REQUESTS[0]
     im1, im2 = cs.textured_pair(b, h, w, seed)
     for tag in ("sgu-bf16", "sgu"):
-        model = k.upflow.build_model(
+        model = k.entry.build_model(
             k.UPFlowConfig().updated(cs.PATHS[tag][0]), weights=str(cs.NPZ))
-        ms = [cs.wall_ms(lambda: k.upflow.forward(model, im1, im2), reps=9)
+        ms = [cs.wall_ms(lambda: k.entry.forward(model, im1, im2), reps=9)
               for _ in range(2)]
         print("%s %s forward ms %s" % (root, tag,
                                        ", ".join("%.2f" % m for m in ms)))
         print("%s %s forward: %d device kernels, %d transfers and memsets"
               % ((root, tag) + kernel_count(
-                  lambda: k.upflow.forward(model, im1, im2))))
+                  lambda: k.entry.forward(model, im1, im2))))
     print(cs.nvidia_smi_line())
     return 0
 

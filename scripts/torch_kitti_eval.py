@@ -33,7 +33,7 @@ from upflow_pytorch_tpu_torch.config import UPFlowConfig
 from upflow_pytorch_tpu_torch.data.flow_io import write_flow_png
 from upflow_pytorch_tpu_torch.data.kitti import KittiFlowEvalDataset
 from upflow_pytorch_tpu_torch.eval.bench import BenchResult, EvaluationBench
-from upflow_pytorch_tpu_torch.models.upflow import build_model
+from upflow_pytorch_tpu_torch.models.entry import build_model
 from upflow_pytorch_tpu_torch.train.trainer import NetEvalModel
 
 # the reference eval config (test.py:22-30)

@@ -80,7 +80,7 @@ def main() -> int:
     from upflow_pytorch_tpu_torch.checkpoint.torch_import import (
         params_to_torch_state_dict)
     from upflow_pytorch_tpu_torch.data import kitti as pkitti
-    from upflow_pytorch_tpu_torch.models.upflow import build_model
+    from upflow_pytorch_tpu_torch.models.entry import build_model
     from upflow_pytorch_tpu_torch.train import trainer as ptrainer
 
     jwarp.MASK_THRESHOLD = pwarp.MASK_THRESHOLD = args.threshold

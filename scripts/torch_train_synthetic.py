@@ -54,7 +54,7 @@ def main():
 
     from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
     from upflow_pytorch_tpu_torch.data.synthetic import epe, make_dataset
-    from upflow_pytorch_tpu_torch.models.upflow import forward
+    from upflow_pytorch_tpu_torch.models.entry import forward
     from upflow_pytorch_tpu_torch.train.step import (
         create_train_state, make_train_step)
 

@@ -28,11 +28,9 @@ from upflow_pytorch_tpu.ops.pallas import corr_norm as jcn
 from upflow_pytorch_tpu.ops.pallas.feature_warp import feature_warp_prep
 
 import chip_smoke
-from upflow_pytorch_tpu_torch.checkpoint.convert import params_from_jax
-from upflow_pytorch_tpu_torch.checkpoint.npz_io import load_npz_flat
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
 from upflow_pytorch_tpu_torch.models import blocks as pblocks
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.ops import conv as pconv_ops
 from upflow_pytorch_tpu_torch.ops import warp as pwarp
 from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as pseg
@@ -192,40 +190,6 @@ def test_packed_params_cached_and_fresh():
     assert bias.dtype == torch.float32 and torch.equal(bias, block[0].bias)
     calls, wp2, _ = _pack_counts(block)
     assert calls == 0 and wp2 is wp
-
-
-@pytest.mark.parametrize("update", ["copy_", "load_state_dict",
-                                    "params_from_jax", "bias"])
-def test_packed_params_rebuilt_after_update(update):
-    """The pack cache is rebuilt after every way the parameters change in
-    place: ``copy_``, ``load_state_dict``, ``params_from_jax`` (the
-    checkpoint import) and an update of the bias alone."""
-    gen = torch.Generator().manual_seed(1)
-    if update == "params_from_jax":
-        model = pupflow.build_model(UPFlowConfig().updated(dict(
-            EVAL_KNOBS, compute_dtype="bfloat16")), device="cpu")
-        block = model.flow_estimators.conv1
-    else:
-        block = pblocks.ConvBlock(64, 16, generator=gen)
-    _, old, old_bias = _pack_counts(block)
-    old, old_bias = old.clone(), old_bias.clone()
-    with torch.no_grad():
-        if update == "copy_":
-            block[0].weight.copy_(torch.randn(block[0].weight.shape,
-                                              generator=gen))
-        elif update == "load_state_dict":
-            other = pblocks.ConvBlock(64, 16, generator=gen)
-            block.load_state_dict(other.state_dict())
-        elif update == "bias":
-            block[0].bias.add_(1.0)
-        else:
-            model.load_state_dict(params_from_jax(
-                load_npz_flat(NPZ), model.state_dict().keys()))
-    calls, wp, bias = _pack_counts(block)
-    assert calls == 1
-    assert torch.equal(wp, pseg.pack_weight(block[0].weight))
-    assert torch.equal(bias, block[0].bias.float())
-    assert not (torch.equal(wp, old) and torch.equal(bias, old_bias))
 
 
 @pytest.mark.parametrize("shape", chip_smoke.conv_shapes(),
@@ -411,7 +375,7 @@ def test_estimator_context_match_jax_pallas(decoder_params, monkeypatch):
         (jnp.asarray(flow) + res).astype(jnp.bfloat16)]).astype(jnp.float32)
     ref_res, ref_out = _f32(res), _f32(res + fine)
 
-    model = pupflow.build_model(
+    model = entry.build_model(
         UPFlowConfig().updated(dict(EVAL_KNOBS, compute_dtype="bfloat16")),
         device="cpu", weights=NPZ)
     calls = []
@@ -493,7 +457,7 @@ def test_bf16_level0_cost_volume_matches_jax():
     rng = np.random.RandomState(17)
     f1 = _bf16_values(rng.randn(2, 6, 20, 196) * 2 + 0.3)
     f2 = _bf16_values(rng.randn(2, 6, 20, 196) * 2 - 0.1)
-    model = pupflow.build_model(
+    model = entry.build_model(
         UPFlowConfig().updated(dict(EVAL_KNOBS, compute_dtype="bfloat16")),
         device="cpu")
     zeros = torch.zeros(2, 2, 6, 20)

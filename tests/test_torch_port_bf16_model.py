@@ -44,7 +44,7 @@ from upflow_pytorch_tpu.models import upflow as jupflow
 
 import upflow_pytorch_tpu_torch.ops.warp as pwarp
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.ops import conv as pconv_ops
 from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as pseg
 
@@ -77,8 +77,8 @@ def outputs():
             {tuple(k.split("/")): z[k] for k in z.files})
     jmodel = jupflow.build_model(JaxConfig().updated(BF16_KNOBS))
     jfwd = jax.jit(lambda p, a, c: jupflow.forward(jmodel, p, a, c))
-    model = pupflow.build_model(UPFlowConfig().updated(BF16_KNOBS),
-                                device="cpu", weights=NPZ)
+    model = entry.build_model(UPFlowConfig().updated(BF16_KNOBS),
+                              device="cpu", weights=NPZ)
     calls = []
     seg = pconv_ops.conv3x3_seg
     results = []
@@ -92,7 +92,7 @@ def outputs():
             ref = jax.tree_util.tree_map(
                 np.asarray, jfwd(params, jnp.asarray(im1), jnp.asarray(im2)))
             del calls[:]
-            out = pupflow.forward(model, im1, im2)
+            out = entry.forward(model, im1, im2)
             results.append((ref, out, len(calls)))
     return results
 
@@ -151,10 +151,10 @@ def test_bf16_model_takes_the_same_fp32_parameters():
     checkpoint arrays, skips none, and holds the fp32 model's parameters,
     in fp32."""
     knobs = dict(BF16_KNOBS, compute_dtype="float32")
-    m32 = pupflow.build_model(UPFlowConfig().updated(knobs), device="cpu",
-                              weights=NPZ)
-    m16 = pupflow.build_model(UPFlowConfig().updated(BF16_KNOBS),
-                              device="cpu", weights=NPZ)
+    m32 = entry.build_model(UPFlowConfig().updated(knobs), device="cpu",
+                            weights=NPZ)
+    m16 = entry.build_model(UPFlowConfig().updated(BF16_KNOBS),
+                            device="cpu", weights=NPZ)
     assert m16.dtype == torch.bfloat16 and m32.dtype == torch.float32
     assert m16.skipped_keys == [] and len(m16.state_dict()) == 80
     sd32 = m32.state_dict()

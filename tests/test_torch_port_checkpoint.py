@@ -44,7 +44,7 @@ from upflow_pytorch_tpu_torch.checkpoint import npz_io as pnpz
 from upflow_pytorch_tpu_torch.checkpoint import state_io
 from upflow_pytorch_tpu_torch.checkpoint import torch_import as pti
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 
 NPZ = str(Path(__file__).resolve().parents[1] / "assets"
           / "synthetic_trained.npz")
@@ -69,7 +69,7 @@ def reference_sd(jax_params):
 
 
 def _model(sgu=True, seed=7):
-    return pupflow.build_model(
+    return entry.build_model(
         UPFlowConfig().updated(dict(KNOBS, if_sgu_upsample=sgu)),
         device="cpu", seed=seed)
 
@@ -284,7 +284,7 @@ def test_forward_after_import_matches_jax(reference_sd, jax_params,
         jmodel = jupflow.build_model(JaxConfig().updated(KNOBS))
         ref = jax.jit(lambda p, a, b: jupflow.forward(jmodel, p, a, b))(
             merged, jnp.asarray(im1), jnp.asarray(im2))
-        out = pupflow.forward(model, im1, im2)
+        out = entry.forward(model, im1, im2)
     for key in ("flow_f_out", "flow_b_out"):
         err = float(np.abs(out[key].numpy() - np.asarray(ref[key])).max())
         assert err <= 1e-4, (key, err)
@@ -302,8 +302,8 @@ def test_npz_snapshot_read_by_jax(jax_params, tmp_path):
     pnpz.save_params_npz(path, model)
     restored = jnpz.load_params_npz(path, jax_params)
     flat = flax.traverse_util.flatten_dict(restored, sep="/")
-    back = pupflow.build_model(UPFlowConfig().updated(KNOBS), device="cpu",
-                               weights=path)
+    back = entry.build_model(UPFlowConfig().updated(KNOBS), device="cpu",
+                             weights=path)
     assert len(flat) == 80
     for n, p in model.named_parameters():
         assert torch.equal(back.state_dict()[n], p.detach()), n

@@ -33,7 +33,7 @@ from upflow_pytorch_tpu_torch import demo
 from upflow_pytorch_tpu_torch.checkpoint import state_io, torch_import
 from upflow_pytorch_tpu_torch.data import kitti
 from upflow_pytorch_tpu_torch.data.flow_io import write_flow_png
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.train.trainer import NetEvalModel
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -63,8 +63,8 @@ def setup(tmp_path_factory):
         for name, value in SMALL_TREES.items():
             mp.setattr(trees, name, value)
         trees.write_trees(str(root), seed=5, workers=4)
-    model = pupflow.build_model(torch_kitti_eval.EVAL_CONF, device="cpu",
-                                weights=NPZ)
+    model = entry.build_model(torch_kitti_eval.EVAL_CONF, device="cpu",
+                              weights=NPZ)
     pth = tmp / "snapshot.pth"
     torch.save(torch_import.params_to_torch_state_dict(model), pth)
     return dict(root=str(root), pth=str(pth), tmp=tmp, model=model)

@@ -169,7 +169,7 @@ def test_settings_restored_after_a_step_that_raises(
 def test_manager_nests_in_fp32_numerics(caller_settings):
     """``fp32_numerics`` inside ``deterministic_numerics`` keeps cuDNN's
     deterministic flag set, as in the step's backward."""
-    from upflow_pytorch_tpu_torch.models.upflow import fp32_numerics
+    from upflow_pytorch_tpu_torch.ops.resize import fp32_numerics
     torch.backends.cudnn.deterministic = False
     with pstep.deterministic_numerics():
         with fp32_numerics():

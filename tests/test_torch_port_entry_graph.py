@@ -1,6 +1,8 @@
-"""The serving entry's CUDA graph (``models/upflow.py``): the key, the
-reasons to stay eager, the cache's bound, and on the card a replay bit
-for bit the eager forward.
+"""The serving entry (``models/entry.py``): its place above both
+networks, the one rule by which it and the packed and merged convs notice
+new parameters, its graph's key, the reasons to stay eager, the cache's
+bound, and on the card a replay bit for bit the eager forward, also for
+two threads at one key.
 
 The CPU tests hold the plain functions; the tests marked ``card`` need a
 CUDA device and skip without one.  On the card, without the JAX
@@ -10,17 +12,24 @@ configuration of ``tests/conftest.py``:
         --noconftest -p no:cacheprovider -q
 """
 
+import subprocess
+import sys
+import threading
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from upflow_pytorch_tpu_torch.config import UPFlowConfig
-from upflow_pytorch_tpu_torch.models import upflow
+from upflow_pytorch_tpu_torch.checkpoint.convert import params_from_jax
+from upflow_pytorch_tpu_torch.checkpoint.npz_io import load_npz_flat
+from upflow_pytorch_tpu_torch.config import RAFTConfig, UPFlowConfig
+from upflow_pytorch_tpu_torch.models import entry, upflow
 from upflow_pytorch_tpu_torch.models.occlusion import occ_check
 from upflow_pytorch_tpu_torch.ops import warp as pwarp
 from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as seg
+from upflow_pytorch_tpu_torch.ops.resize import fp32_numerics
+from upflow_pytorch_tpu_torch.utils.misc import nhwc
 
 ROOT = Path(__file__).resolve().parents[1]
 NPZ = str(ROOT / "assets" / "synthetic_trained.npz")
@@ -54,39 +63,59 @@ def _bit_equal(a, b) -> bool:
 
 
 def _counts():
-    f = upflow.forward
+    f = entry.forward
     return f.graph_captures, f.graph_replays, dict(f.eager_calls)
 
 
 @pytest.fixture(scope="module")
 def cpu_model():
-    return upflow.build_model(UPFlowConfig().updated(EVAL_KNOBS), "cpu",
-                              weights=NPZ)
+    return entry.build_model(UPFlowConfig().updated(EVAL_KNOBS), "cpu",
+                             weights=NPZ)
+
+
+# --- the layering ------------------------------------------------------------
+
+PACKAGE = "upflow_pytorch_tpu_torch"
+# module -> the modules of the package that importing it must not load
+LAYERS = {"models.entry": ("models.upflow", "models.raft"),
+          "models.upflow": ("models.raft",),
+          "checkpoint.state_io": ("models",),
+          "utils.misc": ("models",)}
+
+
+@pytest.mark.parametrize("module", sorted(LAYERS))
+def test_layering(module):
+    """The entry sits above both networks and loads neither, UPFlow's
+    module does not load RAFT's, and the checkpoint and device helpers
+    load no network module: each imported alone, in a fresh process."""
+    code = ("import importlib, sys; importlib.import_module(%r); "
+            "print(' '.join(sys.modules))" % (PACKAGE + "." + module))
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    loaded = [m[len(PACKAGE) + 1:] for m in run.stdout.split()
+              if m.startswith(PACKAGE + ".")]
+    assert module in loaded
+    assert not [m for m in loaded if m.startswith(LAYERS[module])]
+
+
+def test_the_benchmark_names_are_the_entry():
+    assert upflow.forward is entry.forward
+    assert upflow.build_model is entry.build_model
 
 
 # --- the key -----------------------------------------------------------------
-
-def _bump_version(model):
-    with torch.no_grad():
-        p = next(model.parameters())
-        p.copy_(p)
-
-
-def _new_storage(model):
-    p = next(model.parameters())
-    p.data = p.data.clone()
-
 
 # (what changes, how): each must give another key
 KEY_CHANGES = {
     "height": lambda m, s: (m, (1, 64, 80, 3), s[1]),
     "batch": lambda m, s: (m, (2,) + s[0][1:], (2,) + s[1][1:]),
     "second_image": lambda m, s: (m, s[0], (1, 64, 80, 3)),
-    "compute_dtype": lambda m, s: (upflow.build_model(
+    "compute_dtype": lambda m, s: (entry.build_model(
         UPFlowConfig().updated(BF16_SGU), "cpu"), s[0], s[1]),
-    "sgu": lambda m, s: (upflow.build_model(
+    "sgu": lambda m, s: (entry.build_model(
         UPFlowConfig().updated(FP32_PLAIN), "cpu"), s[0], s[1]),
-    "cost_volume": lambda m, s: (upflow.build_model(
+    "cost_volume": lambda m, s: (entry.build_model(
         UPFlowConfig().updated(dict(EVAL_KNOBS, if_use_cor_pytorch=True)),
         "cpu"), s[0], s[1]),
 }
@@ -109,41 +138,125 @@ SWITCHES = {
 @pytest.mark.parametrize("change", sorted(KEY_CHANGES))
 def test_key_changes_with_the_call(cpu_model, change):
     shapes = ((1, 64, 96, 3), (1, 64, 96, 3))
-    before = upflow.graph_key(cpu_model, *shapes, CPU)
+    before = entry.graph_key(cpu_model, *shapes, CPU)
     model, s1, s2 = KEY_CHANGES[change](cpu_model, shapes)
-    assert upflow.graph_key(model, s1, s2, CPU) != before
+    assert entry.graph_key(model, s1, s2, CPU) != before
 
 
 @pytest.mark.parametrize("switch", sorted(SWITCHES))
 def test_key_changes_with_a_switch(cpu_model, switch, monkeypatch):
     monkeypatch.delenv("UPFLOW_ROBUST_MASK", raising=False)
     shapes = ((1, 64, 96, 3), (1, 64, 96, 3))
-    before = upflow.graph_key(cpu_model, *shapes, CPU)
+    before = entry.graph_key(cpu_model, *shapes, CPU)
     SWITCHES[switch](monkeypatch)
-    after = upflow.graph_key(cpu_model, *shapes, CPU)
+    after = entry.graph_key(cpu_model, *shapes, CPU)
     assert after != before and after[1] == before[1]
-
-
-@pytest.mark.parametrize("update", [_bump_version, _new_storage])
-def test_key_changes_with_the_weights(update):
-    model = upflow.build_model(UPFlowConfig().updated(EVAL_KNOBS), "cpu")
-    shapes = ((1, 64, 96, 3), (1, 64, 96, 3))
-    call, weights = upflow.graph_key(model, *shapes, CPU)
-    update(model)
-    call_after, weights_after = upflow.graph_key(model, *shapes, CPU)
-    assert call_after == call and weights_after != weights
 
 
 def test_key_stays_for_the_same_call(cpu_model):
     """New images of the same shapes, and a forward between, leave the key
     as it was."""
     im1, im2 = _images(1, 64, 96, 0)
-    key = upflow.graph_key(cpu_model, im1.shape, im2.shape, CPU)
-    upflow.forward(cpu_model, im1, im2)
+    key = entry.graph_key(cpu_model, im1.shape, im2.shape, CPU)
+    entry.forward(cpu_model, im1, im2)
     im1, im2 = _images(1, 64, 96, 1)
-    assert upflow.graph_key(cpu_model, im1.shape, im2.shape, CPU) == key
-    assert upflow.graph_key(cpu_model, torch.from_numpy(im1).shape,
-                            im2.shape, CPU) == key
+    assert entry.graph_key(cpu_model, im1.shape, im2.shape, CPU) == key
+    assert entry.graph_key(cpu_model, torch.from_numpy(im1).shape,
+                           im2.shape, CPU) == key
+
+
+# --- the parameter-change rule ---------------------------------------------
+
+def _packed(model):
+    """A dense-stack conv's packed weights and fp32 bias, as held and as a
+    fresh pack gives them."""
+    block = model.flow_estimators.conv1
+    return (seg.packed_params(block, block[0].weight, block[0].bias),
+            (seg.pack_weight(block[0].weight), block[0].bias.float()))
+
+
+def _merged(model):
+    """RAFT's merged head convs, as held and as a fresh concatenation gives
+    them."""
+    heads = model.update_block.heads
+    return heads.params(), tuple(
+        torch.cat([getattr(c, name) for c in heads.convs])
+        for name in ("weight", "bias"))
+
+
+def _key(model):
+    return entry.graph_key(model, (1, 64, 96, 3), (1, 64, 96, 3), CPU), None
+
+
+# user -> (its network, the conv an update changes, what the rule keeps)
+RULE_USERS = {
+    "packed_conv": ("upflow", lambda m: m.flow_estimators.conv1[0], _packed),
+    "merged_conv": ("raft", lambda m: m.update_block.heads.convs[1],
+                    _merged),
+    "graph_key": ("upflow", lambda m: m.flow_estimators.conv1[0], _key)}
+RULE_UPDATES = ("copy_", "load_state_dict", "bias", "to", "data",
+                "params_from_jax")
+# the updates that leave every value as it was: new storage alone
+SAME_VALUES = ("to", "data")
+
+
+def _rule_model(net, seed):
+    conf = (RAFTConfig(iters=1) if net == "raft"
+            else UPFlowConfig().updated(BF16_SGU))
+    return entry.build_model(conf, "cpu", seed=seed)
+
+
+def _update(update, net, model, conv):
+    with torch.no_grad():
+        if update == "copy_":
+            conv.weight.copy_(torch.randn(
+                conv.weight.shape, generator=torch.Generator().manual_seed(3)))
+        elif update == "load_state_dict":
+            model.load_state_dict(_rule_model(net, seed=1).state_dict())
+        elif update == "bias":
+            conv.bias.add_(1.0)
+        elif update == "to":
+            model.to(torch.float64).to(torch.float32)
+        elif update == "data":
+            conv.weight.data = conv.weight.data.clone()
+        else:
+            model.load_state_dict(params_from_jax(
+                load_npz_flat(NPZ), model.state_dict().keys()))
+
+
+@pytest.mark.parametrize("user,update", [
+    (user, update) for user in sorted(RULE_USERS) for update in RULE_UPDATES
+    if not (update == "params_from_jax" and RULE_USERS[user][0] == "raft")])
+def test_a_parameter_change_is_noticed(user, update):
+    """Each user of ``_common.py::param_versions`` notices each way the
+    parameters change, in place (``copy_``, ``load_state_dict``, the bias
+    alone, ``params_from_jax``) or by new storage (``.to()``, a ``.data``
+    swap): the packed and merged convs are rebuilt, equal to a fresh
+    build from the new parameters, and then kept; the graph key's weights
+    part changes, its call part does not, and the model's graphs go."""
+    net, conv_of, kept = RULE_USERS[user]
+    model = _rule_model(net, seed=0)
+    held, _ = kept(model)
+    # the values held before (the fp32 bias is the parameter itself)
+    before = None if user == "graph_key" else [t.clone() for t in held]
+    # the old storage stays alive, so that no new tensor can take its
+    # address
+    old_storage = [p.data for p in model.parameters()]
+    _update(update, net, model, conv_of(model))
+    del old_storage
+    now, fresh = kept(model)
+    if user == "graph_key":
+        assert now[0] == held[0] and now[1] != held[1]
+        cache = entry.GraphCache()
+        cache.take(held)
+        cache.entries[held] = "graph"
+        assert cache.take(now) == (False, None)
+        assert list(cache.entries) == [now]
+        return
+    assert now is not held and kept(model)[0] is now
+    assert all(torch.equal(a, b) for a, b in zip(now, fresh))
+    same = all(torch.equal(a, b) for a, b in zip(now, before))
+    assert same == (update in SAME_VALUES)
 
 
 # --- the reasons to stay eager ---------------------------------------------
@@ -170,39 +283,39 @@ def _global_pre_hook(model):
                                   _global_hook, _global_pre_hook])
 def test_hooks_keep_the_entry_eager(cpu_model, hook):
     cuda = torch.device("cuda", 0)
-    assert upflow.eager_reason(cpu_model, cuda) is None
+    assert entry.eager_reason(cpu_model, cuda) is None
     handle = hook(cpu_model)
     try:
-        assert upflow.eager_reason(cpu_model, cuda) == "hooks"
+        assert entry.eager_reason(cpu_model, cuda) == "hooks"
     finally:
         handle.remove()
-    assert upflow.eager_reason(cpu_model, cuda) is None
+    assert entry.eager_reason(cpu_model, cuda) is None
 
 
 def test_each_reason_is_reported(cpu_model):
     """cpu, shard, eager_entry and profiler, each beside a clean card
     call (None); ``eager_entry`` nests."""
     cuda = torch.device("cuda", 0)
-    assert upflow.eager_reason(cpu_model, CPU) == "cpu"
-    assert upflow.eager_reason(cpu_model, CPU, shard=object()) == "cpu"
-    assert upflow.eager_reason(cpu_model, cuda, shard=object()) == "shard"
-    with upflow.eager_entry():
-        with upflow.eager_entry():
-            assert upflow.eager_reason(cpu_model, cuda) == "eager_entry"
-        assert upflow.eager_reason(cpu_model, cuda) == "eager_entry"
-    assert upflow.eager_reason(cpu_model, cuda) is None
+    assert entry.eager_reason(cpu_model, CPU) == "cpu"
+    assert entry.eager_reason(cpu_model, CPU, shard=object()) == "cpu"
+    assert entry.eager_reason(cpu_model, cuda, shard=object()) == "shard"
+    with entry.eager_entry():
+        with entry.eager_entry():
+            assert entry.eager_reason(cpu_model, cuda) == "eager_entry"
+        assert entry.eager_reason(cpu_model, cuda) == "eager_entry"
+    assert entry.eager_reason(cpu_model, cuda) is None
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU]):
-        assert upflow.eager_reason(cpu_model, cuda) == "profiler"
-    assert upflow.eager_reason(cpu_model, cuda) is None
-    assert set(upflow.forward.eager_calls) == set(upflow.EAGER_REASONS)
+        assert entry.eager_reason(cpu_model, cuda) == "profiler"
+    assert entry.eager_reason(cpu_model, cuda) is None
+    assert set(entry.forward.eager_calls) == set(entry.EAGER_REASONS)
 
 
 # --- the cache ---------------------------------------------------------------
 
 def test_cache_first_call_then_capture_then_replay():
-    cache = upflow.GraphCache(size=2)
+    cache = entry.GraphCache(size=2)
     key = (("a",), ("w",))
     assert cache.take(key) == (False, None)
     assert cache.take(key) == (True, None)
@@ -211,7 +324,7 @@ def test_cache_first_call_then_capture_then_replay():
 
 
 def test_cache_evicts_the_least_recently_used_key():
-    cache = upflow.GraphCache(size=2)
+    cache = entry.GraphCache(size=2)
     a, b, c = (((n,), ("w",)) for n in "abc")
     for key in (a, b):
         cache.take(key)
@@ -221,11 +334,11 @@ def test_cache_evicts_the_least_recently_used_key():
     assert list(cache.entries) == [a, c]
     assert cache.take(b) == (False, None)  # evicted: a first call again
     assert list(cache.entries) == [c, b]
-    assert upflow.GraphCache().size == upflow.GRAPH_KEYS
+    assert entry.GraphCache().size == entry.GRAPH_KEYS
 
 
 def test_cache_empties_on_other_weights():
-    cache = upflow.GraphCache()
+    cache = entry.GraphCache()
     for n in "ab":
         cache.take(((n,), ("w1",)))
         cache.entries[(n,), ("w1",)] = n
@@ -241,17 +354,16 @@ def test_cpu_forward_is_the_eager_composition(cpu_model):
     keeps no graph cache."""
     im1, im2 = _images(1, 64, 96, 2)
     before = _counts()
-    out = upflow.forward(cpu_model, im1, im2)
+    out = entry.forward(cpu_model, im1, im2)
     after = _counts()
     conf = cpu_model.conf
     t1 = torch.from_numpy(im1).permute(0, 3, 1, 2).contiguous()
     t2 = torch.from_numpy(im2).permute(0, 3, 1, 2).contiguous()
-    with torch.no_grad(), upflow.fp32_numerics():
+    with torch.no_grad(), fp32_numerics():
         flow_f, flow_b, flows = cpu_model(t1, t2)
         occ_fw, occ_bw = occ_check(flow_f, flow_b, conf.alpha_1,
                                    conf.alpha_2, conf.occ_check_obj_out_all,
                                    conf.occ_type)
-    nhwc = upflow._nhwc
     want = {"flow_f_out": nhwc(flow_f), "flow_b_out": nhwc(flow_b),
             "occ_fw": nhwc(occ_fw), "occ_bw": nhwc(occ_bw),
             "flows": [(nhwc(f), nhwc(b)) for f, b in flows]}
@@ -287,13 +399,13 @@ def cuda():
 
 
 def _card_model(knobs):
-    return upflow.build_model(UPFlowConfig().updated(knobs), "cuda",
-                              weights=NPZ)
+    return entry.build_model(UPFlowConfig().updated(knobs), "cuda",
+                             weights=NPZ)
 
 
 def _eager(model, im1, im2):
-    with upflow.eager_entry():
-        return upflow.forward(model, im1, im2)
+    with entry.eager_entry():
+        return entry.forward(model, im1, im2)
 
 
 @pytest.mark.card
@@ -308,7 +420,7 @@ def test_replay_is_the_eager_forward(cuda, knobs, shape):
     a, b = _images(*shape, 10), _images(*shape, 11)
     want = {"a": _eager(model, *a), "b": _eager(model, *b)}
     c0 = _counts()
-    got = [upflow.forward(model, *pair) for pair in (a, b, a, b)]
+    got = [entry.forward(model, *pair) for pair in (a, b, a, b)]
     torch.cuda.synchronize()
     c1 = _counts()
     assert (c1[0] - c0[0], c1[1] - c0[1]) == (1, 2)
@@ -324,10 +436,10 @@ def test_returned_tensors_outlive_the_next_request(cuda):
     model = _card_model(FP32_PLAIN)
     a, b = _images(1, 96, 160, 12), _images(1, 96, 160, 13)
     for pair in (a, b):
-        upflow.forward(model, *pair)  # the first call, then the capture
-    out_a = upflow.forward(model, *a)
+        entry.forward(model, *pair)  # the first call, then the capture
+    out_a = entry.forward(model, *a)
     kept = [t.clone() for t in _outputs(out_a)]
-    out_b = upflow.forward(model, *b)
+    out_b = entry.forward(model, *b)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(_outputs(out_a), kept))
     assert not torch.equal(out_a["flow_f_out"], out_b["flow_f_out"])
@@ -343,12 +455,12 @@ def test_new_weights_recapture(cuda):
     model = _card_model(BF16_SGU)
     a = _images(1, 128, 256, 14)
     for _ in range(3):
-        upflow.forward(model, *a)
+        entry.forward(model, *a)
     weight = model.flow_estimators.conv1[0].weight
     with torch.no_grad():
         weight.mul_(1.5)
     c0, packs = _counts(), seg.pack_weight.calls
-    got = [upflow.forward(model, *a) for _ in range(3)]
+    got = [entry.forward(model, *a) for _ in range(3)]
     c1, packs = _counts(), seg.pack_weight.calls - packs
     assert packs == 1  # the changed conv, at the eager call
     assert c1[2]["first_at_key"] == c0[2]["first_at_key"] + 1
@@ -368,18 +480,18 @@ def test_hooks_and_the_profiler_run_eagerly(cuda):
     model = _card_model(BF16_SGU)
     a = _images(1, 128, 256, 15)
     for _ in range(3):
-        replay = upflow.forward(model, *a)
+        replay = entry.forward(model, *a)
     heads = []
     handle = model.sgi_model.dense_estimator_mask.register_forward_hook(
         lambda mod, args, out: heads.append(out))
     c0 = _counts()
     try:
-        hooked = upflow.forward(model, *a)
+        hooked = entry.forward(model, *a)
     finally:
         handle.remove()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        profiled = upflow.forward(model, *a)
+        profiled = entry.forward(model, *a)
         torch.cuda.synchronize()
     c1 = _counts()
     assert len(heads) == 10  # two directions at levels 1-4 and the final
@@ -389,3 +501,46 @@ def test_hooks_and_the_profiler_run_eagerly(cuda):
     names = {e.name for e in prof.events()}
     assert set(SPANS) <= names
     assert _bit_equal(hooked, replay) and _bit_equal(profiled, replay)
+
+
+@pytest.mark.card
+def test_two_threads_at_one_key(cuda):
+    """Two threads serve different pairs at one key from one graph, the
+    interpreter switching threads as often as it can: the model's lock
+    keeps each call's copy in, replay and clones together, so every
+    output is bit for bit the eager forward of its own pair."""
+    model = _card_model(BF16_SGU)
+    pairs = [_images(1, 128, 256, 16), _images(1, 128, 256, 17)]
+    want = [_eager(model, *pair) for pair in pairs]
+    for pair in pairs:
+        entry.forward(model, *pair)  # the first call, then the capture
+    reps, got, errors = 20, [[], []], []
+
+    def serve(i):
+        try:
+            for _ in range(reps):
+                got[i].append(entry.forward(model, *pairs[i]))
+        except Exception as e:  # raised again below, in the test's thread
+            errors.append(e)
+
+    c0 = _counts()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=serve, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    c1 = _counts()
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+    assert (c1[0] - c0[0], c1[1] - c0[1]) == (0, 2 * reps)
+    for i in range(2):
+        assert len(got[i]) == reps
+        assert all(_bit_equal(out, want[i]) for out in got[i])

@@ -42,7 +42,7 @@ from upflow_pytorch_tpu_torch.checkpoint.convert import params_from_jax
 from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.data.synthetic import make_dataset
 from upflow_pytorch_tpu_torch.losses import equivariance as pe
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.train import step as pstep
 
 NPZ = str(Path(__file__).resolve().parents[1] / "assets"
@@ -204,9 +204,9 @@ def runs():
         mp.setattr(pwarp, "MASK_THRESHOLD", RELAXED_THRESHOLD)
         mp.setattr(je, "random_affine", lambda rng, b: jax_affine(affine))
         # the teacher of the pass: the port's forward, handed to both
-        model = pupflow.build_model(conf, device="cpu", weights=NPZ)
+        model = entry.build_model(conf, device="cpu", weights=NPZ)
         teacher = {k: v.numpy() for k, v in
-                   pupflow.forward(model, batch["im1"], batch["im2"]).items()
+                   entry.forward(model, batch["im1"], batch["im2"]).items()
                    if k != "flows"}
         p_pass = pe.equivariance_pass(model, batch, {
             k: torch.from_numpy(v) for k, v in teacher.items()},

@@ -29,7 +29,7 @@ from upflow_pytorch_tpu_torch.config import UPFlowConfig
 from upflow_pytorch_tpu_torch.data import synthetic as psyn
 from upflow_pytorch_tpu_torch.eval import bench as pbench
 from upflow_pytorch_tpu_torch.eval import metrics as pmetrics
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.train.trainer import NetEvalModel
 from upflow_pytorch_tpu_torch.utils import meters as pmeters
 from upflow_pytorch_tpu_torch.utils.timer import TimeClock
@@ -238,8 +238,8 @@ def eval_flows():
     sample = (data["im1"], data["im2"], data["gt_flow"], ones,
               data["gt_flow"], ones)
     jmodel = jupflow.build_model(JaxConfig().updated(SGU_KNOBS))
-    model = pupflow.build_model(UPFlowConfig().updated(SGU_KNOBS),
-                                device="cpu", weights=NPZ)
+    model = entry.build_model(UPFlowConfig().updated(SGU_KNOBS),
+                              device="cpu", weights=NPZ)
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jwarp, "MASK_THRESHOLD", RELAXED_THRESHOLD)
@@ -276,10 +276,10 @@ def test_net_eval_model_padding_changes_the_border_only(eval_flows):
 
 def test_net_eval_model_change_params():
     """``change_params`` loads a state dict into the served model."""
-    model = pupflow.build_model(UPFlowConfig().updated(SGU_KNOBS),
-                                device="cpu", seed=1)
-    snapshot = pupflow.build_model(UPFlowConfig().updated(SGU_KNOBS),
-                                   device="cpu", weights=NPZ).state_dict()
+    model = entry.build_model(UPFlowConfig().updated(SGU_KNOBS),
+                              device="cpu", seed=1)
+    snapshot = entry.build_model(UPFlowConfig().updated(SGU_KNOBS),
+                                 device="cpu", weights=NPZ).state_dict()
     eval_model = NetEvalModel(model)
     eval_model.change_params(snapshot)
     for key, value in snapshot.items():

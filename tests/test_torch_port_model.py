@@ -27,6 +27,7 @@ from upflow_pytorch_tpu.models import upflow as jupflow
 import upflow_pytorch_tpu_torch
 import upflow_pytorch_tpu_torch.ops.warp as pwarp
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.models import upflow as pupflow
 from upflow_pytorch_tpu_torch.ops import correlation as pcorr
 from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as pcn
@@ -76,9 +77,9 @@ def outputs(jax_params):
             ref = jax.jit(lambda p, a, c: jupflow.forward(jmodel, p, a, c))(
                 jax_params, jnp.asarray(im1), jnp.asarray(im2))
             ref = jax.tree_util.tree_map(np.asarray, ref)
-            model = pupflow.build_model(UPFlowConfig().updated(knobs),
-                                        device="cpu", weights=NPZ)
-            out = pupflow.forward(model, im1, im2)
+            model = entry.build_model(UPFlowConfig().updated(knobs),
+                                      device="cpu", weights=NPZ)
+            out = entry.forward(model, im1, im2)
             results.append((ref, out))
     return results
 
@@ -152,7 +153,7 @@ def test_unported_knobs_raise(dtype, error):
 def test_build_model_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        pupflow.build_model(UPFlowConfig())
+        entry.build_model(UPFlowConfig())
 
 
 def _port_modules():
@@ -237,10 +238,10 @@ def test_forward_pins_full_fp32_matmuls(set_tf32, monkeypatch):
     "highest" bit for bit."""
     import upflow_pytorch_tpu_torch.ops.resize as presize
 
-    model = pupflow.build_model(UPFlowConfig().updated(SLICE_KNOBS),
-                                device="cpu", weights=NPZ)
+    model = entry.build_model(UPFlowConfig().updated(SLICE_KNOBS),
+                              device="cpu", weights=NPZ)
     im1, im2 = _images(1, 64, 128, seed=5)
-    want = pupflow.forward(model, im1, im2)
+    want = entry.forward(model, im1, im2)
     seen = []
     resize = presize.resize_bilinear_align_corners
 
@@ -256,7 +257,7 @@ def test_forward_pins_full_fp32_matmuls(set_tf32, monkeypatch):
         set_tf32()
         before = _caller_setting()
         assert before[0] == "tf32"
-        got = pupflow.forward(model, im1, im2)
+        got = entry.forward(model, im1, im2)
         assert _caller_setting() == before
     finally:
         torch.set_float32_matmul_precision("highest")

@@ -66,7 +66,7 @@ from upflow_pytorch_tpu_torch.checkpoint import state_io, torch_import
 from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.data.pipeline import DataLoader
 from upflow_pytorch_tpu_torch.data.synthetic import make_dataset
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.parallel import dryrun, mesh as pmesh, reduce
 from upflow_pytorch_tpu_torch.parallel.spatial import WidthShard
 from upflow_pytorch_tpu_torch.parallel.step import make_sharded_train_step
@@ -117,7 +117,7 @@ import torch
 import upflow_pytorch_tpu_torch.ops.warp as pwarp
 from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.data.pipeline import DataLoader
-from upflow_pytorch_tpu_torch.models import upflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.parallel import mesh as pmesh
 from upflow_pytorch_tpu_torch.parallel import step as pstep
 from upflow_pytorch_tpu_torch.train import step as tstep
@@ -179,16 +179,16 @@ def run_step(job, mesh):
 def run_eval(job, mesh):
     conf = UPFlowConfig().updated(job["knobs"])
     batch = dict(np.load(job["batch"]))
-    model = upflow.build_model(conf, "cpu", weights=job["weights"])
+    model = entry.build_model(conf, "cpu", weights=job["weights"])
     keys = ("flow_f_out", "flow_b_out", "occ_fw", "occ_bw")
     with threshold(job["threshold"]):
         if mesh is None:
-            out = upflow.forward(model, batch["im1"], batch["im2"])
+            out = entry.forward(model, batch["im1"], batch["im2"])
             return {k: out[k].numpy() for k in keys}
         got = pstep.make_sharded_eval_step(model, mesh)(batch["im1"],
                                                        batch["im2"])
         rows = mesh.rows(len(batch["im1"]))
-        local = upflow.forward(model, batch["im1"][rows], batch["im2"][rows])
+        local = entry.forward(model, batch["im1"][rows], batch["im2"][rows])
     out = {k: v.numpy() for k, v in zip(keys, got)}
     out["own_rows_exact"] = np.array(all(
         torch.equal(g[rows], local[k]) for k, g in zip(keys, got)))
@@ -666,8 +666,8 @@ def test_train_kitti_cli_on_two_ranks(tmp_path):
         for name, value in SMALL_TREES.items():
             mp.setattr(trees, name, value)
         trees.write_trees(str(root), seed=5, workers=2)
-    model = pupflow.build_model(torch_kitti_eval.EVAL_CONF, device="cpu",
-                                weights=NPZ)
+    model = entry.build_model(torch_kitti_eval.EVAL_CONF, device="cpu",
+                              weights=NPZ)
     pth = tmp_path / "snapshot.pth"
     torch.save(torch_import.params_to_torch_state_dict(model), pth)
     port = str(_free_port())
@@ -778,11 +778,11 @@ def test_refusals(tmp_path, monkeypatch):
             device="cpu")
     with pytest.raises(ValueError, match="split evenly"):
         TrainerConfig(batchsize=3, data_axis=2)
-    model = pupflow.build_model(UPFlowConfig().updated(KNOBS), device="cpu")
+    model = entry.build_model(UPFlowConfig().updated(KNOBS), device="cpu")
     frame = np.zeros((1, 64, 128, 3), np.float32)
     with pytest.raises(ValueError, match="pyramid level 1/64 is 2 columns "
                        "wide: split over 3 ranks it leaves a rank no column"):
-        pupflow.forward(model, frame, frame, WidthShard(None, 0, 3))
+        entry.forward(model, frame, frame, WidthShard(None, 0, 3))
     mesh = pmesh.Mesh(None, 2, 1, torch.device("cpu"))
     assert mesh.rows(4) == slice(2, 4)
     with pytest.raises(ValueError, match="does not split"):

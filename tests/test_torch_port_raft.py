@@ -21,7 +21,7 @@ import torch
 
 import raft_reference as ref
 from upflow_pytorch_tpu_torch.config import RAFTConfig
-from upflow_pytorch_tpu_torch.models import raft, upflow
+from upflow_pytorch_tpu_torch.models import entry, raft
 from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as seg
 from upflow_pytorch_tpu_torch.ops.kernels import corr_lookup as cl
 
@@ -49,8 +49,8 @@ def _images(b, h, w, seed):
 
 
 def _build(dtype="float32", iters=ITERS):
-    return upflow.build_model(RAFTConfig(iters=iters, compute_dtype=dtype),
-                              "cpu", seed=SEED)
+    return entry.build_model(RAFTConfig(iters=iters, compute_dtype=dtype),
+                             "cpu", seed=SEED)
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +75,7 @@ def reference(fp32_model, pair):
 
 @pytest.fixture(scope="module")
 def served(fp32_model, pair):
-    return upflow.forward(fp32_model, *pair)
+    return entry.forward(fp32_model, *pair)
 
 
 def _epe(nhwc, nchw):
@@ -105,7 +105,7 @@ def test_bf16_forward_matches_the_reference(fp32_model, pair, reference):
     (1.6%); the port reads about 0.7% here."""
     model = _build("bfloat16")
     model.load_state_dict(fp32_model.state_dict())
-    out = upflow.forward(model, *pair)
+    out = entry.forward(model, *pair)
     (_, fu), (_, bu) = reference
     for key, want in (("flow_f_out", fu), ("flow_b_out", bu)):
         size = float(want.norm(dim=1).mean())
@@ -135,14 +135,14 @@ def test_a_saved_state_dict_loads(fp32_model, tmp_path):
     path = tmp_path / "raft.pth"
     torch.save({"module." + k: v for k, v in
                 fp32_model.state_dict().items()}, path)
-    model = upflow.build_model(RAFTConfig(iters=ITERS), "cpu", seed=SEED + 1,
-                               weights=str(path))
+    model = entry.build_model(RAFTConfig(iters=ITERS), "cpu", seed=SEED + 1,
+                              weights=str(path))
     for k, v in fp32_model.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
 
 
 def test_the_seed_draws_the_weights():
-    a, b, c = _build(), _build(), upflow.build_model(
+    a, b, c = _build(), _build(), entry.build_model(
         RAFTConfig(iters=ITERS), "cpu", seed=SEED + 1)
     w = "update_block.flow_head.conv2.weight"
     assert torch.equal(a.state_dict()[w], b.state_dict()[w])
@@ -275,7 +275,7 @@ def test_entry_outputs(served, pair):
 
 def test_iterations_counter(fp32_model, pair):
     before = raft.RAFTNet.iterations
-    upflow.forward(fp32_model, *pair)
+    entry.forward(fp32_model, *pair)
     assert raft.RAFTNet.iterations - before == ITERS
 
 
@@ -283,9 +283,9 @@ def test_graph_key_separates_iters(fp32_model):
     other = _build(iters=ITERS + 1)
     cpu = torch.device("cpu")
     shape = (1,) + HW + (3,)
-    key = upflow.graph_key(fp32_model, shape, shape, cpu)
-    assert key[0] != upflow.graph_key(other, shape, shape, cpu)[0]
-    assert key == upflow.graph_key(fp32_model, shape, shape, cpu)
+    key = entry.graph_key(fp32_model, shape, shape, cpu)
+    assert key[0] != entry.graph_key(other, shape, shape, cpu)[0]
+    assert key == entry.graph_key(fp32_model, shape, shape, cpu)
 
 
 class _Shard:
@@ -295,7 +295,7 @@ class _Shard:
 
 def test_forward_with_a_shard_raises(fp32_model, pair):
     with pytest.raises(ValueError, match="width shard"):
-        upflow.forward(fp32_model, *pair, shard=_Shard())
+        entry.forward(fp32_model, *pair, shard=_Shard())
 
 
 # --- on the card -------------------------------------------------------------
@@ -335,14 +335,14 @@ def test_lookup_kernel_matches_plain(cuda, n, h, w, dtype):
 
 @pytest.mark.card
 def test_raft_replay_is_the_eager_forward(cuda):
-    model = upflow.build_model(RAFTConfig(compute_dtype="bfloat16"), "cuda",
-                               seed=SEED)
+    model = entry.build_model(RAFTConfig(compute_dtype="bfloat16"), "cuda",
+                              seed=SEED)
     pair = _images(1, 375, 1242, 1)
-    with upflow.eager_entry():
-        want = upflow.forward(model, *pair)
-    f = upflow.forward
+    with entry.eager_entry():
+        want = entry.forward(model, *pair)
+    f = entry.forward
     c0, r0 = f.graph_captures, f.graph_replays
-    got = [upflow.forward(model, *pair) for _ in range(4)]
+    got = [entry.forward(model, *pair) for _ in range(4)]
     torch.cuda.synchronize()
     assert (f.graph_captures - c0, f.graph_replays - r0) == (1, 2)
     for out in got:

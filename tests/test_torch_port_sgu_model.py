@@ -22,7 +22,7 @@ from upflow_pytorch_tpu.models import upflow as jupflow
 
 import upflow_pytorch_tpu_torch.ops.warp as pwarp
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as pfw
 from upflow_pytorch_tpu_torch.ops.kernels import sgu_blend as psb
 from upflow_pytorch_tpu_torch.ops.kernels import sgu_final as psf
@@ -70,12 +70,12 @@ def outputs(jax_params):
             ref = jax.jit(lambda p, a, c: jupflow.forward(jmodel, p, a, c))(
                 jax_params, jnp.asarray(im1), jnp.asarray(im2))
             ref = jax.tree_util.tree_map(np.asarray, ref)
-            model = pupflow.build_model(UPFlowConfig().updated(knobs),
-                                        device="cpu", weights=NPZ)
+            model = entry.build_model(UPFlowConfig().updated(knobs),
+                                      device="cpu", weights=NPZ)
             heads = []
             hook = model.sgi_model.dense_estimator_mask.register_forward_hook(
                 lambda mod, args, out: heads.append(out[1]))
-            out = pupflow.forward(model, im1, im2)
+            out = entry.forward(model, im1, im2)
             hook.remove()
             results.append((ref, out, heads))
     return results

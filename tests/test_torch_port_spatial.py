@@ -73,7 +73,7 @@ from upflow_pytorch_tpu.ops.correlation import correlation_xla
 from upflow_pytorch_tpu.ops.resize import (
     resize_bilinear_align_corners as jax_resize)
 
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.ops import columns
 from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as kcn
 from upflow_pytorch_tpu_torch.ops.kernels import correlation as kcorr
@@ -105,6 +105,7 @@ import upflow_pytorch_tpu_torch.ops.conv as pconv
 import upflow_pytorch_tpu_torch.ops.warp as pwarp
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
 from upflow_pytorch_tpu_torch.data.synthetic import make_dataset
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.models import upflow
 from upflow_pytorch_tpu_torch.models.blocks import ConvBlock
 from upflow_pytorch_tpu_torch.ops import resize
@@ -328,7 +329,7 @@ def threshold(value):
 
 def eval_model(dtype):
     conf = UPFlowConfig().updated(dict(EVAL_KNOBS, compute_dtype=dtype))
-    return upflow.build_model(conf, "cpu", weights=NPZ)
+    return entry.build_model(conf, "cpu", weights=NPZ)
 
 
 def run_eval(job, mesh, shard):
@@ -458,7 +459,7 @@ def groups(tmp_path_factory, jobs_ns):
         im1, im2 = jobs_ns["eval_pairs"]()
         with jobs_ns["threshold"](jobs_ns["RELAXED_THRESHOLD"]):
             for dtype in EVAL_BARS:
-                out = pupflow.forward(jobs_ns["eval_model"](dtype), im1, im2)
+                out = entry.forward(jobs_ns["eval_model"](dtype), im1, im2)
                 refs[dtype] = {k: out[k].numpy()
                                for k in jobs_ns["OUTPUTS"]}
         refs["jax"] = _jax_forward(jobs_ns, im1, im2)

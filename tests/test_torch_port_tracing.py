@@ -24,14 +24,14 @@ from torch.profiler import ProfilerActivity, profile
 from upflow_pytorch_tpu_torch.config import (
     RAFTConfig, TrainerConfig, UPFlowConfig)
 from upflow_pytorch_tpu_torch.data.synthetic import make_dataset
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.ops.kernels import (
     _common, conv3x3_seg, corr_lookup, corr_norm, correlation, feature_warp,
     sgu_blend, sgu_final, warp)
 from upflow_pytorch_tpu_torch.train import step as pstep
 from upflow_pytorch_tpu_torch.utils import profiling
 
-PACKAGE = Path(pupflow.__file__).resolve().parents[1]
+PACKAGE = Path(entry.__file__).resolve().parents[1]
 KERNEL_MODULES = (conv3x3_seg, corr_lookup, corr_norm, correlation,
                   feature_warp, sgu_blend, sgu_final, warp)
 
@@ -146,16 +146,16 @@ def test_forward_holds_every_serving_span_nested(sgu):
     ``upflow.forward``; the final stage is ``upflow.upsample`` with SGU and
     without it."""
     conf = UPFlowConfig().updated(dict(KNOBS, if_sgu_upsample=sgu))
-    model = pupflow.build_model(conf, "cpu", seed=0)
-    _, events = profiled(lambda: pupflow.forward(model, *pair()))
+    model = entry.build_model(conf, "cpu", seed=0)
+    _, events = profiled(lambda: entry.forward(model, *pair()))
     assert [(e.name, owner(e)) for e in events] == SERVING
 
 
 def test_raft_forward_holds_its_spans_nested():
     """A RAFT request opens the entry's spans and RAFT's own: the encoders,
     the volume, each iteration's lookup and update, the upsampling."""
-    model = pupflow.build_model(RAFTConfig(iters=RAFT_ITERS), "cpu", seed=0)
-    _, events = profiled(lambda: pupflow.forward(model, *pair(hw=(124, 150))))
+    model = entry.build_model(RAFTConfig(iters=RAFT_ITERS), "cpu", seed=0)
+    _, events = profiled(lambda: entry.forward(model, *pair(hw=(124, 150))))
     assert [(e.name, owner(e)) for e in events] == RAFT
 
 
@@ -182,11 +182,11 @@ def test_train_step_holds_its_phases(profiled_steps, eq_weight):
 
 
 def test_forward_bit_equal_with_the_profiler_on_and_off():
-    model = pupflow.build_model(UPFlowConfig().updated(KNOBS), "cpu",
-                                seed=0)
+    model = entry.build_model(UPFlowConfig().updated(KNOBS), "cpu",
+                              seed=0)
     im1, im2 = pair(3)
-    off = pupflow.forward(model, im1, im2)
-    on, events = profiled(lambda: pupflow.forward(model, im1, im2))
+    off = entry.forward(model, im1, im2)
+    on, events = profiled(lambda: entry.forward(model, im1, im2))
     assert events
     for key in ("flow_f_out", "flow_b_out", "occ_fw", "occ_bw"):
         assert torch.equal(on[key], off[key]), key
@@ -215,17 +215,17 @@ def test_off_path_is_one_null_context_and_opens_no_range(monkeypatch):
     opened = []
     monkeypatch.setattr(profiling, "_RecordFunctionFast",
                         lambda name: opened.append(name))
-    model = pupflow.build_model(UPFlowConfig(), "cpu", seed=0)
-    pupflow.forward(model, *pair(1))
+    model = entry.build_model(UPFlowConfig(), "cpu", seed=0)
+    entry.forward(model, *pair(1))
     assert opened == []
 
 
 def test_trace_writes_the_span_tree(tmp_path):
     """``profiling.trace(log_dir)`` is a profiler like any other: its
     Chrome trace holds the spans."""
-    model = pupflow.build_model(UPFlowConfig(), "cpu", seed=0)
+    model = entry.build_model(UPFlowConfig(), "cpu", seed=0)
     with profiling.trace(str(tmp_path)):
-        pupflow.forward(model, *pair(2))
+        entry.forward(model, *pair(2))
     text = (tmp_path / profiling.TRACE_FILE).read_text()
     for name, _ in SERVING:
         assert '"%s"' % name in text, name

@@ -49,8 +49,10 @@ from upflow_pytorch_tpu_torch.checkpoint.convert import (
     params_from_jax, torch_key_for_flax_path)
 from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.data.synthetic import make_dataset
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.models import upflow as pupflow
 from upflow_pytorch_tpu_torch.ops import conv as pconv_ops
+from upflow_pytorch_tpu_torch.ops import resize
 from upflow_pytorch_tpu_torch.train import step as pstep
 
 NPZ = str(Path(__file__).resolve().parents[1] / "assets"
@@ -113,9 +115,9 @@ def _batch(shape, raw, seed=3):
 def _port_pass(knobs, batch, remat=False):
     """The port's terms and its gradients by parameter name."""
     conf = UPFlowConfig().updated(dict(knobs, remat=remat))
-    model = pupflow.build_model(conf, device="cpu", weights=NPZ)
+    model = entry.build_model(conf, device="cpu", weights=NPZ)
     out = pupflow.forward_with_loss(model, batch)
-    with pupflow.fp32_numerics():
+    with resize.fp32_numerics():
         out["total_loss"].backward()
     terms = {k: float(out[k].detach()) for k in TERMS}
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
@@ -223,7 +225,7 @@ def test_forward_under_grad_gives_the_same_flows(dtype):
     """Under autograd the bf16 dense stacks concatenate instead of filling
     buffers; the flows are the same bits."""
     conf = UPFlowConfig().updated(dict(TRAIN_KNOBS, compute_dtype=dtype))
-    model = pupflow.build_model(conf, device="cpu", weights=NPZ)
+    model = entry.build_model(conf, device="cpu", weights=NPZ)
     rng = np.random.RandomState(2)
     im1, im2 = (torch.from_numpy(rng.rand(1, 3, 64, 96).astype(np.float32))
                 for _ in range(2))

@@ -24,7 +24,7 @@ from upflow_pytorch_tpu_torch.checkpoint.torch_import import (
 from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.eval.bench import EvalSample, EvaluationBench
 from upflow_pytorch_tpu_torch.losses import equivariance as pe
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.train.trainer import Trainer
 
 NPZ = str(Path(__file__).resolve().parents[1] / "assets"
@@ -149,11 +149,11 @@ def test_eq_student_forward_pins_full_fp32_matmuls(monkeypatch):
     reads the same afterwards."""
     import upflow_pytorch_tpu_torch.ops.resize as presize
 
-    model = pupflow.build_model(CONF, device="cpu", weights=NPZ)
+    model = entry.build_model(CONF, device="cpu", weights=NPZ)
     rng = np.random.RandomState(1)
     batch = {k: rng.rand(1, H, W, 3).astype(np.float32)
              for k in ("im1", "im2")}
-    teacher = {k: v for k, v in pupflow.forward(
+    teacher = {k: v for k, v in entry.forward(
         model, batch["im1"], batch["im2"]).items() if k != "flows"}
     want = pe.equivariance_pass(model, batch, teacher, pe.step_generator(0))
     seen = []
@@ -196,7 +196,7 @@ def test_trainer_needs_a_gpu_unless_asked(monkeypatch, tmp_path):
 
 
 def test_load_pretrained_report(tmp_path):
-    source = pupflow.build_model(CONF, device="cpu", weights=NPZ)
+    source = entry.build_model(CONF, device="cpu", weights=NPZ)
     sd = params_to_torch_state_dict(source)
     sd["unknown.module.weight"] = torch.zeros(2)
     sd["conv_1x1.0.0.bias"] = torch.zeros(5)

@@ -17,7 +17,7 @@ from upflow_pytorch_tpu.utils import misc as jmisc
 from upflow_pytorch_tpu.utils import viz as jviz
 
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
-from upflow_pytorch_tpu_torch.models import upflow as pupflow
+from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.utils import debug, misc, profiling, viz
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -111,7 +111,7 @@ def test_check_tensor_equals_jax(seed, capsys):
 def test_count_params_of_the_sgu_model():
     """3,494,549 parameters, as the JAX package counts over the trained
     snapshot's tree; the same over the model and its state dict."""
-    model = pupflow.build_model(UPFlowConfig().updated(
+    model = entry.build_model(UPFlowConfig().updated(
         dict(if_sgu_upsample=True)), device="cpu")
     with np.load(NPZ) as z:
         params = flax.traverse_util.unflatten_dict(

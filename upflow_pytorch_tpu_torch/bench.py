@@ -92,11 +92,13 @@ import torch
 
 from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.data.synthetic import make_pair
-from upflow_pytorch_tpu_torch.models.upflow import (
-    UPFlowNet, _resolve_device, build_model, fp32_numerics)
+from upflow_pytorch_tpu_torch.models.entry import build_model
+from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet
 from upflow_pytorch_tpu_torch.ops.kernels import feature_warp as kfw
+from upflow_pytorch_tpu_torch.ops.resize import fp32_numerics
 from upflow_pytorch_tpu_torch.train.step import (
     create_train_state, make_train_step)
+from upflow_pytorch_tpu_torch.utils.misc import as_nchw, resolve_device
 
 BASELINE_V100_PAIRS_PER_SEC = 25.0
 
@@ -163,12 +165,6 @@ def render_pairs(n_pairs: int, seed: int, hw: Tuple[int, int],
     with ThreadPoolExecutor(min(n_pairs, os.cpu_count() or 1)) as pool:
         items = list(pool.map(pair, range(n_pairs)))
     return {k: np.stack([it[k] for it in items]) for k in items[0]}
-
-
-def as_nchw(x: np.ndarray, device) -> torch.Tensor:
-    """An NHWC numpy batch as a contiguous NCHW fp32 tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(x)).to(
-        device=device, dtype=torch.float32).permute(0, 3, 1, 2).contiguous()
 
 
 def chain_input(base: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
@@ -365,7 +361,7 @@ def run_bench(device=None, batch: int = BATCH, hw=(HEIGHT, WIDTH),
           train: bool = True) -> Dict[str, Any]:
     """Every lane of the bench on ``device`` (the card unless ``"cpu"``
     is asked for); returns the JSON line's object."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     h, w = hw
     model, used_ckpt = load_model(CONF, device)
     data = render_pairs(batch, 7, (h, w))

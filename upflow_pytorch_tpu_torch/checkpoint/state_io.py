@@ -19,7 +19,7 @@ from typing import Any, List, Optional
 
 import torch
 
-from upflow_pytorch_tpu_torch.models.upflow import _resolve_device
+from upflow_pytorch_tpu_torch.utils.misc import resolve_device
 
 _NAME = re.compile(r"step_(\d+)\.pt$")
 
@@ -59,7 +59,7 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
     """The payload of checkpoint ``step`` (the newest by default), its
     tensors on ``map_location`` (the card unless ``"cpu"`` is asked for);
     raises ``FileNotFoundError`` when there is none."""
-    map_location = _resolve_device(map_location)
+    map_location = resolve_device(map_location)
     if step is None:
         step = latest_step(ckpt_dir)
     if step is None or not os.path.exists(_path(ckpt_dir, step)):

@@ -108,7 +108,7 @@ class UPFlowConfig(ConfigBase):
 class RAFTConfig(ConfigBase):
     """RAFT (Teed & Deng, ECCV 2020; princeton-vl/RAFT ``core/raft.py``),
     the full model, served on the same entry as UPFlow
-    (``models/upflow.py::forward``).
+    (``models/entry.py::forward``).
 
     The widths are the published ones and fixed (the properties below),
     as are ``InputPadder``'s 'kitti' padding and the entry's occlusion

@@ -20,10 +20,8 @@ import numpy as np
 import torch
 
 from upflow_pytorch_tpu_torch.config import UPFlowConfig
-from upflow_pytorch_tpu_torch.models.upflow import (
-    build_model,
-    forward_with_loss,
-)
+from upflow_pytorch_tpu_torch.models.entry import build_model
+from upflow_pytorch_tpu_torch.models.upflow import forward_with_loss
 from upflow_pytorch_tpu_torch.utils.debug import check_tensor, count_params
 
 DEMO_CONF = UPFlowConfig().updated(dict(

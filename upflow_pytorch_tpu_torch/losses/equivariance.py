@@ -34,11 +34,12 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from upflow_pytorch_tpu_torch.models.upflow import (
-    UPFlowNet, _as_nchw, fp32_numerics)
+from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet
+from upflow_pytorch_tpu_torch.ops.resize import fp32_numerics
 from upflow_pytorch_tpu_torch.ops.warp import _analytic_wsum, bilinear_sample
 from upflow_pytorch_tpu_torch.parallel.mesh import Mesh
 from upflow_pytorch_tpu_torch.parallel.reduce import global_sum, rank_share
+from upflow_pytorch_tpu_torch.utils.misc import as_nchw
 
 # the step's draws: random_affine(step_generator(step), B)
 EQ_SEED = 17
@@ -178,8 +179,8 @@ def equivariance_pass(model: UPFlowNet, batch: Dict[str, Any],
     this rank's slice of a global batch ``mesh.size`` times as large, whose
     draws are made and sliced (``mesh.rows``)."""
     device = next(model.parameters()).device
-    im1 = _as_nchw(batch["im1"], device)
-    im2 = _as_nchw(batch["im2"], device)
+    im1 = as_nchw(batch["im1"], device)
+    im2 = as_nchw(batch["im2"], device)
     b, _, h, w = im1.shape
     size = b if mesh is None else b * mesh.size
     params = random_affine(

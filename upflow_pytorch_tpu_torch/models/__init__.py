@@ -1,1 +1,1 @@
-"""The UPFlow network as PyTorch modules."""
+"""The networks (UPFlow, RAFT) and their serving entry (``entry``)."""

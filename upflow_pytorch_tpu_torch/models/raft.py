@@ -1,5 +1,5 @@
 """RAFT, Recurrent All-Pairs Field Transforms (Teed & Deng, ECCV 2020),
-PyTorch/CUDA, the full model served on the entry of ``models/upflow.py``.
+PyTorch/CUDA, the full model served by ``models/entry.py``.
 
 princeton-vl/RAFT ``core/raft.py``, ``extractor.py``, ``update.py`` and
 ``corr.py`` at the published widths, with their module names, so a
@@ -65,21 +65,10 @@ import torch.nn.functional as F
 
 from upflow_pytorch_tpu_torch.config import RAFTConfig
 from upflow_pytorch_tpu_torch.ops.conv import conv_bf16
+from upflow_pytorch_tpu_torch.ops.kernels._common import cached
 from upflow_pytorch_tpu_torch.ops.kernels.conv3x3_seg import RELU
 from upflow_pytorch_tpu_torch.ops.kernels.corr_lookup import corr_lookup
 from upflow_pytorch_tpu_torch.utils.profiling import span
-
-
-def _cached(owner, slot: str, sources: Sequence[torch.Tensor], make):
-    """``make()``, cached on ``owner`` under ``slot`` until one of
-    ``sources`` changes (its ``_version`` or its storage)."""
-    key = tuple((t._version, t.data_ptr()) for t in sources)
-    hit = owner.__dict__.get(slot)
-    if hit is None or hit[0] != key:
-        with torch.no_grad():
-            hit = (key, make())
-        owner.__dict__[slot] = hit
-    return hit[1]
 
 
 class Merged:
@@ -94,7 +83,7 @@ class Merged:
 
     def params(self) -> Tuple[torch.Tensor, torch.Tensor]:
         sources = [p for c in self.convs for p in (c.weight, c.bias)]
-        return _cached(self, "_merged", sources, lambda: (
+        return cached(self, "_merged", sources, lambda: (
             torch.cat([c.weight for c in self.convs]),
             torch.cat([c.bias for c in self.convs])))
 

@@ -14,7 +14,7 @@ Port of ``upflow_pytorch_tpu.models.upflow``, at fp32 or bf16
 - final flow to full resolution: the rate-scaled upsample, or with
   ``if_sgu_upsample`` the final SGU stage on 1/4-resolution features of
   the raw images;
-- ``forward`` adds the forward-backward occlusion check;
+- ``models/entry.py::forward`` adds the occlusion check;
   ``forward_with_loss`` adds the unsupervised losses of training
   (smoothness, photometric with the boundary-dilated or plain warp,
   census, multi-scale distillation).
@@ -54,27 +54,11 @@ plain versions.  Under autograd each kernel op goes through its
 ``torch.autograd.Function`` (the JAX package's gradient rule), the bf16
 dense stacks concatenate instead of writing into buffers, and with
 ``remat`` the estimator and the context network recompute their
-activations in the backward.  Internally NCHW; ``forward`` and
+activations in the backward.  Internally NCHW; the entry and
 ``forward_with_loss`` take and return NHWC.
 
-The entry serves RAFT too (``models/raft.py::RAFTNet``, built by
-``build_model`` from a ``RAFTConfig``): the same copy in, occlusion check,
-NHWC outputs, graphs, counters and spans.
-
-``forward`` serves a request from a CUDA graph where it can
-(``EntryGraph``): the first call at a key (``graph_key``: the images'
-shapes, the device, the configuration, the mask threshold, cuDNN's
-switches, the parameters' versions) runs eagerly and fills the caches, the
-second captures the network, the occlusion check and the outputs' layout,
-and later calls copy the images into the graph's inputs, replay it and
-clone its outputs: the same kernels with the same arguments, bit for bit
-the eager forward.  A model keeps ``GRAPH_KEYS`` keys.  The call runs
-eagerly where a replay would miss what the call asks for
-(``eager_reason``): on the CPU, on a width shard, under forward hooks,
-while a profiler records, and inside ``eager_entry()``.
-
 Width sharding (the eval step over a mesh's 'spatial' axis,
-``parallel/spatial.py``): ``UPFlowNet.forward`` and ``forward`` take a
+``parallel/spatial.py``): ``UPFlowNet.forward`` and the entry take a
 ``shard``, and each rank computes its columns of every map, through the
 same code.  Every op that reads across columns gets the map's
 ``Columns``: the convs read a window of their input (a halo, a stride-2
@@ -88,23 +72,14 @@ convs take the route of the whole frame's shape.
 
 from __future__ import annotations
 
-import collections
-import contextlib
-from typing import (
-    TYPE_CHECKING, Any, Dict, Iterator, List, Optional, Sequence, Tuple,
-    Union)
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.autograd import profiler as _autograd_profiler
-from torch.nn.modules import module as _nn_module
 from torch.utils.checkpoint import checkpoint
 
-from upflow_pytorch_tpu_torch.checkpoint.convert import params_from_jax
-from upflow_pytorch_tpu_torch.checkpoint.npz_io import load_npz_flat
-from upflow_pytorch_tpu_torch.config import RAFTConfig, UPFlowConfig
+from upflow_pytorch_tpu_torch.config import UPFlowConfig
 from upflow_pytorch_tpu_torch.losses.census import census_loss
 from upflow_pytorch_tpu_torch.losses.photometric import photo_loss_multi_type
 from upflow_pytorch_tpu_torch.losses.smoothness import (
@@ -113,23 +88,24 @@ from upflow_pytorch_tpu_torch.losses.smoothness import (
 from upflow_pytorch_tpu_torch.models.blocks import (
     ContextNetwork, ConvBlock, FeatureExtractor, FlowEstimatorDense,
     SGUModel)
+# the benchmark's names for the entry, which lives in ``models/entry.py``
+from upflow_pytorch_tpu_torch.models.entry import (  # noqa: F401
+    build_model, forward)
 from upflow_pytorch_tpu_torch.models.occlusion import occ_check
-from upflow_pytorch_tpu_torch.models.raft import RAFTNet, load_state
 from upflow_pytorch_tpu_torch.ops import warp as _warp
 from upflow_pytorch_tpu_torch.ops.correlation import correlation
 from upflow_pytorch_tpu_torch.ops.kernels.corr_norm import warp_norm_corr
 from upflow_pytorch_tpu_torch.ops.kernels.sgu_final import sgu_final
 from upflow_pytorch_tpu_torch.ops.normalize import normalize_features
 from upflow_pytorch_tpu_torch.ops.resize import (
-    downsample_area, full_fp32_matmuls, keeping_constants,
-    upsample2d_flow_as, upsample_flow)
+    downsample_area, fp32_numerics, upsample2d_flow_as, upsample_flow)
+from upflow_pytorch_tpu_torch.utils.misc import as_nchw, nhwc
 from upflow_pytorch_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from upflow_pytorch_tpu_torch.parallel.spatial import WidthShard
 
 Flows = List[Tuple[torch.Tensor, torch.Tensor]]
-Net = Union["UPFlowNet", RAFTNet]  # what the entry serves
 
 
 class UPFlowNet(nn.Module):
@@ -368,283 +344,6 @@ def _correlation(f1: torch.Tensor, f2: torch.Tensor, d: int,
     return out[..., d:out.shape[3] - d]
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU unless the caller "
-                "passes device='cpu'")
-        device = "cuda"
-    return torch.device(device)
-
-
-def build_model(conf: Union[UPFlowConfig, RAFTConfig] = UPFlowConfig(),
-                device=None, weights: Optional[str] = None,
-                seed: int = 0) -> Net:
-    """The network in eval mode on ``device`` (CUDA unless ``"cpu"`` is
-    asked for).  Weights: Kaiming-normal from a ``torch.Generator`` seeded
-    with ``seed``, or, with ``weights``, a JAX ``.npz`` snapshot (such as
-    ``assets/synthetic_trained.npz``) loaded strictly through
-    ``params_from_jax``; snapshot entries the model lacks (the SGU
-    weights, when it is built without SGU) are listed in
-    ``model.skipped_keys``.
-
-    A ``RAFTConfig`` builds ``RAFTNet`` with RAFT's initialisation from
-    the seed (``models/raft.py::init_weights``), or with ``weights`` a
-    RAFT state dict saved by ``torch.save``, such as a published
-    checkpoint."""
-    device = _resolve_device(device)
-    if isinstance(conf, RAFTConfig):
-        model = RAFTNet(conf, torch.Generator().manual_seed(seed))
-        if weights is not None:
-            load_state(model, weights)
-        return model.to(device).eval()
-    model = UPFlowNet(conf, torch.Generator().manual_seed(seed))
-    model.skipped_keys = []
-    if weights is not None:
-        sd = params_from_jax(load_npz_flat(weights),
-                             model.state_dict().keys(), model.skipped_keys)
-        model.load_state_dict(sd, strict=True)
-    return model.to(device).eval()
-
-
-def _host(x) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2).contiguous()
-
-
-def _as_nchw(x, device: torch.device) -> torch.Tensor:
-    return _nchw(_host(x).to(device=device, dtype=torch.float32))
-
-
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1).contiguous()
-
-
-@contextlib.contextmanager
-def fp32_numerics() -> Iterator[None]:
-    """fp32 convolutions and matrix products (the flow resizes) in full
-    fp32 for the block: cuDNN's TF32 switched off and the matrix products'
-    precision pinned (``ops/resize.py::full_fp32_matmuls``), whatever the
-    caller set, and both restored after it."""
-    cudnn = torch.backends.cudnn
-    with full_fp32_matmuls(), cudnn.flags(
-            enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-            deterministic=cudnn.deterministic, allow_tf32=False):
-        yield
-
-
-GRAPH_KEYS = 8  # keys a model keeps graphs for: KITTI's frame sizes and more
-EAGER_REASONS = ("first_at_key", "cpu", "shard", "hooks", "profiler",
-                 "eager_entry")
-
-_eager_blocks = 0  # ``eager_entry`` blocks open
-
-
-@contextlib.contextmanager
-def eager_entry() -> Iterator[None]:
-    """``forward`` runs eagerly in the block, never from a graph: for
-    callers that swap the program's functions, which a replay would
-    ignore, or that read the kernels' launch counters around a forward,
-    which count in Python, so at a capture and not at a replay."""
-    global _eager_blocks
-    _eager_blocks += 1
-    try:
-        yield
-    finally:
-        _eager_blocks -= 1
-
-
-def eager_reason(model: Net, device: torch.device,
-                 shard: Optional[WidthShard] = None) -> Optional[str]:
-    """Why ``forward`` must run ``model`` eagerly on ``device`` (one of
-    ``EAGER_REASONS``), or None where a graph may serve the call: no CUDA
-    device ("cpu"); a width shard, whose ``Columns`` the ops read on the
-    host ("shard"); an ``eager_entry()`` block; a torch profiler
-    recording, whose traces time the kernels one launch at a time, under
-    the program's spans and its Python calls ("profiler"); a forward hook
-    or pre-hook on one of the model's modules, or a global one, which a
-    replay would not call ("hooks")."""
-    if device.type != "cuda":
-        return "cpu"
-    if shard is not None:
-        return "shard"
-    if _eager_blocks:
-        return "eager_entry"
-    if _autograd_profiler._is_profiler_enabled:
-        return "profiler"
-    if (_nn_module._global_forward_hooks
-            or _nn_module._global_forward_pre_hooks
-            or any(m._forward_hooks or m._forward_pre_hooks
-                   for m in model.modules())):
-        return "hooks"
-    return None
-
-
-def graph_key(model: Net, shape1: Sequence[int],
-              shape2: Sequence[int], device: torch.device
-              ) -> Tuple[tuple, tuple]:
-    """What the captured work depends on that a call can observe, as (the
-    call's part, the weights' part): the images' shapes and the device;
-    the configuration (compute dtype, SGU, cost volume); the warp mask's
-    threshold; cuDNN's switches and torch's deterministic algorithms; and
-    each parameter's ``_version`` and ``data_ptr()``, as ``packed_params``
-    notices new weights (the packed copies are made on the host, outside
-    any replay)."""
-    cudnn = torch.backends.cudnn
-    call = (tuple(shape1), tuple(shape2), device.index, model.conf,
-            _warp.mask_threshold(), cudnn.enabled, cudnn.benchmark,
-            cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
-    return call, tuple((p._version, p.data_ptr())
-                       for p in model.parameters())
-
-
-class GraphCache:
-    """The graphs ``forward`` keeps on a model, by ``graph_key``: at most
-    ``size`` keys, the least recently used out first.  A key's first call
-    stores None (it runs eagerly), its second the captured graph
-    (``forward`` puts it in ``entries``).  A key of other weights empties
-    the cache: its graphs read the old weights' packed copies, which are
-    gone or stale."""
-
-    def __init__(self, size: int = GRAPH_KEYS):
-        self.size = size
-        self.entries: collections.OrderedDict = collections.OrderedDict()
-
-    def take(self, key: Tuple[tuple, tuple]) -> Tuple[bool, Any]:
-        """(whether ``key`` was met before, its graph or None), the key
-        now the most recently used; a new key is stored with None."""
-        entries = self.entries
-        if entries and next(iter(entries))[1] != key[1]:
-            entries.clear()
-        if key in entries:
-            entries.move_to_end(key)
-            return True, entries[key]
-        entries[key] = None
-        while len(entries) > self.size:
-            entries.popitem(last=False)
-        return False, None
-
-
-class EntryGraph:
-    """One request's device work as a CUDA graph: the NHWC fp32 images in
-    static buffers, their NCHW layout, the network, the occlusion check and
-    the NHWC outputs.  Captured on a side stream after an eager call at the
-    same key has packed the weights, filled ``ops/resize.py``'s caches, set
-    the kernels' attributes and let cuDNN pick its plans; it holds the
-    device constants it reads.  A call copies the images in, replays on
-    the current stream and returns clones of the outputs."""
-
-    def __init__(self, model: Net, shape1: Sequence[int],
-                 shape2: Sequence[int], device: torch.device):
-        self.device = device
-        self.im1 = torch.empty(tuple(shape1), dtype=torch.float32,
-                               device=device)
-        self.im2 = torch.empty(tuple(shape2), dtype=torch.float32,
-                               device=device)
-        self.graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.device(device), torch.cuda.stream(stream), \
-                keeping_constants() as self.constants:
-            # other threads (a loader's copies) may use the device meanwhile
-            self.graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self.out = _outputs(model, _nchw(self.im1),
-                                    _nchw(self.im2))
-            finally:
-                self.graph.capture_end()
-        torch.cuda.current_stream(device).wait_stream(stream)
-
-    def __call__(self, im1: torch.Tensor, im2: torch.Tensor
-                 ) -> Dict[str, Any]:
-        with torch.cuda.device(self.device):
-            self.im1.copy_(im1)
-            self.im2.copy_(im2)
-            self.graph.replay()
-            out = {key: t.clone() for key, t in self.out.items()
-                   if key != "flows"}
-            out["flows"] = [(f.clone(), b.clone())
-                            for f, b in self.out["flows"]]
-        return out
-
-
-def _outputs(model: Net, im1: torch.Tensor, im2: torch.Tensor,
-             shard: Optional[WidthShard] = None, cols=None
-             ) -> Dict[str, Any]:
-    """The network, the occlusion check and the NHWC outputs on NCHW fp32
-    images on the model's device: what ``EntryGraph`` captures."""
-    conf = model.conf
-    with torch.no_grad(), fp32_numerics():
-        flow_f, flow_b, flows = model(im1, im2, shard)
-        with span("upflow.occlusion"):
-            occ_fw, occ_bw = occ_check(
-                flow_f, flow_b, conf.alpha_1, conf.alpha_2,
-                conf.occ_check_obj_out_all, conf.occ_type, cols=cols)
-    with span("upflow.copy_out"):
-        return {
-            "flow_f_out": _nhwc(flow_f),
-            "flow_b_out": _nhwc(flow_b),
-            "occ_fw": _nhwc(occ_fw),
-            "occ_bw": _nhwc(occ_bw),
-            "flows": [(_nhwc(f), _nhwc(b)) for f, b in flows],
-        }
-
-
-def forward(model: Net, im1, im2,
-            shard: Optional[WidthShard] = None) -> Dict[str, Any]:
-    """Inference forward (``UPFlow_net.forward`` with if_loss=False): flows
-    and analytic occlusion masks.
-
-    ``im1``, ``im2``: (B, H, W, 3) NHWC, tensors or arrays; they are moved
-    to the model's device.  Returns NHWC ``flow_f_out``, ``flow_b_out``
-    (B, H, W, 2), ``occ_fw``, ``occ_bw`` (B, H, W, 1) and ``flows``, the
-    per-level ``[(flow_f, flow_b)]`` list finest-first, all fp32 whatever
-    the compute dtype, and each a tensor of its own.  Runs under
-    ``fp32_numerics``.  With ``shard`` (``parallel/spatial.py::
-    WidthShard``) every output is this rank's columns ``shard.cols(w)`` of
-    its width ``w`` (``UPFlowNet.forward``).  A ``RAFTNet`` serves the
-    same outputs, ``flows`` its final pair and its 1/8 pair, and raises
-    on a shard.
-
-    On the card the call is served by the model's ``EntryGraph`` for its
-    ``graph_key`` where ``eager_reason`` finds none: the key's first call
-    runs eagerly, its second captures the graph, later ones replay it.
-    ``forward.graph_captures``, ``forward.graph_replays`` and
-    ``forward.eager_calls`` (by reason) count the calls."""
-    device = next(model.parameters()).device
-    reason = eager_reason(model, device, shard)
-    if reason is None:
-        im1, im2 = _host(im1), _host(im2)
-        key = graph_key(model, im1.shape, im2.shape, device)
-        graphs = model.__dict__.setdefault("_entry_graphs", GraphCache())
-        seen, graph = graphs.take(key)
-        if graph is not None:
-            _counts.graph_replays += 1
-            return graph(im1, im2)
-        if seen:
-            graph = EntryGraph(model, im1.shape, im2.shape, device)
-            graphs.entries[key] = graph
-            _counts.graph_captures += 1
-            return graph(im1, im2)
-        reason = "first_at_key"
-    _counts.eager_calls[reason] += 1
-    with span("upflow.forward"):
-        with span("upflow.copy_in"):
-            im1, im2 = _as_nchw(im1, device), _as_nchw(im2, device)
-        cols = None if shard is None else shard.at(im1.shape[3])
-        return _outputs(model, im1, im2, shard, cols)
-
-
-forward.graph_captures = 0
-forward.graph_replays = 0
-forward.eager_calls = dict.fromkeys(EAGER_REASONS, 0)
-_counts = forward  # the counters' owner, also where a caller wraps forward
-
-
 def _smooth_loss(conf: UPFlowConfig, ims, flows) -> torch.Tensor:
     """The smoothness terms of both directions: edge-aware or delta, of
     order 1 and 2, each weighted."""
@@ -712,13 +411,13 @@ def forward_with_loss(model: UPFlowNet, batch: Dict[str, Any]
     """
     conf = model.conf
     device = next(model.parameters()).device
-    im1_ori = _as_nchw(batch["im1"], device)
-    im2_ori = _as_nchw(batch["im2"], device)
+    im1_ori = as_nchw(batch["im1"], device)
+    im2_ori = as_nchw(batch["im2"], device)
     if conf.input_or_sp_input == 1:
         im1, im2 = im1_ori, im2_ori
     else:
-        im1 = _as_nchw(batch["im1_sp"], device)
-        im2 = _as_nchw(batch["im2_sp"], device)
+        im1 = as_nchw(batch["im1_sp"], device)
+        im2 = as_nchw(batch["im2_sp"], device)
     with fp32_numerics():
         flow_f, flow_b, flows = model(im1, im2)
         # thresholds of the flows: their gradient is zero everywhere
@@ -741,9 +440,9 @@ def forward_with_loss(model: UPFlowNet, batch: Dict[str, Any]
         if conf.if_use_boundary_warp:
             start = torch.as_tensor(batch["start"]).to(device)
             im1_warp = _warp.boundary_dilated_warp(
-                _as_nchw(batch["im2_raw"], device), flow_f, start)
+                as_nchw(batch["im2_raw"], device), flow_f, start)
             im2_warp = _warp.boundary_dilated_warp(
-                _as_nchw(batch["im1_raw"], device), flow_b, start)
+                as_nchw(batch["im1_raw"], device), flow_b, start)
         else:
             im1_warp = _warp.flow_warp(im2_ori, flow_f)
             im2_warp = _warp.flow_warp(im1_ori, flow_b)
@@ -774,13 +473,13 @@ def forward_with_loss(model: UPFlowNet, batch: Dict[str, Any]
         if msd_loss is not None:
             total = total + msd_loss
     return {
-        "flow_f_out": _nhwc(flow_f),
-        "flow_b_out": _nhwc(flow_b),
-        "occ_fw": _nhwc(occ_fw),
-        "occ_bw": _nhwc(occ_bw),
-        "flows": [(_nhwc(f), _nhwc(b)) for f, b in flows],
-        "im1_warp": _nhwc(im1_warp),
-        "im2_warp": _nhwc(im2_warp),
+        "flow_f_out": nhwc(flow_f),
+        "flow_b_out": nhwc(flow_b),
+        "occ_fw": nhwc(occ_fw),
+        "occ_bw": nhwc(occ_bw),
+        "flows": [(nhwc(f), nhwc(b)) for f, b in flows],
+        "im1_warp": nhwc(im1_warp),
+        "im2_warp": nhwc(im2_warp),
         "smooth_loss": smooth_loss,
         "photo_loss": photo_loss,
         "census_loss": census,

@@ -1,10 +1,10 @@
-"""Argument checks, the launch path and the autograd test shared by the
-kernel wrappers."""
+"""Argument checks, the launch path, the autograd test and the
+parameter-change rule shared by the kernel wrappers."""
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 import torch
 
@@ -112,6 +112,25 @@ def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
     Functions."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+def param_versions(tensors: Iterable[torch.Tensor]) -> tuple:
+    """The key of "a parameter changed": each tensor's ``_version``, which
+    every in-place update bumps (``copy_``, ``load_state_dict``, an
+    optimizer step), and its ``data_ptr()``, which new storage changes."""
+    return tuple((t._version, t.data_ptr()) for t in tensors)
+
+
+def cached(owner, slot: str, sources: Sequence[torch.Tensor], make):
+    """``make()`` under ``torch.no_grad()``, cached on ``owner.__dict__``
+    under ``slot`` until ``param_versions(sources)`` changes."""
+    key = param_versions(sources)
+    hit = owner.__dict__.get(slot)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = (key, make())
+        owner.__dict__[slot] = hit
+    return hit[1]
 
 
 def count_cuda_call(fn, *tensors: torch.Tensor) -> None:

@@ -31,11 +31,8 @@ each route.
 
 The weights go in packed (``pack_weight``).  The model packs them once:
 ``packed_params`` keeps the packed copy and the fp32 bias on the module
-that owns the conv and packs anew only when a parameter changed (its
-``_version``, bumped by every in-place update such as ``copy_`` or
-``load_state_dict``, or its storage, as after ``.to()``).  A call without
-``packed`` packs for itself.  An optimizer step updates the parameters in
-place, so the next step's first call packs anew.
+that owns the conv until a parameter changes (``_common.py::cached``), as
+after an optimizer step.  A call without ``packed`` packs for itself.
 
 Under autograd ``conv3x3_seg`` goes through ``Conv3x3SegFn``, whose
 backward is the JAX package's rule (``conv.py::_bwd``): the LeakyReLU's
@@ -57,8 +54,8 @@ import torch.nn.functional as F
 
 from upflow_pytorch_tpu_torch import _build
 from upflow_pytorch_tpu_torch.ops.kernels._common import (
-    INT, LONG, PTR, check_cpu_input, check_cuda_input, count_cuda_call,
-    launch, wants_grad)
+    INT, LONG, PTR, cached, check_cpu_input, check_cuda_input,
+    count_cuda_call, launch, wants_grad)
 from upflow_pytorch_tpu_torch.utils.profiling import span
 
 CHUNK = 64  # input channels per K step of the kernel
@@ -121,17 +118,9 @@ pack_weight.calls = 0
 
 def packed_params(owner, weight: torch.Tensor, bias: torch.Tensor) -> Packed:
     """The packed weights and the fp32 bias of the conv that ``owner``
-    holds, cached on ``owner`` and rebuilt when either parameter changed:
-    the key is each one's ``_version`` and ``data_ptr()``."""
-    key = (weight._version, weight.data_ptr(), bias._version,
-           bias.data_ptr())
-    hit = owner.__dict__.get("_conv3x3_seg_packed")
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    packed = (pack_weight(weight),
-              bias.detach().to(torch.float32).contiguous())
-    owner.__dict__["_conv3x3_seg_packed"] = (key, packed)
-    return packed
+    holds, cached on ``owner`` (``_common.py::cached``)."""
+    return cached(owner, "_conv3x3_seg_packed", (weight, bias), lambda: (
+        pack_weight(weight), bias.detach().to(torch.float32).contiguous()))
 
 
 def staging_route(w: int, batch_stride: int, data_ptr: int) -> str:

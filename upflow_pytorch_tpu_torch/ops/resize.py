@@ -65,6 +65,19 @@ def full_fp32_matmuls() -> Iterator[None]:
             torch.set_float32_matmul_precision(legacy)
 
 
+@contextlib.contextmanager
+def fp32_numerics() -> Iterator[None]:
+    """fp32 convolutions and matrix products (the flow resizes) in full
+    fp32 for the block: cuDNN's TF32 switched off and the matrix products'
+    precision pinned (``full_fp32_matmuls``), whatever the caller set, and
+    both restored after it."""
+    cudnn = torch.backends.cudnn
+    with full_fp32_matmuls(), cudnn.flags(
+            enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+            deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
 @functools.lru_cache(maxsize=256)
 def _interp_matrix_np(out_size: int, in_size: int) -> np.ndarray:
     """(out_size, in_size) align_corners=True bilinear interpolation matrix."""

@@ -35,7 +35,7 @@ from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.parallel.mesh import (
     Mesh, close_distributed, init_distributed, make_mesh, replicate,
     shard_batch)
-from upflow_pytorch_tpu_torch.models.upflow import build_model
+from upflow_pytorch_tpu_torch.models.entry import build_model
 from upflow_pytorch_tpu_torch.parallel.step import (
     make_sharded_eval_step, make_sharded_train_step)
 from upflow_pytorch_tpu_torch.train.step import create_train_state

@@ -25,9 +25,10 @@ import datetime
 import os
 from typing import Any, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
+
+from upflow_pytorch_tpu_torch.utils.misc import host_tensor, resolve_device
 
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
 
@@ -86,13 +87,7 @@ def init_distributed(rank: Optional[int] = None,
     if local_rank is None:
         local_rank = _env_int("LOCAL_RANK")
         local_rank = rank if local_rank is None else local_rank
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU unless the caller "
-                "passes device='cpu'")
-        device = torch.device("cuda", local_rank)
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", local_rank)
     backend = resolve_backend(device, backend)
@@ -173,13 +168,7 @@ def make_mesh(data: Optional[int] = None, spatial: int = 1,
     if data * spatial != world:
         raise ValueError("data=%d x spatial=%d, but the group has %d ranks"
                          % (data, spatial, world))
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU unless the caller "
-                "passes device='cpu'")
-        device = torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     if dist.get_backend() == "nccl" and device.type != "cuda":
@@ -201,7 +190,7 @@ def shard_batch(mesh: Mesh, batch):
     tensors, or one of them) on its device; ``B % W != 0`` raises."""
 
     def take(x):
-        x = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+        x = host_tensor(x)
         return x[mesh.rows(x.shape[0])].to(mesh.device)
 
     if isinstance(batch, dict):

@@ -12,7 +12,7 @@ DDP's reducer does not expect.
 
 The eval step with ``spatial=True`` also shards the frame's width over
 the mesh's 'spatial' axis: each rank computes its columns of every map
-(``parallel/spatial.py``, ``models/upflow.py::forward`` with a shard).
+(``parallel/spatial.py``, ``models/entry.py::forward`` with a shard).
 
 The JAX steps turn the Pallas kernels off on a mesh of more than one
 device (``ops/pallas_gate.py``).  Here every kernel stays on, whole frames
@@ -24,7 +24,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet, forward
+from upflow_pytorch_tpu_torch.models.entry import forward
+from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet
 from upflow_pytorch_tpu_torch.parallel.mesh import Mesh, shard_batch
 from upflow_pytorch_tpu_torch.parallel.spatial import WidthShard
 from upflow_pytorch_tpu_torch.train.step import make_train_step
@@ -46,7 +47,7 @@ def make_sharded_train_step(model: UPFlowNet,
 def make_sharded_eval_step(model: UPFlowNet, mesh: Mesh,
                            spatial: bool = False):
     """``eval_step(im1, im2) -> (flow_f_out, flow_b_out, occ_fw, occ_bw)``:
-    each rank runs ``models/upflow.py::forward`` on its slice of the global
+    each rank runs ``models/entry.py::forward`` on its slice of the global
     NHWC batch, and every rank gets the outputs of the whole batch on its
     device.  The outputs are gathered by an all-reduce of each rank's
     slice written into a zeroed global buffer (exact; one path for NCCL

@@ -46,8 +46,9 @@ import torch.nn as nn
 from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.losses.equivariance import (
     equivariance_pass, step_generator)
-from upflow_pytorch_tpu_torch.models.upflow import (
-    UPFlowNet, build_model, forward_with_loss, fp32_numerics)
+from upflow_pytorch_tpu_torch.models.entry import build_model
+from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet, forward_with_loss
+from upflow_pytorch_tpu_torch.ops.resize import fp32_numerics
 from upflow_pytorch_tpu_torch.parallel.reduce import (
     average_gradients, average_metrics, global_normalisers)
 from upflow_pytorch_tpu_torch.utils.profiling import span

@@ -35,7 +35,8 @@ from upflow_pytorch_tpu_torch.checkpoint.torch_import import (
 from upflow_pytorch_tpu_torch.config import TrainerConfig, UPFlowConfig
 from upflow_pytorch_tpu_torch.data.pipeline import DataLoader
 from upflow_pytorch_tpu_torch.eval.bench import AbsTestModel, EvaluationBench
-from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet, forward
+from upflow_pytorch_tpu_torch.models.entry import forward
+from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet
 from upflow_pytorch_tpu_torch.parallel.mesh import make_mesh, replicate
 from upflow_pytorch_tpu_torch.train.step import (
     TrainState, create_train_state, make_train_step)
@@ -55,7 +56,7 @@ _LOSS_SHORT_NAMES = {
 class NetEvalModel(AbsTestModel):
     """Adapter exposing the network to the ``EvaluationBench``.
 
-    ``eval_forward`` runs ``models/upflow.py::forward`` on the model's
+    ``eval_forward`` runs ``models/entry.py::forward`` on the model's
     device (the kernels on the card, their plain versions on the CPU) and
     returns the forward flow as NHWC numpy.  PyTorch runs eagerly, so
     every frame size is served as it comes and no compile cache is kept,

@@ -2,8 +2,8 @@
 
 Port of ``upflow_pytorch_tpu/utils/misc.py``, the reference's grab-bag
 (``utils/tools.py:254-280,1634-1730``): the numpy and file helpers are
-copies; ``to_device_batch`` moves a host batch to torch tensors on a
-device.
+copies; ``resolve_device``, ``to_device_batch`` and the NHWC/NCHW
+helpers put host data on the port's device.
 """
 
 from __future__ import annotations
@@ -50,13 +50,35 @@ def extract_zip(zip_path: str, dest_dir: str) -> None:
         zf.extractall(dest_dir)
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; None is the card (or raises)."""
+    if device is None and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU unless the caller "
+            "passes device='cpu'")
+    return torch.device("cuda" if device is None else device)
+
+
+def host_tensor(x) -> torch.Tensor:
+    """A tensor as it is, an array as a tensor on the host."""
+    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def as_nchw(x, device: torch.device) -> torch.Tensor:
+    """NHWC images (a tensor or an array) as NCHW fp32 on ``device``."""
+    return host_tensor(x).to(device=device, dtype=torch.float32).permute(
+        0, 3, 1, 2).contiguous()
+
+
 def to_device_batch(batch: Any, device=None) -> Any:
     """Host batch -> tensors on ``device`` (the reference's
     ``tools.tensor_gpu``): every array or tensor of a dict, list or tuple
     (nested), on the card unless ``"cpu"`` is asked for."""
-    from upflow_pytorch_tpu_torch.models.upflow import _resolve_device
-
-    device = _resolve_device(device)
+    device = resolve_device(device)
 
     def move(x):
         if isinstance(x, dict):
