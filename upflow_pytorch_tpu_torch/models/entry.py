@@ -3,7 +3,9 @@
 configuration, and ``forward`` serves either the same way (the copy in,
 the network, the occlusion check, NHWC outputs, counters and spans), on
 the card from one CUDA graph per ``graph_key`` (``EntryGraph``): bit for
-bit the eager forward.
+bit the eager forward.  The caller's host images reach the card by
+``input_route``: large contiguous fp32 ones through pinned memory
+(``staged_copy``).
 """
 
 from __future__ import annotations
@@ -70,6 +72,42 @@ def build_model(conf: Union[UPFlowConfig, RAFTConfig] = UPFlowConfig(),
                              model.state_dict().keys(), model.skipped_keys)
         model.load_state_dict(sd, strict=True)
     return model.to(device).eval()
+
+
+STAGE_MIN_BYTES = 16 << 20  # images above this size are staged
+INPUT_ROUTES = ("staged", "plain", "on_device")
+
+
+def input_route(device: torch.device, *images: torch.Tensor) -> str:
+    """How ``forward`` brings ``images`` (tensors, on the host or a device)
+    to the model's ``device``, one of ``INPUT_ROUTES``: "on_device" where
+    all are there already (any host input of a CPU model), not copied;
+    "staged" where the device is a card and all are contiguous fp32 host
+    tensors of more than ``STAGE_MIN_BYTES`` (``staged_copy``); else
+    "plain", each by ``copy_`` or ``.to(device, float32)``, which converts
+    and gathers it as it is.  On an H100's host a B=16 384x1280 request is
+    served faster staged and a B=1 375x1242 one slower: the CPU copy wakes
+    torch's threads after the card's work, which stalls it by several ms
+    at times (B=1: p95 +7 ms), a cost that only a large copy repays."""
+    if all(x.device == device for x in images):
+        return "on_device"
+    if device.type == "cuda" and all(
+            x.device.type == "cpu" and x.dtype == torch.float32
+            and x.is_contiguous() and x.nbytes > STAGE_MIN_BYTES
+            for x in images):
+        return "staged"
+    return "plain"
+
+
+def staged_copy(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``dst.copy_(src)`` for a host ``src`` and a card tensor ``dst`` of
+    its dtype and size, through page-locked memory: torch's CPU copy (over
+    the intra-op threads) into a buffer of the caching host allocator, then
+    its DMA queued on the current stream, so the host stages the next image
+    while the copy engine moves this one.  ``src`` is read in full before
+    the return.  The DMA records an event on the buffer, which keeps the
+    allocator from handing it out again before the DMA has finished."""
+    return dst.copy_(src.pin_memory(), non_blocking=True)
 
 
 GRAPH_KEYS = 8  # keys a model keeps graphs for: KITTI's frame sizes and more
@@ -171,8 +209,9 @@ class EntryGraph:
     the NHWC outputs.  Captured on a side stream after an eager call at the
     same key has packed the weights, filled ``ops/resize.py``'s caches, set
     the kernels' attributes and let cuDNN pick its plans; it holds the
-    device constants it reads.  A call copies the images in, replays on
-    the current stream and returns clones of the outputs."""
+    device constants it reads.  A call copies the images into the static
+    buffers by their ``input_route``, replays on the current stream behind
+    the copies and returns clones of the outputs."""
 
     def __init__(self, model: Net, shape1: Sequence[int],
                  shape2: Sequence[int], device: torch.device):
@@ -194,11 +233,14 @@ class EntryGraph:
                 self.graph.capture_end()
         torch.cuda.current_stream(device).wait_stream(stream)
 
-    def __call__(self, im1: torch.Tensor, im2: torch.Tensor
+    def __call__(self, im1: torch.Tensor, im2: torch.Tensor, route: str
                  ) -> Dict[str, Any]:
         with torch.cuda.device(self.device):
-            self.im1.copy_(im1)
-            self.im2.copy_(im2)
+            for src, dst in ((im1, self.im1), (im2, self.im2)):
+                if route == "staged":
+                    staged_copy(src, dst)
+                else:
+                    dst.copy_(src)
             self.graph.replay()
             out = {key: t.clone() for key, t in self.out.items()
                    if key != "flows"}
@@ -249,11 +291,15 @@ def forward(model: Net, im1, im2,
     ``graph_key`` where ``eager_reason`` finds none: the key's first call
     runs eagerly, its second captures the graph, later ones replay it, under
     the model's ``GraphCache.lock``.  ``forward.graph_captures``,
-    ``.graph_replays`` and ``.eager_calls`` (by reason) count the calls."""
+    ``.graph_replays`` and ``.eager_calls`` (by reason) count the calls,
+    ``.input_copies`` their copies in by ``input_route``.  The caller may
+    overwrite its arrays once the call returns."""
     device = next(model.parameters()).device
+    im1, im2 = host_tensor(im1), host_tensor(im2)
+    route = input_route(device, im1, im2)
+    _counts.input_copies[route] += 1
     reason = eager_reason(model, device, shard)
     if reason is None:
-        im1, im2 = host_tensor(im1), host_tensor(im2)
         key = graph_key(model, im1.shape, im2.shape, device)
         graphs = model.__dict__.setdefault("_entry_graphs", GraphCache())
         with graphs.lock:
@@ -265,11 +311,14 @@ def forward(model: Net, im1, im2,
                 graphs.entries[key] = graph
                 _counts.graph_captures += 1
             if seen:
-                return graph(im1, im2)
+                return graph(im1, im2, route)
         reason = "first_at_key"
     _counts.eager_calls[reason] += 1
     with span("upflow.forward"):
         with span("upflow.copy_in"):
+            if route == "staged":
+                im1, im2 = (staged_copy(x, torch.empty_like(x, device=device))
+                            for x in (im1, im2))
             im1, im2 = as_nchw(im1, device), as_nchw(im2, device)
         cols = None if shard is None else shard.at(im1.shape[3])
         return _outputs(model, im1, im2, shard, cols)
@@ -278,4 +327,5 @@ def forward(model: Net, im1, im2,
 forward.graph_captures = 0
 forward.graph_replays = 0
 forward.eager_calls = dict.fromkeys(EAGER_REASONS, 0)
+forward.input_copies = dict.fromkeys(INPUT_ROUTES, 0)
 _counts = forward  # the counters' owner, also where a caller wraps forward
