@@ -220,10 +220,25 @@ Phases, each of which must pass:
    through the plain lookup and conv within 0.1 px EPE of the kernels',
    and a profiled request's ``upflow.raft.*`` spans and device ms by
    span.
+13. GMFlow (``models/gmflow.py``; ``python3 chip_smoke.py --gmflow`` runs
+   phases 1 and 13 alone).  The global matching kernel against its plain
+   version at the cell's shapes (N=2, L=S=7,488, C=128: both directions
+   of a 48x156 grid, as matching with the grid and as propagation with a
+   flow), at a ragged 100 x 77 of 3 items and at one key, the same bits
+   on a second call, its device ms beside its bound (``cost`` of
+   ``benchmark/ops/global_match.py``) and the plain version's ms;
+   ``conv3x3_seg`` without a bias at the backbone's 3x3 shapes and with
+   one at the upsampler's; then the bf16 entry at 375x1242: one eager
+   request's launches (2 matching calls, the attention calls by kind, no
+   plain version on the card), a capture and replays bit for bit the
+   eager request, the forward ms from the graph and eagerly, the request
+   through the plain matching within 0.05 px EPE of the kernel's (and
+   through the plain conv too, shown), and a profiled request's
+   ``upflow.gmflow.*`` spans and device ms by span.
 
 The line before the last is the card's name and power limit; the line
 before that holds the kernels' numbers as JSON, the one before that
-RAFT's, and the one before that the training step's (with the Trainer's
+GMFlow's, the one before that RAFT's, and the one before that the training step's (with the Trainer's
 under ``trainer``); the kernels'
 line also holds each kernel's launches in phase 9a's sharded step, and
 in phase 10b's width-sharded forward, and the cases phase 10a held it
@@ -237,6 +252,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import json
+import math
 import os
 import re
 import socket
@@ -345,6 +361,7 @@ KERNEL_OF = (("corr_plain_kernel", "correlation"),
              ("sgu_final_kernel", "sgu_final"),
              ("conv3x3_seg_kernel", "conv3x3_seg"),
              ("corr_lookup_kernel", "corr_lookup"),  # RAFT's
+             ("global_match_kernel", "global_match"),  # GMFlow's
              ("warp_kernel", "warp"))
 # the kernels' other rows: row 5 of the TPU kernels (_window_warp_resident)
 # is served by the image warp kernel, and the bf16 rows are the bf16
@@ -4295,11 +4312,13 @@ class Port:
         from upflow_pytorch_tpu_torch.config import UPFlowConfig
         from upflow_pytorch_tpu_torch.data import synthetic
         from upflow_pytorch_tpu_torch.eval import bench
-        from upflow_pytorch_tpu_torch.config import RAFTConfig
-        from upflow_pytorch_tpu_torch.models import entry, raft, upflow
+        from upflow_pytorch_tpu_torch.config import GMFlowConfig, RAFTConfig
+        from upflow_pytorch_tpu_torch.models import (
+            entry, gmflow, raft, upflow)
         from upflow_pytorch_tpu_torch.ops import conv as conv_ops
         from upflow_pytorch_tpu_torch.ops import resize
         from upflow_pytorch_tpu_torch.ops.kernels import corr_lookup as cl
+        from upflow_pytorch_tpu_torch.ops.kernels import global_match as gm
         from upflow_pytorch_tpu_torch.ops import warp as warp_ops
         from upflow_pytorch_tpu_torch.ops.kernels import conv3x3_seg as seg
         from upflow_pytorch_tpu_torch.ops.kernels import corr_norm as cn
@@ -4329,6 +4348,7 @@ class Port:
         self.step, self.TrainerConfig = step, TrainerConfig
         self.entry, self.upflow, self.resize = entry, upflow, resize
         self.raft, self.cl, self.RAFTConfig = raft, cl, RAFTConfig
+        self.gmflow, self.gm, self.GMFlowConfig = gmflow, gm, GMFlowConfig
         self.pmesh, self.pstep, self.dryrun = pmesh, pstep, dryrun
         self.warp_ops, self.cn, self.corr, self.fw, self.warp = (
             warp_ops, cn, corr, fw, warp)
@@ -4639,6 +4659,239 @@ def raft_plain(k):
             setattr(mod, name, fn)
 
 
+# the global matching kernel's cases: (name, N, L, S), the cell's first
+GMFLOW_MATCHES = (("b1_48x156", 2, 7488, 7488),  # both directions
+                  ("ragged_100x77", 3, 100, 77),
+                  ("one_key", 1, 64, 1))
+GMFLOW_FRAME = (375, 1242)
+GMFLOW_GRID = (48, 156)  # the 1/8 grid of the frame padded to 384x1248
+# the kernel's bar: it sums the same bf16 products as the plain version in
+# fp32 in another order, with exp2 of the log2(e)-scaled scores: outputs
+# agree within 1e-3 of v's largest magnitude
+GMFLOW_MATCH_REL = 1e-3
+# the request through the plain matching against the kernel's (flow EPE,
+# px): the two part after the Transformer, by fp32 summation order alone
+GMFLOW_PLAIN_MATCH_EPE = 0.05
+GMFLOW_FORWARDS = 20
+GMFLOW_SPANS = ("upflow.gmflow.encoder", "upflow.gmflow.transformer",
+                "upflow.gmflow.match", "upflow.gmflow.propagate",
+                "upflow.gmflow.upsample", "upflow.kernel.global_match")
+
+
+def match_case(n, length, keys, seed):
+    """Random bf16 features of the scale GMFlow's Transformer gives and a
+    grid-like v of up to 156 px."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = (4 * torch.randn(n, length, 128, device=DEV, generator=g)).bfloat16()
+    k = (4 * torch.randn(n, keys, 128, device=DEV, generator=g)).bfloat16()
+    v = 156 * torch.rand(n, keys, 2, device=DEV, generator=g)
+    return q, k, v
+
+
+def phase_gmflow(k):
+    """GMFlow (``models/gmflow.py``): the global matching kernel against
+    its plain version, ``conv3x3_seg`` without a bias at the backbone's
+    shapes, and the entry at 375x1242 eagerly, from its graph and on the
+    plain matching.  Returns the phase's numbers."""
+    sys.path.insert(0, str(ROOT))
+    from benchmark.ops import global_match as op
+
+    out = {"match": [], "card": nvidia_smi_line()}
+    scale = 1 / math.sqrt(128)
+    for name, n, length, keys in GMFLOW_MATCHES:
+        q, kk, v = match_case(n, length, keys, len(out["match"]))
+        got = k.gm.global_match_cuda(q, kk, v, scale)
+        ref = k.gm.global_match_plain(q, kk, v, scale)
+        diff = (got - ref).abs().max().item()
+        bar = GMFLOW_MATCH_REL * v.abs().max().item()
+        check(diff <= bar and bool(torch.isfinite(got).all()),
+              "global_match %s: max |kernel - plain| %.3e (bar %.3e)"
+              % (name, diff, bar))
+        check(torch.equal(got, k.gm.global_match_cuda(q, kk, v, scale)),
+              "global_match %s: the same bits twice" % name)
+        nbytes, ops, kind = op.cost(q, kk, v, scale)
+        row = {"case": name, "n": n, "queries": length, "keys": keys,
+               "max_abs_err": diff}
+        row["ms"] = time_ms(lambda: k.gm.global_match_cuda(q, kk, v, scale))
+        row["device_ms"], _ = device_ms(
+            lambda: k.gm.global_match_cuda(q, kk, v, scale),
+            "global_match_kernel")
+        row["plain_ms"] = time_ms(lambda: k.gm.global_match_plain(
+            q, kk, v, scale), reps=5, inner=2)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops,
+                                                    BF16_OPS_PER_S)
+        assert kind == "bfloat16"
+        if row["device_ms"]:
+            row["roofline_pct"] = 100 * row["bound_ms"] / row["device_ms"]
+        print("  info global_match %s: kernel %s ms (device %s), plain %s, "
+              "bound %s ms (%s)" % (name, fmt(row["ms"]),
+                                    fmt(row["device_ms"]),
+                                    fmt(row["plain_ms"]),
+                                    fmt(row["bound_ms"]), row["bound_by"]),
+              flush=True)
+        out["match"].append(row)
+    cell = out["match"][0]
+    check(cell["ms"] < cell["plain_ms"], "global_match at the cell's shape: "
+          "kernel %.3f ms, plain %.3f ms" % (cell["ms"], cell["plain_ms"]))
+    for what, ok in gmflow_conv_cases(k):
+        check(ok[0], "conv3x3_seg %s: %s" % (what, ok[1]))
+
+    # the entry at 375x1242, bf16
+    conf = k.GMFlowConfig(compute_dtype="bfloat16")
+    model = k.entry.build_model(conf, seed=5)
+    h, w = GMFLOW_FRAME
+    im1, im2 = textured_pair(1, h, w, 33)
+    im1, im2 = im1 * 255.0, im2 * 255.0
+    calls = k.gmflow.GMFlowNet.attention_calls
+    with k.entry.eager_entry():
+        zero_counts(k)
+        k.gm.global_match.launches = 0
+        k.gm.global_match_plain.cuda_calls = 0
+        calls0 = dict(calls)
+        eager = k.entry.forward(model, im1, im2)
+        torch.cuda.synchronize()
+        launches = {"global_match": k.gm.global_match.launches,
+                    "conv3x3_seg": k.seg.conv3x3_seg.launches,
+                    "attention": {c: calls[c] - calls0[c] for c in calls}}
+    check(launches["global_match"] == 2
+          and launches["attention"] == {"window": 6, "shifted_window": 6,
+                                        "global_match": 1, "propagate": 1}
+          and k.gm.global_match_plain.cuda_calls == 0
+          and k.seg.conv3x3_seg_plain.cuda_calls == 0,
+          "GMFlow request: %s, no plain version on the card" % launches)
+    check(all(bool(torch.isfinite(eager[key]).all())
+              for key in ("flow_f_out", "flow_b_out")),
+          "GMFlow flows finite (mean |flow| %.2f px)"
+          % eager["flow_f_out"].norm(dim=-1).mean().item())
+    f = k.entry.forward
+    c0, r0 = f.graph_captures, f.graph_replays
+    outs = [k.entry.forward(model, im1, im2) for _ in range(4)]
+    torch.cuda.synchronize()
+    check(f.graph_captures - c0 == 1 and f.graph_replays - r0 == 2,
+          "GMFlow entry: one capture and two replays after the key's first "
+          "call (%d, %d)" % (f.graph_captures - c0, f.graph_replays - r0))
+    same = all(torch.equal(o[key], eager[key]) for o in outs[1:]
+               for key in ("flow_f_out", "flow_b_out", "occ_fw", "occ_bw"))
+    check(same, "GMFlow graph replays bit for bit the eager request")
+    out["launches"] = launches
+    out["forward_ms"] = wall_ms(lambda: k.entry.forward(model, im1, im2),
+                                reps=GMFLOW_FORWARDS)
+    out["eager_forward_ms"] = wall_ms(lambda: eager_call(k, model, im1, im2),
+                                      reps=3)
+    out["device_ms"] = time_ms(lambda: k.entry.forward(model, im1, im2),
+                               reps=5, inner=4)
+    torch.cuda.reset_peak_memory_stats()
+    k.entry.forward(model, im1, im2)
+    torch.cuda.synchronize()
+    out["replay_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def epe(a, b):
+        return max((a[key] - b[key]).norm(dim=-1).mean().item()
+                   for key in ("flow_f_out", "flow_b_out"))
+
+    # the request through the plain matching, then the plain conv too
+    with gmflow_plain(k, conv=False):
+        plain = k.entry.forward(model, im1, im2)
+    out["plain_match_epe_px"] = e = epe(eager, plain)
+    check(e <= GMFLOW_PLAIN_MATCH_EPE, "GMFlow request through the plain "
+          "matching: %.4f px EPE from the kernel's (bar %.2f)"
+          % (e, GMFLOW_PLAIN_MATCH_EPE))
+    with gmflow_plain(k, conv=True):
+        plain = k.entry.forward(model, im1, im2)
+    out["plain_path_epe_px"] = epe(eager, plain)
+    print("  info GMFlow request through the plain matching and conv3x3_seg:"
+          " %.4f px EPE from the kernels' (the global softmax turns the "
+          "conv's summation order into flow)" % out["plain_path_epe_px"])
+    # a profiled request: the spans and the kernel under its span
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        k.entry.forward(model, im1, im2)
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = [e.name for e in events if e.device_type == DeviceType.CPU]
+    out["device_ops"] = sum(1 for e in events
+                            if e.device_type == DeviceType.CUDA)
+    spans = {s: names.count(s) for s in GMFLOW_SPANS}
+    check(all(v == 1 for s, v in spans.items()
+              if s != "upflow.kernel.global_match")
+          and spans["upflow.kernel.global_match"] == 2,
+          "GMFlow spans in a profiled request: %s" % spans)
+    by_span, by_kernel = {}, {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        parent, anc = e, []
+        while parent is not None:
+            anc.append(parent.name)
+            parent = parent.cpu_parent
+        top = next((a for a in anc if a.startswith("upflow.gmflow.")),
+                   "other")
+        by_span[top] = by_span.get(top, 0.0) + sum(
+            kk.duration for kk in e.kernels) / 1e3
+    out["device_ms_by_span"] = by_span
+    out["top_kernels_ms"] = sorted(by_kernel.items(),
+                                   key=lambda kv: -kv[1])[:15]
+    out["spans"] = spans
+    print("  info GMFlow 375x1242 bf16: forward %s ms from the graph (eager "
+          "%s), device %s ms, %d device operations; by span %s" % (
+              fmt(out["forward_ms"]), fmt(out["eager_forward_ms"]),
+              fmt(out["device_ms"]), out["device_ops"],
+              {s: round(v, 3) for s, v in by_span.items()}), flush=True)
+    for kname, ms in out["top_kernels_ms"]:
+        print("  info   %8.3f ms  %s" % (ms, kname[:110]))
+    return out
+
+
+def gmflow_conv_cases(k):
+    """``conv3x3_seg`` against its plain version at each 3x3 stride-1 conv
+    of a bf16 GMFlow request at 375x1242 (two items: both frames) that
+    takes the kernel: the backbone's, without a bias or an activation (a
+    norm follows), and the upsampler's, 130 -> 256 with a bias and ReLU.
+    Yields (what, (ok, description))."""
+    rng = np.random.RandomState(13)
+    h, w = GMFLOW_GRID
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(DEV)
+
+    cases = [(64, 64, 4, False, False), (96, 96, 2, False, False),
+             (128, 128, 1, False, False), (130, 256, 1, True, k.seg.RELU)]
+    for cin, cout, up, bias, relu in cases:
+        x = rand(2, cin, up * h, up * w).bfloat16()
+        wt = rand(cout, cin, 3, 3) / np.sqrt(9 * cin)
+        b = rand(cout) * 0.1 if bias else None
+        got = k.seg.conv3x3_seg_cuda(x, wt, b, 1, relu)
+        ref = k.seg.conv3x3_seg_plain(x, wt, b, 1, relu).float()
+        _, (ok, desc) = conv_agreement(got.float(), ref)
+        yield ("%s, %d->%d at 2x%dx%d" % (
+            "upsampler, bias and ReLU" if bias else "backbone, no bias",
+            cin, cout, up * h, up * w), (ok, desc))
+
+
+@contextlib.contextmanager
+def gmflow_plain(k, conv: bool):
+    """GMFlow's matching (and with ``conv`` ``conv3x3_seg``) on their plain
+    versions."""
+    swaps = [(k.gmflow, "global_match", k.gm.global_match_plain)]
+    if conv:
+        swaps.append((k.conv_ops, "conv3x3_seg", k.seg.conv3x3_seg_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        with k.entry.eager_entry():
+            yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def kernels_line(rows, launches, one_rank, spatial, bench):
     """One entry per kernel and row; times are per forward at B=4,
     384x1280 on the SGU path (the bf16 rows on the bf16 SGU path): the sum
@@ -4733,6 +4986,10 @@ def main(argv) -> int:
         print("phase 12: RAFT", flush=True)
         print(json.dumps({"raft": phase_raft(k)}), flush=True)
         return finish(name)
+    if argv[:1] == ["--gmflow"]:  # phases 1 and 13 alone
+        print("phase 13: GMFlow", flush=True)
+        print(json.dumps({"gmflow": phase_gmflow(k)}), flush=True)
+        return finish(name)
     print("phase 2: kernels against their plain versions", flush=True)
     rows = phase_kernels(k)
     if argv[:1] == ["--kernels"]:  # phases 1 and 2 alone
@@ -4783,11 +5040,14 @@ def main(argv) -> int:
         bench = phase_bench(k)
     print("phase 12: RAFT", flush=True)
     raft = phase_raft(k)
+    print("phase 13: GMFlow", flush=True)
+    gmflow = phase_gmflow(k)
 
     print(json.dumps({"forward_ms": timing,
                       "device_kernels_per_forward": kernels_per_forward}))
     print(json.dumps({"train": train}))
     print(json.dumps({"raft": raft}))
+    print(json.dumps({"gmflow": gmflow}))
     print(json.dumps(kernels_line(rows, launches, parallel["9a"], spatial,
                                   bench)))
     print(smi)

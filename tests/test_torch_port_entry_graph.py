@@ -77,17 +77,18 @@ def cpu_model():
 
 PACKAGE = "upflow_pytorch_tpu_torch"
 # module -> the modules of the package that importing it must not load
-LAYERS = {"models.entry": ("models.upflow", "models.raft"),
-          "models.upflow": ("models.raft",),
+LAYERS = {"models.entry": ("models.upflow", "models.raft", "models.gmflow"),
+          "models.upflow": ("models.raft", "models.gmflow"),
           "checkpoint.state_io": ("models",),
           "utils.misc": ("models",)}
 
 
 @pytest.mark.parametrize("module", sorted(LAYERS))
 def test_layering(module):
-    """The entry sits above both networks and loads neither, UPFlow's
-    module does not load RAFT's, and the checkpoint and device helpers
-    load no network module: each imported alone, in a fresh process."""
+    """The entry sits above the three networks and loads none, UPFlow's
+    module loads neither RAFT's nor GMFlow's, and the checkpoint and device
+    helpers load no network module: each imported alone, in a fresh
+    process."""
     code = ("import importlib, sys; importlib.import_module(%r); "
             "print(' '.join(sys.modules))" % (PACKAGE + "." + module))
     run = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -180,7 +181,7 @@ def _merged(model):
     them."""
     heads = model.update_block.heads
     return heads.params(), tuple(
-        torch.cat([getattr(c, name) for c in heads.convs])
+        torch.cat([getattr(c, name) for c in heads.layers])
         for name in ("weight", "bias"))
 
 
@@ -191,7 +192,7 @@ def _key(model):
 # user -> (its network, the conv an update changes, what the rule keeps)
 RULE_USERS = {
     "packed_conv": ("upflow", lambda m: m.flow_estimators.conv1[0], _packed),
-    "merged_conv": ("raft", lambda m: m.update_block.heads.convs[1],
+    "merged_conv": ("raft", lambda m: m.update_block.heads.layers[1],
                     _merged),
     "graph_key": ("upflow", lambda m: m.flow_estimators.conv1[0], _key)}
 RULE_UPDATES = ("copy_", "load_state_dict", "bias", "to", "data",

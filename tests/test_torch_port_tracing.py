@@ -22,18 +22,18 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from upflow_pytorch_tpu_torch.config import (
-    RAFTConfig, TrainerConfig, UPFlowConfig)
+    GMFlowConfig, RAFTConfig, TrainerConfig, UPFlowConfig)
 from upflow_pytorch_tpu_torch.data.synthetic import make_dataset
 from upflow_pytorch_tpu_torch.models import entry
 from upflow_pytorch_tpu_torch.ops.kernels import (
     _common, conv3x3_seg, corr_lookup, corr_norm, correlation, feature_warp,
-    sgu_blend, sgu_final, warp)
+    global_match, sgu_blend, sgu_final, warp)
 from upflow_pytorch_tpu_torch.train import step as pstep
 from upflow_pytorch_tpu_torch.utils import profiling
 
 PACKAGE = Path(entry.__file__).resolve().parents[1]
 KERNEL_MODULES = (conv3x3_seg, corr_lookup, corr_norm, correlation,
-                  feature_warp, sgu_blend, sgu_final, warp)
+                  feature_warp, global_match, sgu_blend, sgu_final, warp)
 
 # the training recipe of the determinism tests (SGU, the normalised cost
 # volume, census, the distillation) on B=2 64x128 crops
@@ -62,6 +62,13 @@ RAFT = [("upflow.forward", None), ("upflow.copy_in", "upflow.forward"),
     (name, "upflow.forward") for _ in range(RAFT_ITERS)
     for name in ("upflow.raft.lookup", "upflow.raft.update")] + [
     ("upflow.raft.upsample", "upflow.forward"),
+    ("upflow.occlusion", "upflow.forward"),
+    ("upflow.copy_out", "upflow.forward")]
+# a GMFlow request (``models/gmflow.py``)
+GMFLOW = [("upflow.forward", None), ("upflow.copy_in", "upflow.forward")] + [
+    ("upflow.gmflow." + name, "upflow.forward")
+    for name in ("encoder", "transformer", "match", "propagate",
+                 "upsample")] + [
     ("upflow.occlusion", "upflow.forward"),
     ("upflow.copy_out", "upflow.forward")]
 STEP = {"upflow.step": None, "upflow.step.loss": "upflow.step",
@@ -157,6 +164,15 @@ def test_raft_forward_holds_its_spans_nested():
     model = entry.build_model(RAFTConfig(iters=RAFT_ITERS), "cpu", seed=0)
     _, events = profiled(lambda: entry.forward(model, *pair(hw=(124, 150))))
     assert [(e.name, owner(e)) for e in events] == RAFT
+
+
+def test_gmflow_forward_holds_its_spans_nested():
+    """A GMFlow request opens the entry's spans and GMFlow's own: the
+    encoder, the Transformer, the matching, the propagation and the
+    upsampling."""
+    model = entry.build_model(GMFlowConfig(), "cpu", seed=0)
+    _, events = profiled(lambda: entry.forward(model, *pair(hw=(64, 96))))
+    assert [(e.name, owner(e)) for e in events] == GMFLOW
 
 
 @pytest.mark.parametrize("eq_weight", [0.0, 0.1])
@@ -301,15 +317,17 @@ def kernel_ops():
 
 def test_every_span_of_the_table_is_in_the_package():
     assert span_literals() == sorted(
-        {n for n, _ in SERVING + RAFT if not n.startswith("upflow.level.")}
+        {n for n, _ in SERVING + RAFT + GMFLOW
+         if not n.startswith("upflow.level.")}
         | set(STEP) | {"upflow.level.<suffix>", "upflow.kernel.<suffix>"}
         | {"upflow.rule.%s" % fn.__name__ for fn in functions()})
 
 
 def test_every_kernel_op_is_named():
     assert kernel_ops() == ["conv3x3_seg", "corr_lookup", "corr_norm",
-                            "correlation", "feature_warp", "sgu_blend",
-                            "sgu_blend_pair", "sgu_final", "warp"]
+                            "correlation", "feature_warp", "global_match",
+                            "sgu_blend", "sgu_blend_pair", "sgu_final",
+                            "warp"]
 
 
 @pytest.mark.parametrize("name", span_literals() + [

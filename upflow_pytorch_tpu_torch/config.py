@@ -3,10 +3,11 @@
 The same knob surface as ``upflow_pytorch_tpu.config.UPFlowConfig``: the 22
 knobs of the reference ``UPFlow_net.config`` with their defaults, the
 extensions below them, and the ``updated`` / ``get_name`` helpers of the
-reference ``tools.abstract_config``; ``RAFTConfig``, the RAFT network
-served on the same entry; ``KittiTrainDataConfig``, the KITTI
-multiview training data's knobs; and ``TrainerConfig``, the trainer's
-knobs.
+reference ``tools.abstract_config``; ``RAFTConfig`` and ``GMFlowConfig``,
+the RAFT and GMFlow networks served on the same entry; ``OcclusionCheck``,
+the settings of the occlusion check that the entry runs on every
+network's flows; ``KittiTrainDataConfig``, the KITTI multiview training
+data's knobs; and ``TrainerConfig``, the trainer's knobs.
 """
 
 from __future__ import annotations
@@ -36,16 +37,37 @@ class ConfigBase:
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
+def _check_dtype(compute_dtype: str) -> None:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError("compute_dtype must be one of %s, got %r"
+                         % (" or ".join(map(repr, COMPUTE_DTYPES)),
+                            compute_dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class OcclusionCheck:
+    """The forward-backward occlusion check that ``models/entry.py``
+    runs on a network's flows (``models/occlusion.py::occ_check``): UPFlow's
+    four occlusion knobs with their published defaults, which are its eval
+    settings.  ``UPFlowConfig`` takes its knobs' defaults from here and
+    names its own values as ``occlusion``; RAFT and GMFlow name these."""
+
+    occ_type: str = "for_back_check"
+    alpha_1: float = 0.1
+    alpha_2: float = 0.5
+    occ_check_obj_out_all: str = "obj"  # 'obj' | 'out' | 'all'
+
+
 @dataclasses.dataclass(frozen=True)
 class UPFlowConfig(ConfigBase):
     """All 22 knobs of ``UPFlow_net.config``, with the reference defaults,
     plus the extensions at the bottom."""
 
     # --- occlusion check
-    occ_type: str = "for_back_check"
-    alpha_1: float = 0.1
-    alpha_2: float = 0.5
-    occ_check_obj_out_all: str = "obj"  # 'obj' | 'out' | 'all'
+    occ_type: str = OcclusionCheck.occ_type
+    alpha_1: float = OcclusionCheck.alpha_1
+    alpha_2: float = OcclusionCheck.alpha_2
+    occ_check_obj_out_all: str = OcclusionCheck.occ_check_obj_out_all
     stop_occ_gradient: bool = False
     # --- smoothness loss
     smooth_level: str = "final"  # 'final' | '1/4'
@@ -82,10 +104,13 @@ class UPFlowConfig(ConfigBase):
     output_level: int = 4
 
     def __post_init__(self):
-        if self.compute_dtype not in COMPUTE_DTYPES:
-            raise ValueError("compute_dtype must be one of %s, got %r"
-                             % (" or ".join(map(repr, COMPUTE_DTYPES)),
-                                self.compute_dtype))
+        _check_dtype(self.compute_dtype)
+
+    @property
+    def occlusion(self) -> OcclusionCheck:
+        """The entry's occlusion check: this configuration's knobs."""
+        return OcclusionCheck(self.occ_type, self.alpha_1, self.alpha_2,
+                              self.occ_check_obj_out_all)
 
     @property
     def num_chs(self) -> Tuple[int, ...]:
@@ -112,25 +137,18 @@ class RAFTConfig(ConfigBase):
 
     The widths are the published ones and fixed (the properties below),
     as are ``InputPadder``'s 'kitti' padding and the entry's occlusion
-    check with UPFlow's eval settings; the fields are what a deployment
-    chooses: the update iterations (``evaluate.py`` runs 24 on KITTI) and
-    the compute dtype (bfloat16 in place of RAFT's fp16
+    check with UPFlow's eval settings (``occlusion``); the fields are what
+    a deployment chooses: the update iterations (``evaluate.py`` runs 24
+    on KITTI) and the compute dtype (bfloat16 in place of RAFT's fp16
     ``--mixed_precision``)."""
 
     iters: int = 24
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
 
-    # the entry's occlusion check: UPFlowConfig's defaults
-    occ_type = "for_back_check"
-    alpha_1 = 0.1
-    alpha_2 = 0.5
-    occ_check_obj_out_all = "obj"
+    occlusion = OcclusionCheck()  # the entry's, at UPFlow's eval settings
 
     def __post_init__(self):
-        if self.compute_dtype not in COMPUTE_DTYPES:
-            raise ValueError("compute_dtype must be one of %s, got %r"
-                             % (" or ".join(map(repr, COMPUTE_DTYPES)),
-                                self.compute_dtype))
+        _check_dtype(self.compute_dtype)
         if self.iters < 1:
             raise ValueError("iters must be at least 1, got %d" % self.iters)
 
@@ -157,6 +175,65 @@ class RAFTConfig(ConfigBase):
     @property
     def corr_radius(self) -> int:
         return 4
+
+
+@dataclasses.dataclass(frozen=True)
+class GMFlowConfig(ConfigBase):
+    """GMFlow (Xu et al., CVPR 2022; haofeixu/gmflow ``gmflow/gmflow.py``),
+    the model of the published ``gmflow_kitti`` checkpoint, served on the
+    same entry as UPFlow: one scale at 1/8, global matching and global
+    flow propagation (``corr_radius`` and ``prop_radius`` -1), a 6-block
+    Transformer of one head over 2 x 2 windows, convex upsampling.
+
+    The widths are the published ones and fixed (the properties below),
+    as are ``InputPadder``'s 'kitti' padding to multiples of 16
+    (``main.py``'s ``padding_factor``), the 2 x 2 window splits and the
+    entry's occlusion check with UPFlow's eval settings (``occlusion``);
+    the field is what a deployment chooses: the compute dtype.  At
+    'bfloat16' the card serves the matching and the propagation on the
+    ``global_match`` kernel, which takes bf16 operands; 'float32' runs on
+    the CPU alone, and ``build_model`` refuses it for the card."""
+
+    compute_dtype: str = "bfloat16"  # 'bfloat16' | 'float32' (CPU)
+
+    occlusion = OcclusionCheck()  # the entry's, at UPFlow's eval settings
+
+    def __post_init__(self):
+        _check_dtype(self.compute_dtype)
+
+    @property
+    def feature_channels(self) -> int:  # the backbone's output, d_model
+        return 128
+
+    @property
+    def backbone_dims(self) -> Tuple[int, ...]:
+        """``backbone.py``'s ``feature_dims``: conv1 and layer1 at the
+        first, layer2 and layer3 at the others."""
+        return (64, 96, 128)
+
+    @property
+    def num_transformer_layers(self) -> int:
+        return 6
+
+    @property
+    def num_head(self) -> int:
+        return 1
+
+    @property
+    def ffn_dim_expansion(self) -> int:
+        return 4
+
+    @property
+    def upsample_factor(self) -> int:
+        return 8
+
+    @property
+    def attn_splits(self) -> int:  # windows a side
+        return 2
+
+    @property
+    def padding_factor(self) -> int:
+        return 16
 
 
 @dataclasses.dataclass(frozen=True)

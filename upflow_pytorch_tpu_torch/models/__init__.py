@@ -1,1 +1,2 @@
-"""The networks (UPFlow, RAFT) and their serving entry (``entry``)."""
+"""The networks (UPFlow, RAFT, GMFlow) and their serving entry
+(``entry``)."""

@@ -1,9 +1,10 @@
-"""The serving entry of both networks: ``build_model`` builds
-``models/upflow.py::UPFlowNet`` or ``models/raft.py::RAFTNet`` from its
-configuration, and ``forward`` serves either the same way (the copy in,
-the network, the occlusion check, NHWC outputs, counters and spans), on
-the card from one CUDA graph per ``graph_key`` (``EntryGraph``): bit for
-bit the eager forward.  The caller's host images reach the card by
+"""The serving entry of the three networks: ``build_model`` builds
+``models/upflow.py::UPFlowNet``, ``models/raft.py::RAFTNet`` or
+``models/gmflow.py::GMFlowNet`` from its configuration, and ``forward``
+serves each the same way (the copy in, the network, the occlusion check
+that its configuration names as ``occlusion``, NHWC outputs, counters and
+spans), on the card from one CUDA graph per ``graph_key``
+(``EntryGraph``): bit for bit the eager forward.  The caller's host images reach the card by
 ``input_route``: large contiguous fp32 ones through pinned memory
 (``staged_copy``).
 """
@@ -22,7 +23,8 @@ from torch.nn.modules import module as _nn_module
 
 from upflow_pytorch_tpu_torch.checkpoint.convert import params_from_jax
 from upflow_pytorch_tpu_torch.checkpoint.npz_io import load_npz_flat
-from upflow_pytorch_tpu_torch.config import RAFTConfig, UPFlowConfig
+from upflow_pytorch_tpu_torch.config import (
+    GMFlowConfig, RAFTConfig, UPFlowConfig)
 from upflow_pytorch_tpu_torch.models.occlusion import occ_check
 from upflow_pytorch_tpu_torch.ops import warp as _warp
 from upflow_pytorch_tpu_torch.ops.kernels._common import param_versions
@@ -33,14 +35,16 @@ from upflow_pytorch_tpu_torch.utils.misc import (
 from upflow_pytorch_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:
+    from upflow_pytorch_tpu_torch.models.gmflow import GMFlowNet
     from upflow_pytorch_tpu_torch.models.raft import RAFTNet
     from upflow_pytorch_tpu_torch.models.upflow import UPFlowNet
     from upflow_pytorch_tpu_torch.parallel.spatial import WidthShard
 
-Net = Union["UPFlowNet", "RAFTNet"]  # what the entry serves
+Net = Union["UPFlowNet", "RAFTNet", "GMFlowNet"]  # what the entry serves
+Config = Union[UPFlowConfig, RAFTConfig, GMFlowConfig]
 
 
-def build_model(conf: Union[UPFlowConfig, RAFTConfig] = UPFlowConfig(),
+def build_model(conf: Config = UPFlowConfig(),
                 device=None, weights: Optional[str] = None,
                 seed: int = 0) -> Net:
     """The network in eval mode on ``device`` (CUDA unless ``"cpu"`` is
@@ -54,8 +58,22 @@ def build_model(conf: Union[UPFlowConfig, RAFTConfig] = UPFlowConfig(),
     A ``RAFTConfig`` builds ``RAFTNet`` with RAFT's initialisation from
     the seed (``models/raft.py::init_weights``), or with ``weights`` a
     RAFT state dict saved by ``torch.save``, such as a published
-    checkpoint."""
+    checkpoint.  A ``GMFlowConfig`` builds ``GMFlowNet`` the same way,
+    with GMFlow's initialisation (``models/gmflow.py::init_weights``) or
+    a GMFlow state dict; its 'float32' runs on the CPU alone, and a card
+    raises a ``ValueError`` here."""
     device = resolve_device(device)
+    if isinstance(conf, GMFlowConfig):
+        if device.type != "cpu" and conf.compute_dtype != "bfloat16":
+            raise ValueError("GMFlow serves %s on the CPU alone: the card's "
+                             "global_match takes bf16 (compute_dtype="
+                             "'bfloat16')" % conf.compute_dtype)
+        from upflow_pytorch_tpu_torch.models import gmflow
+
+        model = gmflow.GMFlowNet(conf, torch.Generator().manual_seed(seed))
+        if weights is not None:
+            gmflow.load_state(model, weights)
+        return model.to(device).eval()
     if isinstance(conf, RAFTConfig):
         from upflow_pytorch_tpu_torch.models.raft import RAFTNet, load_state
 
@@ -254,13 +272,13 @@ def _outputs(model: Net, im1: torch.Tensor, im2: torch.Tensor,
              ) -> Dict[str, Any]:
     """The network, the occlusion check and the NHWC outputs on NCHW fp32
     images on the model's device: what ``EntryGraph`` captures."""
-    conf = model.conf
+    occ = model.conf.occlusion
     with torch.no_grad(), fp32_numerics():
         flow_f, flow_b, flows = model(im1, im2, shard)
         with span("upflow.occlusion"):
             occ_fw, occ_bw = occ_check(
-                flow_f, flow_b, conf.alpha_1, conf.alpha_2,
-                conf.occ_check_obj_out_all, conf.occ_type, cols=cols)
+                flow_f, flow_b, occ.alpha_1, occ.alpha_2,
+                occ.occ_check_obj_out_all, occ.occ_type, cols=cols)
     with span("upflow.copy_out"):
         return {
             "flow_f_out": nhwc(flow_f),
@@ -285,7 +303,7 @@ def forward(model: Net, im1, im2,
     WidthShard``) every output is this rank's columns ``shard.cols(w)`` of
     its width ``w`` (``UPFlowNet.forward``).  A ``RAFTNet`` serves the
     same outputs, ``flows`` its final pair and its 1/8 pair, and raises
-    on a shard.
+    on a shard; so does a ``GMFlowNet``.
 
     On the card the call is served by the model's ``EntryGraph`` for its
     ``graph_key`` where ``eager_reason`` finds none: the key's first call

@@ -72,20 +72,30 @@ from upflow_pytorch_tpu_torch.utils.profiling import span
 
 
 class Merged:
-    """Convs of one input run as one: their weights and biases
-    concatenated along the output channels, cached until a source
-    parameter changes.  Not a module, so the state dict keeps RAFT's
+    """Layers of one input (convs, or Linears) run as one: their weights
+    and biases (where they have them) concatenated along the outputs, in
+    ``dtype`` when one is asked for, cached until a source parameter
+    changes.  Not a module, so the state dict keeps the network's
     names."""
 
-    def __init__(self, *convs: nn.Conv2d):
-        self.convs = convs
-        self.stride, self.padding = convs[0].stride, convs[0].padding
+    def __init__(self, *layers: nn.Module):
+        self.layers = layers
+        self.stride = getattr(layers[0], "stride", None)
+        self.padding = getattr(layers[0], "padding", None)
 
-    def params(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        sources = [p for c in self.convs for p in (c.weight, c.bias)]
-        return cached(self, "_merged", sources, lambda: (
-            torch.cat([c.weight for c in self.convs]),
-            torch.cat([c.bias for c in self.convs])))
+    def params(self, dtype: Optional[torch.dtype] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        ls = self.layers
+        sources = [p for m in ls for p in (m.weight, m.bias) if p is not None]
+
+        def make():
+            w = torch.cat([m.weight for m in ls])
+            b = None if ls[0].bias is None else torch.cat([m.bias for m in ls])
+            if dtype is None:
+                return w, b
+            return w.to(dtype), None if b is None else b.to(dtype)
+        return cached(self, "_merged" if dtype is None
+                      else "_merged_%s" % dtype, sources, make)
 
 
 def _params(src) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -125,14 +135,16 @@ def _make_norm(norm_fn: str, planes: int) -> nn.Module:
 
 class ResidualBlock(nn.Module):
     """conv3x3-norm-ReLU-conv3x3-norm-ReLU, plus a strided 1x1 conv and
-    norm on the skip where the stride is 2, then ReLU of the sum."""
+    norm on the skip where the stride is 2, then ReLU of the sum.  The 3x3
+    convs have a bias unless ``bias`` is False (GMFlow's ``backbone.py``);
+    the skip's conv always has one."""
 
     def __init__(self, in_planes: int, planes: int, norm_fn: str,
-                 stride: int = 1):
+                 stride: int = 1, bias: bool = True):
         super().__init__()
         self.conv1 = nn.Conv2d(in_planes, planes, 3, padding=1,
-                               stride=stride)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
+                               stride=stride, bias=bias)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=bias)
         self.norm1 = _make_norm(norm_fn, planes)
         self.norm2 = _make_norm(norm_fn, planes)
         self.downsample = None
@@ -151,18 +163,20 @@ class ResidualBlock(nn.Module):
 
 class BasicEncoder(nn.Module):
     """extractor.py's ``BasicEncoder``: 1/8 resolution, ``output_dim``
-    channels, in the input's dtype."""
+    channels, in the input's dtype.  With ``bias=False`` the 7x7 conv and
+    the residual blocks' 3x3 convs have no bias: GMFlow's ``CNNEncoder``
+    (``backbone.py``, one output scale), whose module names these are."""
 
     def __init__(self, output_dim: int, norm_fn: str,
-                 dims: Sequence[int] = (64, 64, 96, 128)):
+                 dims: Sequence[int] = (64, 64, 96, 128), bias: bool = True):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, dims[0], 7, stride=2, padding=3)
+        self.conv1 = nn.Conv2d(3, dims[0], 7, stride=2, padding=3, bias=bias)
         self.norm1 = _make_norm(norm_fn, dims[0])
         layers, cin = [], dims[0]
         for dim, stride in zip(dims[1:], (1, 2, 2)):
             layers.append(nn.Sequential(
-                ResidualBlock(cin, dim, norm_fn, stride),
-                ResidualBlock(dim, dim, norm_fn)))
+                ResidualBlock(cin, dim, norm_fn, stride, bias),
+                ResidualBlock(dim, dim, norm_fn, bias=bias)))
             cin = dim
         self.layer1, self.layer2, self.layer3 = layers
         self.conv2 = nn.Conv2d(cin, output_dim, 1)
@@ -248,11 +262,12 @@ class BasicUpdateBlock(nn.Module):
         return h, mask, delta
 
 
-def padding(h: int, w: int) -> List[int]:
+def padding(h: int, w: int, factor: int = 8) -> List[int]:
     """``InputPadder(mode='kitti')``'s [left, right, top, bottom] to
-    multiples of 8: the columns by halves, the rows at the bottom."""
-    pad_h = (((h // 8) + 1) * 8 - h) % 8
-    pad_w = (((w // 8) + 1) * 8 - w) % 8
+    multiples of ``factor`` (RAFT's 8, GMFlow's ``padding_factor`` 16):
+    the columns by halves, the rows at the bottom."""
+    pad_h = (((h // factor) + 1) * factor - h) % factor
+    pad_w = (((w // factor) + 1) * factor - w) % factor
     return [pad_w // 2, pad_w - pad_w // 2, 0, pad_h]
 
 
@@ -383,7 +398,8 @@ def init_weights(model: nn.Module,
                                      generator=g)
                 else:
                     m.weight.uniform_(-bound, bound, generator=g)
-                m.bias.uniform_(-bound, bound, generator=g)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=g)
             elif isinstance(m, nn.BatchNorm2d):
                 m.weight.uniform_(0.5, 1.5, generator=g)
                 m.bias.normal_(0.0, 0.1, generator=g)

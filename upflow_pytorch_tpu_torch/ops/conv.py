@@ -50,12 +50,13 @@ def uses_kernel(cin: int, h: int, w: int, kernel_size: int, stride: int,
 
 
 def conv_plain_route(x: torch.Tensor, weight: torch.Tensor,
-                     bias: torch.Tensor, stride: int,
+                     bias: Optional[torch.Tensor], stride: int,
                      padding: Union[int, Tuple[int, int]], dilation: int,
                      relu) -> torch.Tensor:
     """``nn.Conv(dtype=bfloat16)`` + ``nn.leaky_relu`` on a bf16 map (or
-    ReLU with ``relu=RELU``, as ``conv3x3_seg`` takes it); ``padding``
-    pads rows and columns alike, or is (rows, columns)."""
+    ReLU with ``relu=RELU``, as ``conv3x3_seg`` takes it), with no bias
+    added where ``bias`` is None; ``padding`` pads rows and columns alike,
+    or is (rows, columns)."""
     w = weight.to(torch.bfloat16)
     if x.is_cuda:
         y = F.conv2d(x, w, None, stride, padding, dilation)
@@ -65,7 +66,8 @@ def conv_plain_route(x: torch.Tensor, weight: torch.Tensor,
         # differs from flax by more than an ulp
         y = F.conv2d(x.float(), w.float(), None, stride, padding,
                      dilation).to(torch.bfloat16)
-    y = y + bias.to(torch.bfloat16)[None, :, None, None]
+    if bias is not None:
+        y = y + bias.to(torch.bfloat16)[None, :, None, None]
     if relu:
         # the product with the bf16 slope, rounded: the fp32 slope of
         # F.leaky_relu gives another value on a fifth of the negatives
@@ -74,13 +76,15 @@ def conv_plain_route(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
-def conv_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+def conv_bf16(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor],
               stride: int, padding: Union[int, Tuple[int, int]],
               dilation: int, relu, out: Optional[torch.Tensor] = None,
               owner=None,
               width: Optional[int] = None) -> torch.Tensor:
-    """One ``ConvBlock`` at bf16 on the route its shape selects; writes
-    into ``out`` when it is given and returns it.  On the kernel route
+    """One ``ConvBlock`` at bf16 on the route its shape selects (``bias``
+    None for a conv without one); writes into ``out`` when it is given and
+    returns it.  On the kernel route
     with a CUDA input the weights come packed from ``owner``'s cache
     (``packed_params``) when an owner is given.  With ``width``, ``x`` is
     a window of a width-sharded map of ``width`` columns that holds every

@@ -116,11 +116,24 @@ def pack_weight(weight: torch.Tensor) -> torch.Tensor:
 pack_weight.calls = 0
 
 
-def packed_params(owner, weight: torch.Tensor, bias: torch.Tensor) -> Packed:
-    """The packed weights and the fp32 bias of the conv that ``owner``
-    holds, cached on ``owner`` (``_common.py::cached``)."""
-    return cached(owner, "_conv3x3_seg_packed", (weight, bias), lambda: (
-        pack_weight(weight), bias.detach().to(torch.float32).contiguous()))
+def fp32_bias(weight: torch.Tensor, bias: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """The kernel's fp32 bias: ``bias``, or zeros for a conv without one."""
+    if bias is None:
+        return torch.zeros(weight.shape[0], dtype=torch.float32,
+                           device=weight.device)
+    return bias.detach().to(device=weight.device,
+                            dtype=torch.float32).contiguous()
+
+
+def packed_params(owner, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor]) -> Packed:
+    """The packed weights and the fp32 bias (zeros where ``bias`` is None)
+    of the conv that ``owner`` holds, cached on ``owner``
+    (``_common.py::cached``)."""
+    sources = (weight,) if bias is None else (weight, bias)
+    return cached(owner, "_conv3x3_seg_packed", sources, lambda: (
+        pack_weight(weight), fp32_bias(weight, bias)))
 
 
 def staging_route(w: int, batch_stride: int, data_ptr: int) -> str:
@@ -141,20 +154,22 @@ def pitched_width(w: int, dilation: int) -> int:
 
 
 def conv3x3_seg_plain(x: torch.Tensor, weight: torch.Tensor,
-                      bias: torch.Tensor, dilation: int, relu: bool,
+                      bias: Optional[torch.Tensor], dilation: int, relu: bool,
                       out: Optional[torch.Tensor] = None,
                       packed: Optional[Packed] = None) -> torch.Tensor:
     """Plain PyTorch version: the bf16 input and the bf16-rounded weights
     widened to fp32, an fp32 convolution (TF32 off), the fp32 bias, the
-    LeakyReLU in fp32, one rounding to bf16.  Writes into ``out`` when it
-    is given and returns it; ``packed`` is not read."""
+    LeakyReLU in fp32, one rounding to bf16 (no bias where ``bias`` is
+    None).  Writes into ``out`` when it is given and returns it;
+    ``packed`` is not read."""
     count_cuda_call(conv3x3_seg_plain, x, weight)
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
         acc = F.conv2d(x.float(), weight.to(torch.bfloat16).float(), None,
                        padding=dilation, dilation=dilation)
-    acc = acc + bias.float()[None, :, None, None]
+    if bias is not None:
+        acc = acc + bias.float()[None, :, None, None]
     if relu:
         acc = torch.where(acc >= 0, acc, acc * slope(relu))
     y = acc.to(torch.bfloat16)
@@ -167,7 +182,7 @@ conv3x3_seg_plain.cuda_calls = 0
 
 
 def conv3x3_seg_cuda(x: torch.Tensor, weight: torch.Tensor,
-                     bias: torch.Tensor, dilation: int, relu: bool,
+                     bias: Optional[torch.Tensor], dilation: int, relu: bool,
                      out: Optional[torch.Tensor] = None,
                      packed: Optional[Packed] = None) -> torch.Tensor:
     """Launches ``upflow_conv3x3_seg`` on the current stream."""
@@ -179,7 +194,7 @@ def conv3x3_seg_cuda(x: torch.Tensor, weight: torch.Tensor,
     if tuple(weight.shape) != (cout, cin, 3, 3) or cout == 0 or cin == 0:
         raise ValueError("%s: weight has shape %s, expected (Cout, %d, 3, 3)"
                          % (op, tuple(weight.shape), cin))
-    if tuple(bias.shape) != (cout,):
+    if bias is not None and tuple(bias.shape) != (cout,):
         raise ValueError("%s: bias has shape %s, expected (%d,)"
                          % (op, tuple(bias.shape), cout))
     if not 1 <= dilation <= MAX_DILATION:
@@ -191,8 +206,8 @@ def conv3x3_seg_cuda(x: torch.Tensor, weight: torch.Tensor,
     check_cuda_input(op, "out", out, (b, cout, h, w), x.device,
                      (torch.bfloat16,), batch_strided=True)
     if packed is None:
-        packed = (pack_weight(weight.to(x.device)),
-                  bias.to(device=x.device, dtype=torch.float32).contiguous())
+        weight = weight.to(x.device)
+        packed = (pack_weight(weight), fp32_bias(weight, bias))
     wp, bias32 = packed
     nb = block_width(cout)
     if (wp.device != x.device or wp.dtype != torch.bfloat16
@@ -300,7 +315,8 @@ class Conv3x3SegFn(torch.autograd.Function):
                                    ctx.relu) + (None,) * 3
 
 
-def conv3x3_seg(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+def conv3x3_seg(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor],
                 dilation: int = 1, relu: bool = True,
                 out: Optional[torch.Tensor] = None,
                 packed: Optional[Packed] = None) -> torch.Tensor:
@@ -308,9 +324,10 @@ def conv3x3_seg(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     the kernel for CUDA tensors, the plain version for CPU tensors;
     through ``Conv3x3SegFn`` under autograd, where ``out`` must be None.
     ``x``: (B, Cin, H, W) bf16; ``weight``: (Cout, Cin, 3, 3); ``bias``:
-    (Cout,); ``out``: an optional (B, Cout, H, W) bf16 destination, such
-    as a channel slot of a dense buffer; ``packed``: the weights as
-    ``packed_params`` gives them, packed here when it is None."""
+    (Cout,) or None for a conv without one; ``out``: an optional (B, Cout,
+    H, W) bf16 destination, such as a channel slot of a dense buffer;
+    ``packed``: the weights as ``packed_params`` gives them, packed here
+    when it is None."""
     if wants_grad(x, weight, bias):
         if out is not None:
             raise ValueError("conv3x3_seg: under autograd the output is a "

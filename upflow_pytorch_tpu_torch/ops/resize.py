@@ -105,7 +105,7 @@ def _interp_matrix_np(out_size: int, in_size: int) -> np.ndarray:
 _kept: Optional[List[object]] = None  # the list of ``keeping_constants``
 
 
-def _device_constant(maxsize: int):
+def device_constant(maxsize: int):
     """``functools.lru_cache(maxsize)`` for a function that makes a
     constant on a device; inside ``keeping_constants`` each lookup is also
     appended to its list."""
@@ -125,7 +125,9 @@ def _device_constant(maxsize: int):
 @contextlib.contextmanager
 def keeping_constants() -> Iterator[List[object]]:
     """Yields a list that receives every device constant looked up in the
-    block (the interpolation and pool matrices, the taps)."""
+    block (the interpolation and pool matrices, the taps, and the other
+    modules' ``device_constant``s: GMFlow's window mask, position code and
+    grid)."""
     global _kept
     saved, _kept = _kept, []
     try:
@@ -134,7 +136,7 @@ def keeping_constants() -> Iterator[List[object]]:
         _kept = saved
 
 
-@_device_constant(maxsize=256)
+@device_constant(maxsize=256)
 def _interp_matrix(out_size: int, in_size: int,
                    device: torch.device) -> torch.Tensor:
     """The matrix on ``device``, kept after its first use: a copy from host
@@ -143,7 +145,7 @@ def _interp_matrix(out_size: int, in_size: int,
     return torch.from_numpy(_interp_matrix_np(out_size, in_size)).to(device)
 
 
-@_device_constant(maxsize=64)
+@device_constant(maxsize=64)
 def interp_taps(out_size: int, in_size: int, device: torch.device
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The nonzero entries of each row of ``_interp_matrix_np(out_size,
@@ -226,7 +228,7 @@ def resize_vjp(g: torch.Tensor, in_hw: Tuple[int, int]) -> torch.Tensor:
     return gf
 
 
-@_device_constant(maxsize=64)
+@device_constant(maxsize=64)
 def _pool_matrix(out_size: int, in_size: int,
                  device: torch.device) -> torch.Tensor:
     """(out_size, in_size) area-pool matrix on ``device``, kept there: bin
